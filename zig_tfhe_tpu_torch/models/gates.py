@@ -1,0 +1,137 @@
+"""Homomorphic boolean gates, batch-first.
+
+Counterpart of zig_tfhe_tpu/models/gates.py.  Every two-input gate is a
+linear combination plus a bias constant followed by one bootstrap
+(gates.zig:25-152); ``apply_gates`` evaluates a heterogeneous batch (lane i
+runs gate ``gate_ids[i]``) through one shared bootstrap.
+
+Gate algebra (coeff_a, coeff_b, bias as a fraction of the torus):
+  NAND (-1,-1,+1/8)  OR  (+1,+1,+1/8)  AND (+1,+1,-1/8)  XOR (+1,+2,+1/4)
+  XNOR (-1,-2,-1/4)  NOR (-1,-1,-1/8)  ANDNY(-1,+1,-1/8) ANDYN(+1,-1,-1/8)
+  ORNY (-1,+1,+1/8)  ORYN (+1,-1,+1/8)
+NOT/COPY/CONSTANT are bootstrap-free (gates.zig:132-151).
+
+The JAX package pads each bootstrap batch to its TPU-measured tiling
+knees; padded lanes are independent and sliced away, so the port runs the
+batch as given and the outputs are the same.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from zig_tfhe_tpu_torch import bootstrap as _bootstrap
+from zig_tfhe_tpu_torch.key import CloudKey
+from zig_tfhe_tpu_torch.ops.keyswitch import identity_key_switch
+from zig_tfhe_tpu_torch.utils.torus import (f64_to_torus, to_carrier,
+                                            torus_constant_w)
+
+# gate id -> (coeff_a, coeff_b, bias_fraction)
+GATE_DEFS = {
+    "nand":  (-1, -1,  0.125),
+    "or":    (+1, +1,  0.125),
+    "and":   (+1, +1, -0.125),
+    "xor":   (+1, +2,  0.25),
+    # the balanced XNOR -a-2b-1/4 (the reference's xnorGate computes
+    # NOT(XNOR); zig_tfhe_tpu/models/gates.py explains)
+    "xnor":  (-1, -2, -0.25),
+    "nor":   (-1, -1, -0.125),
+    "andny": (-1, +1, -0.125),
+    "andyn": (+1, -1, -0.125),
+    "orny":  (-1, +1,  0.125),
+    "oryn":  (+1, -1,  0.125),
+}
+GATE_NAMES = tuple(GATE_DEFS)
+GATE_IDS = {name: i for i, name in enumerate(GATE_NAMES)}
+
+_COEFF_A = np.array([GATE_DEFS[g][0] for g in GATE_NAMES], np.int32)
+_COEFF_B = np.array([GATE_DEFS[g][1] for g in GATE_NAMES], np.int32)
+_BIAS = np.array([int(np.uint32(f64_to_torus(GATE_DEFS[g][2])))
+                  for g in GATE_NAMES], np.uint32).astype(np.int32)
+
+
+def _bootstrap_batch(combo: torch.Tensor, ck: CloudKey,
+                     to_lv1: bool = False) -> torch.Tensor:
+    """Bootstrap a linear combo of any batch shape [..., n0+1]."""
+    fn = _bootstrap.bootstrap_to_lv1 if to_lv1 else _bootstrap.bootstrap
+    out = fn(combo.reshape(-1, combo.shape[-1]), ck)
+    return out.reshape(*combo.shape[:-1], out.shape[-1])
+
+
+def _linear_combo(ca: int, cb: int, bias: int, a: torch.Tensor,
+                  b: torch.Tensor, n0: int) -> torch.Tensor:
+    out = ca * a + cb * b
+    out[..., n0] += bias
+    return out
+
+
+def gate(name: str, a: torch.Tensor, b: torch.Tensor,
+         ck: CloudKey) -> torch.Tensor:
+    """Evaluate one gate type over a batch: a, b int32 [..., n0+1]."""
+    ca, cb, frac = GATE_DEFS[name]
+    w = ck.params.torus_bits
+    combo = _linear_combo(ca, cb, to_carrier(torus_constant_w(frac, w), w),
+                          a, b, ck.params.n0)
+    return _bootstrap_batch(combo, ck)
+
+
+def apply_gates(gate_ids, a: torch.Tensor, b: torch.Tensor,
+                ck: CloudKey) -> torch.Tensor:
+    """Heterogeneous gate batch: lane i evaluates GATE_NAMES[gate_ids[i]].
+
+    gate_ids: int [B]; a, b: int32 [B, n0+1].  One shared bootstrap.
+    Extra trailing batch dims on a/b broadcast against gate_ids from the
+    left (ids [W] with a [W, B, n0+1] applies id w to every lane of row w).
+    """
+    gate_ids = torch.as_tensor(gate_ids, device=a.device).long()
+    extra = a.dim() - 1 - gate_ids.dim()
+
+    def table(t):
+        return torch.from_numpy(t).to(a.device)[gate_ids]
+
+    ca = table(_COEFF_A).reshape(*gate_ids.shape, *(1,) * (extra + 1))
+    cb = table(_COEFF_B).reshape(*gate_ids.shape, *(1,) * (extra + 1))
+    bias = table(_BIAS).reshape(*gate_ids.shape, *(1,) * extra)
+    combo = ca * a + cb * b
+    combo[..., ck.params.n0] += bias
+    return _bootstrap_batch(combo, ck)
+
+
+def not_(a: torch.Tensor) -> torch.Tensor:
+    """Bootstrap-free NOT (gates.zig:132-135)."""
+    return -a
+
+
+def copy(a: torch.Tensor) -> torch.Tensor:
+    """Bootstrap-free COPY (gates.zig:138-141)."""
+    return a
+
+
+def constant(value: bool, params, batch=(), device="cpu") -> torch.Tensor:
+    """Trivial (noiseless) ciphertext of a constant (gates.zig:144-151),
+    including the reference's false-encoding ``1 -% mu``."""
+    w = params.torus_bits
+    mu = torus_constant_w(0.125, w)
+    val = mu if value else (1 - mu) % (1 << w)
+    ct = torch.zeros((*batch, params.n0 + 1), dtype=torch.int32, device=device)
+    ct[..., params.n0] = to_carrier(val, w)
+    return ct
+
+
+def mux(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+        ck: CloudKey) -> torch.Tensor:
+    """Homomorphic MUX (a ? b : c): 2 blind rotations + 1 key switch.
+
+    u1 = BR(a AND b), u2 = BR((NOT a) AND c), both left at lv1;
+    out = KS(u1 + u2 + 1/8)."""
+    n0 = ck.params.n0
+    w = ck.params.torus_bits
+    bias = to_carrier(torus_constant_w(-0.125, w), w)
+    stacked = torch.cat([_linear_combo(1, 1, bias, a, b, n0),
+                         _linear_combo(-1, 1, bias, a, c, n0)])
+    lv1 = _bootstrap_batch(stacked, ck, to_lv1=True)
+    half = lv1.shape[0] // 2
+    u = lv1[:half] + lv1[half:]
+    u[..., ck.params.n1] += to_carrier(torus_constant_w(0.125, w), w)
+    return identity_key_switch(u, ck.ksk1, ck.params)

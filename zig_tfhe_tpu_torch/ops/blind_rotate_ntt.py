@@ -1,0 +1,108 @@
+"""Blind rotation on the matmul-NTT engine.
+
+Counterpart of zig_tfhe_tpu/ops/blind_rotate_ntt.py.  Per step:
+
+    digits = gadget_decompose(acc)                 # coefficient domain
+    d_hat  = NTT(digits)                           # int8 matmuls
+    u_hat  = sum_rows d_hat * BSK_hat[i]           # pointwise modmul
+    v_hat  = (psi^t - 1) * u_hat                   # NTT-domain X^t rotation
+    acc   += CRT(invNTT(v_hat)) << drop_bits       # the CUDA kernel
+
+``lax.scan`` becomes a Python loop over the steps (234 at the 128-bit
+default, group 3).  Every step's last line runs through
+ops/cuda/ntt_inverse.py:ntt_inverse_to_crt_acc: the hand-written kernel on
+CUDA tensors, its plain version on CPU tensors.  The JAX package's TPU
+switches are not ported; the port runs its defaults (the pointwise/rotate
+barrett fold for one-limb engine digits, the unfused XLA step).  Group 2
+uses the generic subset combiner: its residues differ from the JAX
+package's two-bit combiner only by multiples of p, so the accumulator is
+bit-equal.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from zig_tfhe_tpu_torch.ops import ntt as _ntt
+from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows, modswitch
+from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import ntt_inverse_to_crt_acc
+from zig_tfhe_tpu_torch.params import SecurityParams
+from zig_tfhe_tpu_torch.utils.torus import require_width
+
+
+def rotate_via_ntt(polys: torch.Tensor, t: torch.Tensor,
+                   plan: _ntt.NTTPlan) -> torch.Tensor:
+    """Exact negacyclic X^t rotation of full-torus int32 polys through the
+    NTT.  polys: [B or 1, ..., N] (batch axis leading); t: int32 [B]."""
+    p_hat = _ntt.ntt_forward(polys, plan, digit_limbs=4, digit_bound=128)
+    r_hat = _ntt.rotate_diag(p_hat, t, plan, minus_one=False)
+    return _ntt.ntt_inverse_to_crt(r_hat, plan)
+
+
+def blind_rotate_ntt(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
+                     bsk_ntt: torch.Tensor, params: SecurityParams,
+                     drop_bits: int, group: int = 1, levels=None,
+                     bgbit: int | None = None) -> torch.Tensor:
+    """tlwe_batch int32 [B, n0+1]; testvec int32 [2, N] or [B, 2, N];
+    bsk_ntt int16 [n0, P, la+lb, 2, N] (group 1) or
+    [G, 2^g-1, P, la+lb, 2, N] (multi-bit, G = ceil(n0/g)).
+    Returns int32 [B, 2, N].  (bgbit, levels) is the key's engine gadget
+    (None: the parameter base / levels read off the key's row axis)."""
+    require_width(params.torus_bits)
+    e = params.bgbit if bgbit is None else bgbit
+    row_axis = 2 if group == 1 else 3
+    if levels is None:
+        levels = bsk_ntt.shape[row_axis] // 2
+    levels = _ntt.norm_levels(params, levels, bgbit=e)
+    if levels[0] + levels[1] != bsk_ntt.shape[row_axis]:
+        raise ValueError(f"levels {levels} do not match the key's "
+                         f"{bsk_ntt.shape[row_axis]} gadget rows")
+    plan = _ntt.plan_for_params(params, drop_bits, group, levels, bgbit=e,
+                                pseudorandom_key=True)
+    key_primes = bsk_ntt.shape[row_axis - 1]
+    if key_primes != plan.n_primes:
+        raise ValueError(
+            f"BSK holds {key_primes} CRT prime planes but the plan selects "
+            f"{plan.n_primes}: the key was generated under another plan bound")
+    n0, N = params.n0, params.N
+    B = tlwe_batch.shape[0]
+    e_limbs = _ntt.engine_digit_limbs(e)
+    dbound = _ntt.top_limb_bound(1 << (e - 1), e_limbs)
+    fold = e_limbs == 1
+
+    b_tilda = 2 * N - modswitch(tlwe_batch[:, n0], params)
+    if testvec.dim() == 2:
+        testvec = testvec[None]          # [1, 2, N] broadcasts against [B]
+    acc = rotate_via_ntt(testvec, b_tilda, plan)
+    if acc.shape[0] != B:
+        acc = acc.expand(B, 2, N).contiguous()
+    a_cols = tlwe_batch[:, :n0].T        # [n0, B]
+
+    def fwd(acc):
+        rows = _decompose_to_rows(acc, params, levels, bgbit=e)
+        return _ntt.ntt_forward(rows, plan, e_limbs, dbound)
+
+    def finish(acc, v_hat):
+        return ntt_inverse_to_crt_acc(torch.stack(v_hat), acc, plan, drop_bits)
+
+    if group == 1:
+        for i in range(n0):
+            t = modswitch(a_cols[i], params)
+            u_hat = _ntt.pointwise_extprod(fwd(acc), bsk_ntt[i], plan,
+                                           reduce_output=False)
+            acc = finish(acc, _ntt.rotate_diag(u_hat, t, plan))
+        return acc
+
+    G = bsk_ntt.shape[0]
+    if n0 < group * G:                   # ragged n0: pad a = 0 (no rotation)
+        a_cols = torch.cat([a_cols, a_cols.new_zeros(group * G - n0, B)])
+    a_groups = a_cols.reshape(G, group, B)
+    for s in range(G):
+        ts = [modswitch(a_groups[s, j], params) for j in range(group)]
+        d_hat = fwd(acc)
+        us = [_ntt.pointwise_extprod(d_hat, bsk_ntt[s, m], plan,
+                                     reduce_output=not fold)
+              for m in range((1 << group) - 1)]
+        acc = finish(acc, _ntt.rotate_combine_multi(us, ts, plan,
+                                                    u_wide=fold))
+    return acc
