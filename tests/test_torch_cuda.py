@@ -5,9 +5,9 @@ where jax is not installed, without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The hand-written kernel is held bit-equal to its plain PyTorch version and
-to the closed-form exact result at the slice's shapes; the gate path on the
-card is held bit-equal to the port's CPU path, which the other
+The hand-written kernels are held bit-equal to their plain PyTorch versions
+(K1 also to the closed-form exact result) at the path's shapes; the gate
+path on the card is held bit-equal to the port's CPU path, which the other
 tests/test_torch_*.py files hold bit-equal to the JAX package.
 """
 
@@ -19,6 +19,7 @@ from zig_tfhe_tpu_torch import key, params, tlwe
 from zig_tfhe_tpu_torch.models import gates
 from zig_tfhe_tpu_torch.ops import ntt
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K
+from zig_tfhe_tpu_torch.ops.cuda import ntt_step as K2
 
 pytestmark = pytest.mark.cuda
 
@@ -99,9 +100,11 @@ def test_tiny_gates_on_card_equal_cpu_path(dev, group):
     steps = ck.bsk_ntt.shape[0]
     ck = ck.to(dev)
     before = K.ntt_inverse_to_crt_acc.launches
+    before2 = K2.ntt_step_fused.launches
     out = gates.apply_gates(ids.to(dev), a.to(dev), b.to(dev), ck)
     torch.cuda.synchronize()
     assert K.ntt_inverse_to_crt_acc.launches - before == steps
+    assert K2.ntt_step_fused.launches - before2 == (0 if group == 1 else steps)
     assert torch.equal(out.cpu(), cpu)
     assert np.array_equal(tlwe.decrypt_bool(out.cpu(), sk.key_lv0).numpy(),
                           want)
@@ -126,6 +129,74 @@ def test_128bit_gates_on_card(dev):
     ck_cpu = key.CloudKey.from_numpy(
         {n: t.cpu().numpy() for n, t in ck.named_buffers()}, P,
         bsk_ntt_drop=ck.bsk_ntt_drop, bsk_group=ck.bsk_group,
-        bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit)
+        bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit, device="cpu")
     cpu = gates.apply_gates(ids[:4], a[:4].cpu(), b[:4].cpu(), ck_cpu)
     assert torch.equal(out[:4].cpu(), cpu)
+
+
+# the fused step's configurations: (drop, group, levels, engine bgbit)
+_STEP_CASES = {"128bit_g2": (7, 2, (3, 2), 6), "128bit_g3": (5, 3, (2, 2), 7)}
+
+
+def _step_inputs(dev, case, B, seed):
+    """Digits, one step of in-range key residues (NTTs of uniform rows, as
+    keygen makes them) and rotations, at the 128-bit shapes."""
+    drop, group, levels, bgbit = _STEP_CASES[case]
+    P = params.SECURITY_128_BIT
+    plan = ntt.plan_for_params(P, drop, group, levels, bgbit=bgbit,
+                               pseudorandom_key=True)
+    R, S, N = sum(levels), (1 << group) - 1, plan.N
+    rng = np.random.default_rng(seed)
+    half = 1 << (bgbit - 1)
+    digits = torch.from_numpy(rng.integers(-half, half, (B, R, N))
+                              .astype(np.int8)).to(dev)
+    rows = torch.from_numpy(rng.integers(-2**31, 2**31, (S, R, 2, N))
+                            .astype(np.int32)).to(dev)
+    bsk = ntt.to_ntt_form(rows, plan, drop).movedim(0, 1).contiguous()
+    ts = torch.from_numpy(rng.integers(0, 2 * N + 1, (group, B))
+                          .astype(np.int32)).to(dev)
+    return plan, bgbit, digits, bsk, ts
+
+
+@pytest.mark.parametrize("case", sorted(_STEP_CASES))
+@pytest.mark.parametrize("B", [1, 64, 2048])
+def test_step_kernel_matches_plain(dev, case, B):
+    plan, bgbit, digits, bsk, ts = _step_inputs(dev, case, B, B)
+    before = K2.ntt_step_fused.launches
+    out = K2.ntt_step_fused(digits, bsk, ts, plan, bgbit)
+    torch.cuda.synchronize()
+    assert K2.ntt_step_fused.launches == before + 1
+    assert torch.equal(out, K2.ntt_step_fused_reference(digits, bsk, ts, plan,
+                                                         bgbit))
+
+
+def test_step_kernel_rejects_what_it_cannot_take(dev):
+    plan, bgbit, digits, bsk, ts = _step_inputs(dev, "128bit_g2", 4, 0)
+    with pytest.raises(ValueError, match="shapes"):
+        K2.ntt_step_fused(digits[:, :4], bsk, ts, plan, bgbit)
+    with pytest.raises(ValueError, match="same CUDA device"):
+        K2.ntt_step_fused(digits, bsk.cpu(), ts, plan, bgbit)
+    with pytest.raises(NotImplementedError, match="groups"):
+        K2.ntt_step_fused(digits, bsk[:1], ts[:1], plan, bgbit)
+    with pytest.raises(NotImplementedError, match="one-limb"):
+        K2.ntt_step_fused(digits, bsk, ts, plan, 10)
+
+
+@pytest.mark.parametrize("knobs, steps", [({}, 234),
+                                          ({"group": 2, "decomp_levels": (3, 2)}, 350)])
+def test_128bit_launches_per_bootstrap(dev, knobs, steps):
+    """Each step of a 128-bit bootstrap is one K2 and one K1 launch: 234
+    steps at the group-3 default, 350 with the group-2 (3, 2) key."""
+    P = params.SECURITY_128_BIT
+    g = torch.Generator(device=dev).manual_seed(3)
+    sk = key.SecretKey.generate(g, P)
+    ck = key.CloudKey.generate(g, sk, P, **knobs)
+    ids, x, y, want = _lanes(20, 2)
+    a = tlwe.encrypt_bool(g, x.to(dev), P.ksk_alpha, sk.key_lv0)
+    b = tlwe.encrypt_bool(g, y.to(dev), P.ksk_alpha, sk.key_lv0)
+    before = (K2.ntt_step_fused.launches, K.ntt_inverse_to_crt_acc.launches)
+    out = gates.apply_gates(ids.to(dev), a, b, ck)
+    torch.cuda.synchronize()
+    assert (K2.ntt_step_fused.launches - before[0],
+            K.ntt_inverse_to_crt_acc.launches - before[1]) == (steps, steps)
+    assert np.array_equal(tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy(), want)

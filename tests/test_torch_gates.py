@@ -60,7 +60,7 @@ def port_key(jax_keys):
     return TK.CloudKey.from_numpy(
         arrays, TP.TEST_TINY, bsk_ntt_drop=ck.bsk_ntt_drop,
         bsk_group=ck.bsk_group, bsk_levels=ck.bsk_levels,
-        bsk_bgbit=ck.bsk_bgbit)
+        bsk_bgbit=ck.bsk_bgbit, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +98,7 @@ def test_gate_mux_and_free_gates_bit_equal(jax_keys, port_key, jax_inputs):
     assert torch.equal(TG.copy(_t(a)), _t(a))
     for v in (True, False):
         assert np.array_equal(
-            TG.constant(v, TP.TEST_TINY, (3,)).numpy(),
+            TG.constant(v, TP.TEST_TINY, (3,), device="cpu").numpy(),
             np.asarray(JG.constant(v, JP.TEST_TINY, (3,))))
 
 
@@ -116,8 +116,8 @@ def test_npz_roundtrip_from_jax(jax_keys, port_key, jax_inputs, tmp_path):
     sk, ck = jax_keys
     jser.save_cloud_key(tmp_path / "ck", ck)
     jser.save_secret_key(tmp_path / "sk", sk, JP.TEST_TINY)
-    loaded = tser.load_cloud_key(tmp_path / "ck")
-    tsk, tparams = tser.load_secret_key(tmp_path / "sk")
+    loaded = tser.load_cloud_key(tmp_path / "ck", device="cpu")
+    tsk, tparams = tser.load_secret_key(tmp_path / "sk", device="cpu")
     assert loaded.params is TP.TEST_TINY and tparams is TP.TEST_TINY
     assert (loaded.bsk_ntt_drop, loaded.bsk_group, loaded.bsk_levels,
             loaded.bsk_bgbit) == (ck.bsk_ntt_drop, ck.bsk_group,
@@ -130,7 +130,7 @@ def test_npz_roundtrip_from_jax(jax_keys, port_key, jax_inputs, tmp_path):
     assert np.array_equal(
         got.numpy(), TG.apply_gates(_t(_IDS), _t(a), _t(b), port_key).numpy())
     with pytest.raises(ValueError, match="expected a 'cloud_key'"):
-        tser.load_cloud_key(tmp_path / "sk")
+        tser.load_cloud_key(tmp_path / "sk", device="cpu")
 
 
 @pytest.mark.parametrize("group", [None, 1, 3])

@@ -1,9 +1,10 @@
 """zig_tfhe_tpu_torch — the PyTorch/CUDA port of zig_tfhe_tpu.
 
 TFHE boolean gates with exact mod-2^32 arithmetic: int8-limb matrix
-products for the NTT and the key switch, and a hand-written Hopper kernel
-for the blind-rotation step's inverse NTT + CRT lift
-(ops/cuda/ntt_inverse.py).  The JAX package ``zig_tfhe_tpu`` is the
+products for the NTT and the key switch, and hand-written Hopper kernels
+for the blind-rotation step (ops/cuda/ntt_step.py: forward NTT, pointwise
+products, subset combine; ops/cuda/ntt_inverse.py: inverse NTT + CRT
+lift).  The JAX package ``zig_tfhe_tpu`` is the
 reference: on equal keys and ciphertexts both return the same bits.  This
 package imports torch and numpy only.
 

@@ -45,7 +45,7 @@ class SecretKey(nn.Module):
                    _rng.uniform_binary(gen, (params.n1,)))
 
     @classmethod
-    def from_numpy(cls, key_lv0, key_lv1, device="cpu") -> "SecretKey":
+    def from_numpy(cls, key_lv0, key_lv1, device="cuda") -> "SecretKey":
         return cls(_tensor(key_lv0, np.int32, device),
                    _tensor(key_lv1, np.int32, device))
 
@@ -78,18 +78,31 @@ class CloudKey(nn.Module):
 
     @classmethod
     def generate(cls, gen: torch.Generator, secret_key: SecretKey,
-                 params: SecurityParams,
-                 group: int | None = None) -> "CloudKey":
-        """Generate on the generator's device, at the JAX package's engine
-        defaults for the group (ops/ntt.py: default_group,
-        default_engine_gadget, default_drop_bits): group 3, Bg_e = 2^7
-        with (2, 2) levels and drop 5 at SECURITY_128_BIT.  group > 1
-        publishes TRGSWs of secret-bit subset products (BMMP16-style); see
-        the JAX package's CloudKey.generate for the security note."""
+                 params: SecurityParams, group: int | None = None,
+                 decomp_levels=None,
+                 engine_bgbit: int | None = None) -> "CloudKey":
+        """Generate on the generator's device.
+
+        The knobs resolve as in the JAX package's CloudKey.generate
+        (ops/ntt.py: default_group, default_engine_gadget,
+        default_drop_bits): with neither ``decomp_levels`` nor
+        ``engine_bgbit``, the engine default (group 3, Bg_e = 2^7 with
+        (2, 2) levels and drop 5 at SECURITY_128_BIT); ``decomp_levels``
+        alone keeps the parameter base (the approximate gadget on the
+        reference's Bg: ``group=2, decomp_levels=(3, 2)`` at 128-bit is
+        Bg_e = 2^6, (3, 2), drop 7); ``engine_bgbit`` alone takes every
+        level at that base.  group > 1 publishes TRGSWs of secret-bit
+        subset products (BMMP16-style); see the JAX package's
+        CloudKey.generate for the security note."""
         require_width(params.torus_bits)
         if group is None:
             group = _ntt.default_group(params)
-        bgbit, levels = _ntt.default_engine_gadget(params, group)
+        bgbit, levels = engine_bgbit, decomp_levels
+        if bgbit is None:
+            if levels is None:
+                bgbit, levels = _ntt.default_engine_gadget(params, group)
+            else:
+                bgbit = params.bgbit
         levels = _ntt.norm_levels(params, levels, bgbit=bgbit)
         drop = _ntt.default_drop_bits(params, group, bgbit)
         ksk1 = gen_key_switching_key(gen, secret_key, params)
@@ -102,7 +115,7 @@ class CloudKey(nn.Module):
     @classmethod
     def from_numpy(cls, arrays, params: SecurityParams, *, bsk_ntt_drop: int,
                    bsk_group: int, bsk_levels, bsk_bgbit,
-                   device="cpu") -> "CloudKey":
+                   device="cuda") -> "CloudKey":
         """Build from a JAX key's arrays (numpy ``testvec``, ``ksk1``,
         ``bsk_ntt``) and its static fields."""
         return cls(_tensor(arrays["testvec"], np.int32, device),
@@ -112,7 +125,7 @@ class CloudKey(nn.Module):
                    bsk_levels=bsk_levels, bsk_bgbit=bsk_bgbit)
 
 
-def gen_testvec(params: SecurityParams, device="cpu") -> torch.Tensor:
+def gen_testvec(params: SecurityParams, device="cuda") -> torch.Tensor:
     """Trivial TRLWE with b == 1/8 everywhere (key.zig:134-145)."""
     w = params.torus_bits
     tv = torch.zeros((2, params.N), dtype=torch.int32, device=device)

@@ -108,7 +108,7 @@ def copy(a: torch.Tensor) -> torch.Tensor:
     return a
 
 
-def constant(value: bool, params, batch=(), device="cpu") -> torch.Tensor:
+def constant(value: bool, params, batch=(), device="cuda") -> torch.Tensor:
     """Trivial (noiseless) ciphertext of a constant (gates.zig:144-151),
     including the reference's false-encoding ``1 -% mu``."""
     w = params.torus_bits

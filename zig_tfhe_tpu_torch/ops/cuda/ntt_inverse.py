@@ -3,10 +3,8 @@ finishing kernel, hand-written in CUDA C++ for Hopper.
 
 Replaces zig_tfhe_tpu/ops/pallas/ntt_inverse.py:ntt_inverse_to_crt_pallas.
 The source is zig_tfhe_tpu_torch/csrc/ntt_inverse.cu (its header gives the
-bound on the card and the design).  It is compiled at first use with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
-cached in zig_tfhe_tpu_torch/_build/ under the hash of the source and the
-flags, and bound with ``ctypes``.
+bound on the card and the design); ops/cuda/_build.py compiles it at first
+use and binds it with ``ctypes``.
 
 ``ntt_inverse_to_crt_acc`` launches the kernel for CUDA tensors (or
 raises) and runs the plain PyTorch version,
@@ -18,23 +16,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from zig_tfhe_tpu_torch.ops.cuda import _build
 from zig_tfhe_tpu_torch.ops.ntt import NTTPlan, ntt_inverse_to_crt
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "ntt_inverse.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = _build.CSRC / "ntt_inverse.cu"
 _MAX_PRIMES = 8     # kMaxPrimes in the source
 _COL_TILE = 64      # N must be a multiple of the kernel's BN and BK
 
@@ -50,54 +39,14 @@ def ntt_inverse_to_crt_acc_reference(v_stack: torch.Tensor, acc: torch.Tensor,
     return acc + delta
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    nvcc = shutil.which("nvcc") or (
-        os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None)
-    if not nvcc or not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build zig_tfhe_tpu_torch/csrc/ntt_inverse.cu")
-    return nvcc
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"ntt_inverse_{digest}.so"
-
-
-def build() -> Path:
-    """Compile the kernel's shared library (always; atomic replace)."""
-    so = library_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                       check=True, capture_output=True, text=True)
-        os.replace(tmp, so)
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed building {SOURCE}:\n{e.stderr}") from e
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    so = library_path()
-    if not so.exists():
-        build()
-    lib = ctypes.CDLL(str(so))
+    lib = _build.load(SOURCE)
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.ztfhe_ntt_inverse_crt_acc.argtypes = [p, p, p, p, p, p, p, p, p,
                                               i, i, i, i, i, p]
     lib.ztfhe_ntt_inverse_crt_acc.restype = i
-    lib.ztfhe_cuda_error_string.argtypes = [i]
-    lib.ztfhe_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -169,9 +118,7 @@ def ntt_inverse_to_crt_acc(v_stack: torch.Tensor, acc: torch.Tensor,
         tabs.m_lo.data_ptr(), tabs.m_hi.data_ptr(), ptr(tabs.primes),
         ptr(tabs.crt_e), ptr(tabs.inv_p), ptr(tabs.theta), plan.p_mod, P,
         2 * B, N, drop, torch.cuda.current_stream(v_stack.device).cuda_stream)
-    if err:
-        raise RuntimeError("ntt_inverse_crt_acc launch failed: "
-                           + lib.ztfhe_cuda_error_string(err).decode())
+    _build.check(lib, err, "ntt_inverse_crt_acc")
     ntt_inverse_to_crt_acc.launches += 1
     return out
 

@@ -384,9 +384,16 @@ def ntt_inverse_to_crt(res_list, plan: NTTPlan, width: int = 32) -> torch.Tensor
 
     res_list: per prime, int16/int32 [..., N] centered residues
     (|.| <= 0.55p).  Returns int32 [..., N] == the centered-exact
-    convolution mod 2^32, provided its true magnitude is < P/4.  The
-    ``concat`` form: [lo | hi] limbs @ limbs of [Minv ; 256*Minv mod p]."""
+    convolution mod 2^32, provided its true magnitude is < P/4."""
     require_width(width)
+    return crt_combine(ntt_inverse_residues(res_list, plan), plan, width)
+
+
+def ntt_inverse_residues(res_list, plan: NTTPlan) -> list:
+    """Inverse NTT per prime, before the CRT lift: per prime int32 [..., N]
+    centered residues x_p.  The ``concat`` form: [lo | hi] limbs @ limbs
+    of [Minv ; 256*Minv mod p] (the Pallas step kernel's
+    ``_inverse_residues``)."""
     tabs = plan_tables(plan, res_list[0].device)
     xs = []
     for i, p in enumerate(plan.primes):
@@ -396,7 +403,7 @@ def ntt_inverse_to_crt(res_list, plan: NTTPlan, width: int = 32) -> torch.Tensor
         z_hi = matmul_i8(limbs, tabs.inv_cat_hi[i])
         y = z_lo + barrett_reduce(z_hi, p) * 256                 # <= 2^25.1
         xs.append(barrett_reduce(y, p))
-    return crt_combine(xs, plan, width)
+    return xs
 
 
 def crt_combine(xs, plan: NTTPlan, width: int = 32) -> torch.Tensor:

@@ -64,14 +64,14 @@ def _load(path, kind: str):
     return arrays, m
 
 
-def load_secret_key(path, device="cpu"):
+def load_secret_key(path, device="cuda"):
     """Returns (SecretKey, params)."""
     arrays, m = _load(path, _KIND_SECRET)
     return (K.SecretKey.from_numpy(arrays["key_lv0"], arrays["key_lv1"],
                                    device), _params_from_doc(m))
 
 
-def load_cloud_key(path, device="cpu") -> K.CloudKey:
+def load_cloud_key(path, device="cuda") -> K.CloudKey:
     """A cloud key with its NTT bootstrapping key on ``device``."""
     arrays, m = _load(path, _KIND_CLOUD)
     if "bsk_ntt" not in arrays:
