@@ -5,39 +5,48 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's two gate paths at SECURITY_128_BIT (N = 1024,
-n0 = 700, 3 CRT primes) through the entry points a user calls:
-SecretKey/CloudKey.generate on the card from a seeded torch.Generator,
-tlwe.encrypt_bool, gates.apply_gates on B = 2048 lanes cycling through all
-10 gates, tlwe.decrypt_bool.  The two paths are the two cloud-key
-configurations whose blind rotation runs on the hand-written kernels:
+It drives the port's three gate paths at SECURITY_128_BIT (N = 1024,
+n0 = 700) through the entry points a user calls: SecretKey/CloudKey.generate
+on the card from a seeded torch.Generator, tlwe.encrypt_bool,
+gates.apply_gates on B = 2048 lanes cycling through all 10 gates,
+tlwe.decrypt_bool.  The paths are the three cloud-key configurations whose
+blind rotation runs on the hand-written kernels:
 
-  g3  the key defaults: multi-bit group 3, engine gadget Bg_e 2^7 (2, 2),
-      BSK drop 5 -- 234 blind-rotation steps;
-  g2  CloudKey.generate(..., group=2, decomp_levels=(3, 2)): the
-      approximate gadget on the reference's Bg, Bg_e 2^6 (3, 2), drop 7 --
-      350 steps.
+  g3    the key defaults: multi-bit group 3, engine gadget Bg_e 2^7 (2, 2),
+        BSK drop 5, 3 CRT primes -- 234 blind-rotation steps;
+  g2    CloudKey.generate(..., group=2, decomp_levels=(3, 2)): the
+        approximate gadget on the reference's Bg, Bg_e 2^6 (3, 2), drop 7
+        -- 350 steps;
+  toep  CloudKey.generate(..., engines=("toeplitz",)): the reference's own
+        per-bit key and exact gadget (Bg 2^6, L = 3) in ext-limb form,
+        which the gate path runs on the Toeplitz engine -- 700 steps.
 
-Every step of either path is two kernel launches: K2, the fused step core
+Every step of g3 and g2 is two kernel launches: K2, the fused step core
 (csrc/ntt_step.cu: forward NTT, pointwise products, subset combine), then
-K1 (csrc/ntt_inverse.cu: inverse NTT, CRT lift, accumulator add).  Phases:
+K1 (csrc/ntt_inverse.cu: inverse NTT, CRT lift, accumulator add).  Every
+step of toep is one launch of K3 (csrc/extprod.cu: the digits against the
+negacyclic circulants of the key step's rows, 4 key limbs).  Phases:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build both kernels from zig_tfhe_tpu_torch/csrc with nvcc for sm_90a,
-     one nvcc per source, started together;
-  3. key generation on the card, both configurations;
+  2. build the three kernels from zig_tfhe_tpu_torch/csrc with nvcc for
+     sm_90a, one nvcc per source, started together;
+  3. key generation on the card, all three configurations;
   4. each kernel against its plain PyTorch version at each path's shapes
      (B = 2048): K1 on residues of bounded polynomials (bit-equal to the
      plain version and to the exact acc + (c << drop)); K2 on the digits
-     of an accumulator and a step of the real key (bit-equal);
+     of an accumulator and a step of the real key (bit-equal); K3 on the
+     digits of an accumulator difference and a step of the real key
+     (bit-equal, also at B = 1 and B = 200);
   5. per path, B = 2048 heterogeneous gates with every launch count set to
      0 just before and read just after: accuracy must be 1.0, each kernel
-     must have been launched once per step, and the first 16 lanes must be
-     bit-equal to the port's CPU path (the plain PyTorch versions, which
-     the repository's tests hold bit-equal to the JAX package);
+     of the path must have been launched once per step and the others not
+     at all, and the first 16 lanes must be bit-equal to the port's CPU
+     path (the plain PyTorch versions, which the repository's tests hold
+     bit-equal to the JAX package);
   6. timings with CUDA events, per path: gates/s at B = 2048, B = 1
-     latency, each kernel and its plain version per call, and one step
-     split into decompose / K2 / K1;
+     latency, each kernel and its plain version per call (K3 also against
+     torch._int_mm on circulants built beforehand, the build not timed),
+     and one step split into its stages;
   7. per path, a torch.profiler trace of one warm batch at B = 2048 and at
      B = 1: device busy time, idle share and the costliest kernels.
 
@@ -67,11 +76,13 @@ HBM_BPS = 3.35e12
 INT8_OPS = 1.979e15
 F32_OPS = 67e12
 
-# path -> CloudKey.generate knobs and the expected (group, Bg_e, levels, drop)
+# NTT path -> CloudKey.generate knobs and the expected (group, Bg_e,
+# levels, drop); the Toeplitz path "toep" is the key of engines=("toeplitz",)
 PATHS = {
     "g3": ({}, (3, 7, (2, 2), 5)),
     "g2": ({"group": 2, "decomp_levels": (3, 2)}, (2, 6, (3, 2), 7)),
 }
+TOEP = "toep"
 
 
 def _check(cond: bool, what: str) -> None:
@@ -185,6 +196,15 @@ def _k2_bound_ms(plan, group: int, R: int, B: int, n_rot_rows: int,
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
+def _k3_bound_ms(B: int, N: int, L: int, n_kl: int):
+    """K3's least time: the digits, the key step and the output moved once;
+    B x 2N outputs x 2L*N depth per key limb, 2 ops per MAC."""
+    nbytes = B * 2 * L * N + n_kl * 2 * L * 2 * 2 * N + B * 2 * N * 4
+    ops = 2 * B * (2 * L * N) * (2 * N) * n_kl
+    t_b, t_o = nbytes / HBM_BPS, ops / INT8_OPS
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
 def main() -> int:
     import torch
 
@@ -196,10 +216,14 @@ def main() -> int:
     from zig_tfhe_tpu_torch import key, params, tlwe
     from zig_tfhe_tpu_torch.models import gates
     from zig_tfhe_tpu_torch.ops import ntt
-    from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows, modswitch
+    from zig_tfhe_tpu_torch.ops.blind_rotate import (_decompose_to_rows,
+                                                     _digit_limbs, modswitch)
     from zig_tfhe_tpu_torch.ops.cuda import _build
+    from zig_tfhe_tpu_torch.ops.cuda import extprod as k3
     from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
     from zig_tfhe_tpu_torch.ops.cuda import ntt_step as k2
+    from zig_tfhe_tpu_torch.ops.poly import matmul_i8, negacyclic_rotate
+    from zig_tfhe_tpu_torch.trgsw import trgsw_matrices
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(dev)
@@ -207,10 +231,10 @@ def main() -> int:
     print(f"device: {kind} ({torch.cuda.device_count()} visible); "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; [{gpu}]")
 
-    # -- 2. build both kernels, in parallel ----------------------------------
+    # -- 2. build the three kernels, in parallel -----------------------------
     t0 = time.perf_counter()
-    logs = _build.build(k1.SOURCE, k2.SOURCE)
-    print(f"built {k1.SOURCE.name}, {k2.SOURCE.name} -> "
+    logs = _build.build(k1.SOURCE, k2.SOURCE, k3.SOURCE)
+    print(f"built {', '.join(s.name for s in logs)} -> "
           f"{', '.join(_build.library_path(s).name for s in logs)} for sm_90a "
           f"in {time.perf_counter() - t0:.1f} s")
     for src, log in logs.items():
@@ -243,13 +267,27 @@ def main() -> int:
         print(f"keygen {P.name} {name} (group {cfg[0]}, Bg_e 2^{cfg[1]} "
               f"{cfg[2]}, drop {cfg[3]}): {time.perf_counter() - t0:.2f} s, "
               f"bsk_ntt {tuple(ck.bsk_ntt.shape)} int16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck_toep = key.CloudKey.generate(g, sk, P, engines=("toeplitz",))
+    torch.cuda.synchronize()
+    ext_shape = (P.n0, 4, 2 * P.L, 2, 2 * P.N)
+    _check(ck_toep.bsk_ntt is None
+           and tuple(ck_toep.bsk_ext_limbs.shape) == ext_shape
+           and ck_toep.bsk_ext_limbs.dtype == torch.int8,
+           f"toep key holds bsk_ntt or bsk_ext_limbs "
+           f"{tuple(ck_toep.bsk_ext_limbs.shape)}, not {ext_shape} int8")
+    print(f"keygen {P.name} {TOEP} (engines=('toeplitz',), Bg 2^{P.bgbit}, "
+          f"L = {P.L}): {time.perf_counter() - t0:.2f} s, bsk_ext_limbs "
+          f"{tuple(ck_toep.bsk_ext_limbs.shape)} int8 "
+          f"({ck_toep.bsk_ext_limbs.numel() / 1e6:.1f} MB)")
 
     def uniform(shape):
         return torch.randint(0, 1 << 32, shape, dtype=torch.int64,
                              generator=g, device=dev).to(torch.int32)
 
     # -- 4. kernels vs plain versions at the paths' shapes -------------------
-    k_results = {"k1": {}, "k2": {}}
+    k_results = {"k1": {}, "k2": {}, "k3": {}}
     step_inputs = {}
     for name, ck in cks.items():
         plan, drop = plans[name], ck.bsk_ntt_drop
@@ -309,6 +347,44 @@ def main() -> int:
               f"K2 {ms2 * 1e3:.1f} us/call (plain {plain2 * 1e3:.1f} us, bound "
               f"{bound2 * 1e3:.1f} us by {by2}) [{gpu}]")
 
+    # K3 on the digits of an accumulator difference (acc rotated by X^t,
+    # minus acc) and the first step of the real Toeplitz key
+    acc3 = uniform((B_GATES, 2, P.N))
+    t3 = modswitch(uniform((B_GATES,)), P)
+    d3 = _digit_limbs(negacyclic_rotate(acc3, t3) - acc3, P)[..., 0].contiguous()
+    bsk3 = ck_toep.bsk_ext_limbs[0]
+    errs3 = []
+    for lanes in (B_GATES, 200, 1):
+        out3 = k3.extprod_matmul(d3[:lanes], bsk3, P)
+        ref3 = k3.extprod_matmul_reference(d3[:lanes], bsk3, P)
+        torch.cuda.synchronize()
+        errs3.append(int((out3.long() - ref3.long()).abs().max()))
+        _check(torch.equal(out3, ref3), f"K3 differs from its plain version "
+               f"at B={lanes} (max |diff| {errs3[-1]})")
+    mats3 = trgsw_matrices(bsk3, P)
+
+    def run_k3():
+        k3.extprod_matmul(d3, bsk3, P)
+
+    def plain_k3():
+        k3.extprod_matmul_reference(d3, bsk3, P)
+
+    def int_mm_k3():
+        for kl in range(mats3.shape[0]):
+            matmul_i8(d3, mats3[kl])
+
+    ms3, plain3 = _kernel_vs_plain(run_k3, plain_k3)
+    int_mm3 = _cuda_ms(int_mm_k3, KERNEL_ITERS)
+    bound3, by3 = _k3_bound_ms(B_GATES, P.N, P.L, bsk3.shape[0])
+    k_results["k3"] = {TOEP: dict(max_abs_err=max(errs3), ms=ms3,
+                                  plain_ms=plain3, bound_ms=bound3,
+                                  bound_by=by3, int_mm_prebuilt_ms=int_mm3)}
+    print(f"{TOEP}: K3 == plain at digits [B, {d3.shape[1]}] for B = "
+          f"{B_GATES}, 200, 1, key step {tuple(bsk3.shape)}; B={B_GATES}: K3 "
+          f"{ms3 * 1e3:.1f} us/call (plain {plain3 * 1e3:.1f} us, _int_mm on "
+          f"prebuilt circulants {int_mm3 * 1e3:.1f} us, bound "
+          f"{bound3 * 1e3:.1f} us by {by3}) [{gpu}]")
+
     # -- 5. the main paths: B=2048 heterogeneous gates ------------------------
     x = torch.randint(0, 2, (B_GATES,), generator=g, device=dev).bool()
     y = torch.randint(0, 2, (B_GATES,), generator=g, device=dev).bool()
@@ -323,21 +399,27 @@ def main() -> int:
         "orny": lambda p, q: (not p) or q, "oryn": lambda p, q: p or not q}
     want = np.array([truth[gates.GATE_NAMES[i]](bool(p), bool(q)) for i, p, q
                      in zip(ids.tolist(), x.tolist(), y.tolist())])
+    cks[TOEP] = ck_toep
+    counters = {"k1": k1.ntt_inverse_to_crt_acc, "k2": k2.ntt_step_fused,
+                "k3": k3.extprod_matmul}
     launches = {}
     for name, ck in cks.items():
-        steps = -(-P.n0 // ck.bsk_group)
+        if name == TOEP:
+            expect = {"k1": 0, "k2": 0, "k3": P.n0}
+        else:
+            steps = -(-P.n0 // ck.bsk_group)
+            expect = {"k1": steps, "k2": steps, "k3": 0}
         torch.cuda.synchronize()
-        k1.ntt_inverse_to_crt_acc.launches = 0
-        k2.ntt_step_fused.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         res = gates.apply_gates(ids, a, b, ck)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        launches[name] = {"k1": k1.ntt_inverse_to_crt_acc.launches,
-                          "k2": k2.ntt_step_fused.launches}
-        _check(launches[name] == {"k1": steps, "k2": steps},
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        _check(launches[name] == expect,
                f"{name}: launches {launches[name]} in one bootstrap, "
-               f"expected {steps} of each kernel")
+               f"expected {expect}")
         _check(res.dtype == torch.int32
                and tuple(res.shape) == (B_GATES, P.n0 + 1),
                f"{name} gate output {res.dtype} {tuple(res.shape)}")
@@ -345,8 +427,7 @@ def main() -> int:
         accuracy = float((got == want).mean())
         _check(accuracy == 1.0, f"{name} gate accuracy {accuracy} != 1.0")
         print(f"apply_gates B={B_GATES} {name}: accuracy {accuracy}, "
-              f"{steps} steps, launches {launches[name]}, first call "
-              f"{first_s:.2f} s")
+              f"launches {launches[name]}, first call {first_s:.2f} s")
 
         ck_cpu = key.CloudKey.from_numpy(
             {n: t.cpu().numpy() for n, t in ck.named_buffers()}, P,
@@ -363,9 +444,6 @@ def main() -> int:
 
     # -- 6. timings -----------------------------------------------------------
     for name, ck in cks.items():
-        plan, drop = plans[name], ck.bsk_ntt_drop
-        e, levels = ck.bsk_bgbit, ck.bsk_levels
-
         def run_gates(ck=ck):
             gates.apply_gates(ids, a, b, ck)
 
@@ -377,12 +455,31 @@ def main() -> int:
               f"({gate_ms:.1f} ms/batch); latency at B=1: {lat_ms:.1f} ms "
               f"[{gpu}]")
 
-        digits, bsk_step, ts, acc, v = step_inputs[name]
-        stage = {
-            "decompose": lambda acc=acc: _decompose_to_rows(
-                acc, P, levels, bgbit=e).to(torch.int8),
-            "K2": lambda: k2.ntt_step_fused(digits, bsk_step, ts, plan, e),
-            "K1": lambda: k1.ntt_inverse_to_crt_acc(v, acc, plan, drop)}
+        if name == TOEP:
+            t3_a = modswitch(uniform((B_GATES,)), P)
+            diff3 = {}
+
+            def rotate_decompose():
+                diff3["d"] = _digit_limbs(
+                    negacyclic_rotate(acc3, t3_a) - acc3, P)[..., 0]
+
+            rotate_decompose()
+            part3 = k3.extprod_matmul(diff3["d"], bsk3, P)
+            stage = {
+                "rotate+decompose": rotate_decompose,
+                "K3": lambda: k3.extprod_matmul(diff3["d"], bsk3, P),
+                "add": lambda: acc3 + part3.reshape(B_GATES, 2, P.N)}
+        else:
+            plan, drop = plans[name], ck.bsk_ntt_drop
+            e, levels = ck.bsk_bgbit, ck.bsk_levels
+            digits, bsk_step, ts, acc, v = step_inputs[name]
+            stage = {
+                "decompose": lambda acc=acc, levels=levels, e=e:
+                    _decompose_to_rows(acc, P, levels, bgbit=e).to(torch.int8),
+                "K2": lambda args=(digits, bsk_step, ts, plan, e):
+                    k2.ntt_step_fused(*args),
+                "K1": lambda args=(v, acc, plan, drop):
+                    k1.ntt_inverse_to_crt_acc(*args)}
         split = {s: _cuda_ms(fn, KERNEL_ITERS) for s, fn in stage.items()}
         print(f"{name}: one step at B={B_GATES}: " + ", ".join(
             f"{s} {t * 1e3:.1f} us" for s, t in split.items())
@@ -405,23 +502,24 @@ def main() -> int:
 
     print(gpu)
     kernels = []
-    for kname, route_src, replaces in (
-            ("ntt_inverse_crt_acc", "zig_tfhe_tpu_torch/csrc/ntt_inverse.cu",
-             "zig_tfhe_tpu/ops/pallas/ntt_inverse.py:100"),
-            ("ntt_step_fused", "zig_tfhe_tpu_torch/csrc/ntt_step.cu",
-             "zig_tfhe_tpu/ops/pallas/ntt_step.py:229")):
-        kk = "k1" if kname == "ntt_inverse_crt_acc" else "k2"
-        main = k_results[kk]["g3"]
+    for kk, kname, route_src, replaces, main_path in (
+            ("k1", "ntt_inverse_crt_acc", "zig_tfhe_tpu_torch/csrc/ntt_inverse.cu",
+             "zig_tfhe_tpu/ops/pallas/ntt_inverse.py:100", "g3"),
+            ("k2", "ntt_step_fused", "zig_tfhe_tpu_torch/csrc/ntt_step.cu",
+             "zig_tfhe_tpu/ops/pallas/ntt_step.py:229", "g3"),
+            ("k3", "extprod_matmul", "zig_tfhe_tpu_torch/csrc/extprod.cu",
+             "zig_tfhe_tpu/ops/pallas/extprod.py:57", TOEP)):
+        main = k_results[kk][main_path]
         kernels.append({
             "name": kname, "route": "cuda", "source": route_src,
             "replaces": replaces,
-            "launches": sum(launches[p][kk] for p in PATHS),
+            "launches": sum(n[kk] for n in launches.values()),
             "max_abs_err": max(r["max_abs_err"] for r in k_results[kk].values()),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None,
             "by_path": {p: {"launches": launches[p][kk], **k_results[kk][p]}
-                        for p in PATHS}})
+                        for p in k_results[kk]}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,7 +8,8 @@
 // std::barrier over the block, and mma.sync.m16n8k32 s8 gathers the 32
 // lanes' fragments of a warp and computes each lane's accumulators from
 // them.  The float intrinsics round to nearest even like the card's (build
-// with -ffp-contract=off so no multiply-add is fused).
+// with -ffp-contract=off so no multiply-add is fused); __byte_perm is the
+// default mode.
 #pragma once
 
 #include <algorithm>
@@ -50,6 +51,14 @@ inline int __float2int_rn(float f) { return static_cast<int>(std::nearbyint(f));
 inline float __int2float_rn(int x) { return static_cast<float>(x); }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+// byte i of the result = byte (s >> 4i) & 7 of the 8-byte value {y, x}
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = (static_cast<uint64_t>(y) << 32) | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= static_cast<uint32_t>((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
+  return r;
+}
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;

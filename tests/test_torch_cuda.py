@@ -6,18 +6,20 @@ where jax is not installed, without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 The hand-written kernels are held bit-equal to their plain PyTorch versions
-(K1 also to the closed-form exact result) at the path's shapes; the gate
-path on the card is held bit-equal to the port's CPU path, which the other
-tests/test_torch_*.py files hold bit-equal to the JAX package.
+(K1 also to the closed-form exact result) at the paths' shapes; the gate
+paths on the card (the NTT engine's and the Toeplitz engine's) are held
+bit-equal to the port's CPU path, which the other tests/test_torch_*.py
+files hold bit-equal to the JAX package.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from zig_tfhe_tpu_torch import key, params, tlwe
+from zig_tfhe_tpu_torch import key, params, tlwe, trgsw
 from zig_tfhe_tpu_torch.models import gates
 from zig_tfhe_tpu_torch.ops import ntt
+from zig_tfhe_tpu_torch.ops.cuda import extprod as K3
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K
 from zig_tfhe_tpu_torch.ops.cuda import ntt_step as K2
 
@@ -200,3 +202,85 @@ def test_128bit_launches_per_bootstrap(dev, knobs, steps):
     assert (K2.ntt_step_fused.launches - before[0],
             K.ntt_inverse_to_crt_acc.launches - before[1]) == (steps, steps)
     assert np.array_equal(tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy(), want)
+
+
+def _extprod_inputs(dev, name, n_kl, B, seed):
+    """One digit limb (digits in [-Bg/2, Bg/2)) and one step of an ext-limb
+    key (the limbs of [p, -p] of uniform rows, as keygen makes them)."""
+    P = params.PARAMS_BY_NAME[name]
+    rng = np.random.default_rng(seed)
+    half = 1 << (P.bgbit - 1)
+    digits = torch.from_numpy(rng.integers(-half, half, (B, 2 * P.L * P.N))
+                              .astype(np.int8)).to(dev)
+    rows = torch.from_numpy(rng.integers(-2**31, 2**31, (2 * P.L, 2, P.N))
+                            .astype(np.int32))
+    ext = trgsw.to_ext_limbs(rows, n_kl).to(dev)
+    return P, digits, ext
+
+
+@pytest.mark.parametrize("name", ["tiny", "128bit"])
+@pytest.mark.parametrize("n_kl", [4, 3])
+@pytest.mark.parametrize("B", [1, 8, 200, 2048])
+def test_extprod_kernel_matches_plain(dev, name, n_kl, B):
+    P, digits, ext = _extprod_inputs(dev, name, n_kl, B, B + n_kl)
+    before = K3.extprod_matmul.launches
+    out = K3.extprod_matmul(digits, ext, P)
+    torch.cuda.synchronize()
+    assert K3.extprod_matmul.launches == before + 1
+    assert torch.equal(out, K3.extprod_matmul_reference(digits, ext, P))
+
+
+def test_extprod_kernel_rejects_what_it_cannot_take(dev):
+    P, digits, ext = _extprod_inputs(dev, "tiny", 4, 4, 0)
+    with pytest.raises(ValueError, match="shapes"):
+        K3.extprod_matmul(digits[:, :-1], ext, P)
+    with pytest.raises(ValueError, match="same CUDA device"):
+        K3.extprod_matmul(digits, ext.cpu(), P)
+    with pytest.raises(TypeError, match="int8"):
+        K3.extprod_matmul(digits.int(), ext, P)
+
+
+def test_tiny_toeplitz_gates_on_card_equal_cpu_path(dev):
+    P = params.TEST_TINY
+    g = torch.Generator().manual_seed(5)
+    sk = key.SecretKey.generate(g, P)
+    ck = key.CloudKey.generate(g, sk, P, engines=("toeplitz",))
+    ids, x, y, want = _lanes(40, 5)
+    a = tlwe.encrypt_bool(g, x, P.ksk_alpha, sk.key_lv0)
+    b = tlwe.encrypt_bool(g, y, P.ksk_alpha, sk.key_lv0)
+    cpu = gates.apply_gates(ids, a, b, ck)
+    before = K3.extprod_matmul.launches
+    out = gates.apply_gates(ids.to(dev), a.to(dev), b.to(dev), ck.to(dev))
+    torch.cuda.synchronize()
+    assert K3.extprod_matmul.launches - before == P.n0
+    assert torch.equal(out.cpu(), cpu)
+    assert np.array_equal(tlwe.decrypt_bool(out.cpu(), sk.key_lv0).numpy(), want)
+
+
+def test_128bit_toeplitz_gates_on_card(dev):
+    """A Toeplitz-only key at SECURITY_128_BIT made on the card: one K3
+    launch per step (700 per bootstrap), no K1 or K2, accuracy 1.0 on 20
+    lanes, and the first 2 lanes equal to the CPU path."""
+    P = params.SECURITY_128_BIT
+    g = torch.Generator(device=dev).manual_seed(6)
+    sk = key.SecretKey.generate(g, P)
+    ck = key.CloudKey.generate(g, sk, P, engines=("toeplitz",))
+    assert ck.bsk_ntt is None
+    assert tuple(ck.bsk_ext_limbs.shape) == (700, 4, 6, 2, 2048)
+    ids, x, y, want = _lanes(20, 6)
+    a = tlwe.encrypt_bool(g, x.to(dev), P.ksk_alpha, sk.key_lv0)
+    b = tlwe.encrypt_bool(g, y.to(dev), P.ksk_alpha, sk.key_lv0)
+    before = (K3.extprod_matmul.launches, K.ntt_inverse_to_crt_acc.launches,
+              K2.ntt_step_fused.launches)
+    out = gates.apply_gates(ids.to(dev), a, b, ck)
+    torch.cuda.synchronize()
+    assert (K3.extprod_matmul.launches - before[0],
+            K.ntt_inverse_to_crt_acc.launches - before[1],
+            K2.ntt_step_fused.launches - before[2]) == (700, 0, 0)
+    assert np.array_equal(tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy(), want)
+    ck_cpu = key.CloudKey.from_numpy(
+        {n: t.cpu().numpy() for n, t in ck.named_buffers()}, P,
+        bsk_ntt_drop=ck.bsk_ntt_drop, bsk_group=ck.bsk_group,
+        bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit, device="cpu")
+    cpu = gates.apply_gates(ids[:2], a[:2].cpu(), b[:2].cpu(), ck_cpu)
+    assert torch.equal(out[:2].cpu(), cpu)

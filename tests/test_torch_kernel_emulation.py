@@ -1,14 +1,17 @@
 """The hand-written CUDA kernels' own sources, run on the CPU.
 
-zig_tfhe_tpu_torch/csrc/ntt_step.cu (K2) and csrc/ntt_inverse.cu (K1) are
-compiled with the host C++ compiler against tests/cuda_emu.h, an
-emulation of the CUDA they use (one std::thread per CUDA thread, a
+zig_tfhe_tpu_torch/csrc/ntt_step.cu (K2), csrc/ntt_inverse.cu (K1) and
+csrc/extprod.cu (K3) are compiled with the host C++ compiler against
+tests/cuda_emu.h, an emulation of the CUDA they use (one std::thread per
+CUDA thread, a
 barrier for __syncthreads, mma.sync computed per warp from the lanes'
 fragments).  Their C entry points are called through ctypes on CPU tensors
 and must equal the plain PyTorch versions bit for bit, at shapes that
 cover several column tiles, ragged batch tiles, 1 to 4 primes, 3 to 10
 digit rows, pointwise sums of up to 5 row groups, and both branches of
-the forward limb combine.  This checks the kernels' indexing and
+the forward limb combine; for K3, 1 to 4 key limbs, one- and two-limb
+gadgets and one 128-bit shape (N = 1024, 6 rows: every key window wraps
+around 2N in some column tile).  This checks the kernels' indexing and
 arithmetic; their behaviour on the card is tests/test_torch_cuda.py's.
 Skips where no host C++ compiler is found.
 """
@@ -25,6 +28,7 @@ import torch
 
 from zig_tfhe_tpu_torch import params as TP
 from zig_tfhe_tpu_torch.ops import ntt
+from zig_tfhe_tpu_torch.ops.cuda import extprod as K3
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K1
 from zig_tfhe_tpu_torch.ops.cuda import ntt_step as K2
 
@@ -49,7 +53,7 @@ def emu(tmp_path_factory):
         pytest.skip("no host C++ compiler for the CUDA emulation")
     out = tmp_path_factory.mktemp("cuda_emu")
     libs = {}
-    for src in (K1.SOURCE, K2.SOURCE):
+    for src in (K1.SOURCE, K2.SOURCE, K3.SOURCE):
         cpp = out / f"{src.stem}.cpp"
         cpp.write_text(_emulation_source(src))
         so = out / f"lib{src.stem}.so"
@@ -60,6 +64,7 @@ def emu(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     libs["ntt_step"].ztfhe_ntt_step_fused.argtypes = [p] * 11 + [i] * 5 + [p]
     libs["ntt_inverse"].ztfhe_ntt_inverse_crt_acc.argtypes = [p] * 9 + [i] * 5 + [p]
+    libs["extprod"].ztfhe_extprod_matmul.argtypes = [p] * 3 + [i] * 4 + [p]
     return libs
 
 
@@ -124,3 +129,24 @@ def test_inverse_kernel_source_matches_plain(emu, B, N, bits, drop):
     assert torch.equal(out, K1.ntt_inverse_to_crt_acc_reference(v, acc, plan,
                                                                 drop))
 
+
+
+# (params, key limbs, B): B = 130 spans two row tiles, the second ragged
+@pytest.mark.parametrize("name, n_kl, B", [("tiny", 4, 5), ("tiny", 3, 130),
+                                           ("tiny", 1, 1), ("tiny_uint", 2, 3),
+                                           ("128bit", 1, 3)])
+def test_extprod_kernel_source_matches_plain(emu, name, n_kl, B):
+    P = TP.PARAMS_BY_NAME[name]
+    N, L = P.N, P.L
+    rng = np.random.default_rng(B + n_kl)
+    d_max = 1 << (P.bgbit - 1) if P.digit_limbs == 1 else 128
+    digits = torch.from_numpy(rng.integers(-d_max, d_max, (B, 2 * L * N))
+                              .astype(np.int8))
+    ext = torch.from_numpy(rng.integers(-128, 128, (n_kl, 2 * L, 2, 2 * N))
+                           .astype(np.int8))
+    out = torch.full((B, 2 * N), 7, dtype=torch.int32)
+    err = emu["extprod"].ztfhe_extprod_matmul(
+        digits.data_ptr(), ext.data_ptr(), out.data_ptr(), B, 2 * L, N, n_kl,
+        None)
+    assert err == 0
+    assert torch.equal(out, K3.extprod_matmul_reference(digits, ext, P))

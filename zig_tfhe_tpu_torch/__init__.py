@@ -4,9 +4,10 @@ TFHE boolean gates with exact mod-2^32 arithmetic: int8-limb matrix
 products for the NTT and the key switch, and hand-written Hopper kernels
 for the blind-rotation step (ops/cuda/ntt_step.py: forward NTT, pointwise
 products, subset combine; ops/cuda/ntt_inverse.py: inverse NTT + CRT
-lift).  The JAX package ``zig_tfhe_tpu`` is the
-reference: on equal keys and ciphertexts both return the same bits.  This
-package imports torch and numpy only.
+lift; ops/cuda/extprod.py: the Toeplitz engine's external product, for
+keys made with ``engines=("toeplitz",)``).  The JAX package
+``zig_tfhe_tpu`` is the reference: on equal keys and ciphertexts both
+return the same bits.  This package imports torch and numpy only.
 
 Quick start::
 

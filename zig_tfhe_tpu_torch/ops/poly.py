@@ -8,7 +8,9 @@ shift is >= 32 vanish mod 2^32 and are skipped.  CUDA has no int32
 ``matmul_i8``.
 
 Negacyclic convolution (X^N = -1): with ext(b) = [b, -b] (length 2N),
-``out = a @ T(b)`` where T(b)[k, n] = ext(b)[(n - k) mod 2N].
+``out = a @ T(b)`` where T(b)[k, n] = ext(b)[(n - k) mod 2N].  The
+Toeplitz engine (ops/blind_rotate.py) contracts gadget digits against the
+circulants of the bootstrapping key's rows this way.
 
 Oracle: ``negacyclic_polymul_naive`` is the O(N^2) schoolbook used by tests.
 """
@@ -88,11 +90,40 @@ def _toeplitz_index(N: int) -> np.ndarray:
     return (n - k) % (2 * N)
 
 
+def negacyclic_extend(p: torch.Tensor) -> torch.Tensor:
+    """[..., N] -> [..., 2N] with ext = [p, -p]."""
+    return torch.cat([p, -p], dim=-1)
+
+
+def toeplitz_from_ext(ext: torch.Tensor) -> torch.Tensor:
+    """Circulant rows T[..., k, n] = ext[..., (n-k) mod 2N] of a [..., 2N]
+    extension, [..., N, N].  One static-index gather: the JAX package
+    builds the same bits by log2 N doubling rolls, a TPU workaround."""
+    idx = torch.from_numpy(_toeplitz_index(ext.shape[-1] // 2)).to(ext.device)
+    return ext[..., idx]
+
+
 def toeplitz(p: torch.Tensor) -> torch.Tensor:
     """Negacyclic circulant T(p)[..., k, n] = ext(p)[..., (n-k) mod 2N],
     ext(p) = [p, -p]."""
-    idx = torch.from_numpy(_toeplitz_index(p.shape[-1])).to(p.device)
-    return torch.cat([p, -p], dim=-1)[..., idx]
+    return toeplitz_from_ext(negacyclic_extend(p))
+
+
+def negacyclic_rotate(p: torch.Tensor, k) -> torch.Tensor:
+    """Multiply by X^k (negacyclic rotation), k in [0, 2N] mod 2N:
+    out[..., n] = ext(p)[..., (n - k) mod 2N], the polyMulWithXK of
+    trgsw.zig:442-466 for every k in [0, 2N].
+
+    p: int32 [..., N]; k: an int, or an int32 tensor that is a scalar or
+    matches p's leading batch dims (one amount per batch element)."""
+    N = p.shape[-1]
+    ext = negacyclic_extend(p)
+    k = torch.as_tensor(k, dtype=torch.int64, device=p.device)
+    idx = (torch.arange(N, device=p.device) - k[..., None]) % (2 * N)
+    if k.dim() == 0:
+        return ext[..., idx]
+    idx = idx.reshape(*k.shape, *(1,) * (ext.dim() - k.dim() - 1), N)
+    return torch.gather(ext, -1, idx.expand(*ext.shape[:-1], N))
 
 
 def negacyclic_polymul_binary(a_torus: torch.Tensor,

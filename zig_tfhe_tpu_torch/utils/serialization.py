@@ -72,11 +72,10 @@ def load_secret_key(path, device="cuda"):
 
 
 def load_cloud_key(path, device="cuda") -> K.CloudKey:
-    """A cloud key with its NTT bootstrapping key on ``device``."""
+    """A cloud key with its bootstrapping key forms (``bsk_ntt``,
+    ``bsk_ext_limbs``: either or both) on ``device``; raises for a file
+    with neither."""
     arrays, m = _load(path, _KIND_CLOUD)
-    if "bsk_ntt" not in arrays:
-        raise ValueError(f"{path}: the key has no NTT bootstrapping key "
-                         "(the Toeplitz-only key form is not ported)")
     return K.CloudKey.from_numpy(
         arrays, _params_from_doc(m), bsk_ntt_drop=m.get("bsk_ntt_drop", 0),
         bsk_group=m.get("bsk_group", 1), bsk_levels=m.get("bsk_levels"),
