@@ -28,15 +28,16 @@ step of toep is one launch of K3 (csrc/extprod.cu: the digits against the
 negacyclic circulants of the key step's rows, 4 key limbs).  Phases:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the three kernels from zig_tfhe_tpu_torch/csrc with nvcc for
-     sm_90a, one nvcc per source, started together;
+  2. build the three kernels from zig_tfhe_tpu_torch/csrc (K1 and K2 on
+     csrc/hopper_prims.cuh: TMA, mbarrier, wgmma) with nvcc for sm_90a, one
+     nvcc per source, started together; ptxas' registers and spills;
   3. key generation on the card, all three configurations;
-  4. each kernel against its plain PyTorch version at each path's shapes
-     (B = 2048): K1 on residues of bounded polynomials (bit-equal to the
-     plain version and to the exact acc + (c << drop)); K2 on the digits
-     of an accumulator and a step of the real key (bit-equal); K3 on the
-     digits of an accumulator difference and a step of the real key
-     (bit-equal, also at B = 1 and B = 200);
+  4. each kernel against its plain PyTorch version at each path's shapes,
+     at B = 2048, 200 (a ragged last tile) and 1: K1 on the int8 limb
+     planes of residues of bounded polynomials (bit-equal to the plain
+     version and to the exact acc + (c << drop)); K2 on the digits of an
+     accumulator and a step of the real key (bit-equal); K3 on the digits
+     of an accumulator difference and a step of the real key (bit-equal);
   5. per path, B = 2048 heterogeneous gates with every launch count set to
      0 just before and read just after: accuracy must be 1.0, each kernel
      of the path must have been launched once per step and the others not
@@ -44,9 +45,11 @@ negacyclic circulants of the key step's rows, 4 key limbs).  Phases:
      path (the plain PyTorch versions, which the repository's tests hold
      bit-equal to the JAX package);
   6. timings with CUDA events, per path: gates/s at B = 2048, B = 1
-     latency, each kernel and its plain version per call (K3 also against
-     torch._int_mm on circulants built beforehand, the build not timed),
-     and one step split into its stages;
+     latency, each kernel and its plain version per call beside its bound
+     (bytes, tensor-core operations or CUDA-core operations, whichever is
+     largest) and the L2 -> SM bytes of its tiling, K1 and K2 also per call
+     at B = 1 (K3 also against torch._int_mm on circulants built
+     beforehand, the build not timed), and one step split into its stages;
   7. per path, a torch.profiler trace of one warm batch at B = 2048 and at
      B = 1: device busy time, idle share and the costliest kernels.
 
@@ -67,14 +70,37 @@ import tempfile
 import time
 
 B_GATES = 2048
+RAGGED_LANES = 200     # a batch that ends inside a kernel tile
 SMALL_LANES = 16
 WARM_ITERS = 3
 KERNEL_ITERS = 20
 
-# published H100 SXM peaks (NVIDIA data sheet): bytes/s, int8 op/s, f32 op/s
+# published H100 SXM peaks (NVIDIA data sheet): bytes/s, int8 op/s
 HBM_BPS = 3.35e12
 INT8_OPS = 1.979e15
-F32_OPS = 67e12
+# CUDA-core rates at compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic-instruction throughput table), results per clock per SM: f32
+# add / multiply 128, int32 add and multiply-add 64, conversions between
+# int32 and f32 64; the four schedulers of an SM issue 128 thread
+# instructions per clock between them, and the pipes run side by side.
+# 132 SMs at the 1.98 GHz boost clock that the 67 TFLOP/s f32 peak assumes
+# (132 x 128 x 2 x 1.98e9).
+SMS, SM_HZ = 132, 1.98e9
+RATE_ISSUE, RATE_F32, RATE_INT, RATE_CVT = 128, 128, 64, 64
+
+
+def _cuda_core_clocks(barretts: float, cvt: float = 0, f32: float = 0,
+                      imad: float = 0) -> float:
+    """Least SM clocks per thread-result for a CUDA-core stage: the larger
+    of all its instructions over the issue rate and the busiest pipe's
+    instructions over that pipe's rate.  A Barrett is counted as the least
+    the function needs, not as a kernel issues it: int -> f32 conversion,
+    f32 multiply, f32 -> int conversion (which rounds), int32
+    multiply-subtract."""
+    n_cvt, n_f32, n_int = 2 * barretts + cvt, barretts + f32, barretts + imad
+    return max((n_cvt + n_f32 + n_int) / RATE_ISSUE, n_cvt / RATE_CVT,
+               n_f32 / RATE_F32, n_int / RATE_INT)
+
 
 # NTT path -> CloudKey.generate knobs and the expected (group, Bg_e,
 # levels, drop); the Toeplitz path "toep" is the key of engines=("toeplitz",)
@@ -109,6 +135,20 @@ def _cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call: ``iters`` calls captured into one
+    CUDA graph and replayed, so that no host time lies between them."""
+    import torch
+
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    return _cuda_ms(graph.replay, 3) / iters
 
 
 def _kernel_vs_plain(kernel, plain, iters: int = KERNEL_ITERS):
@@ -162,38 +202,66 @@ def _trace_summary(fn, top: int = 6):
             "top": [(n[:70], t / 1e3, c) for n, (t, c) in tops]}
 
 
+def _bound(t_bytes: float, t_tensor: float, t_cuda: float):
+    """(ms, bound_by, unit): the largest of the three times; ``bound_by`` is
+    "bytes" or "operations", ``unit`` says whose operations."""
+    t, by, unit = max((t_bytes, "bytes", "memory"),
+                      (t_tensor, "operations", "tensor cores"),
+                      (t_cuda, "operations", "cuda cores"))
+    return t * 1e3, by, unit
+
+
 def _k1_bound_ms(P: int, B: int, N: int):
-    """K1's least time: each input read once, the output written once;
-    2B x N outputs x 2N depth x 2 matrices per prime, 2 ops per MAC."""
-    nbytes = P * B * 2 * N * 4 + 2 * (B * 2 * N * 4) + 2 * P * N * 2 * N
-    ops = 2 * (2 * B) * N * (2 * N) * 2 * P
-    t_b, t_o = nbytes / HBM_BPS, ops / INT8_OPS
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    """K1's least time: the int8 limb planes, acc and the matrices read
+    once, the output written once; 2B x N outputs x 2N depth x 2 matrices
+    per prime, 2 ops per MAC, on the tensor cores; per output and prime 2
+    Barretts, one more conversion, 2 f32 operations and 2 int32
+    multiply-adds on the CUDA cores.  Returns the bound, then (for the
+    printed line only) the L2 -> SM bytes a 128 x 64 tiling moves, the
+    kernel's widest (every column tile reads the residues, every row tile
+    the matrices), and the CUDA-core time in ms."""
+    rows = 2 * B
+    v_bytes, m_bytes = P * rows * 2 * N, 2 * P * N * 2 * N
+    nbytes = v_bytes + 2 * (rows * N * 4) + m_bytes
+    ops = 2 * rows * N * (2 * N) * 2 * P
+    clocks = _cuda_core_clocks(2, cvt=1, f32=2, imad=2)
+    t_cuda = rows * N * P * clocks / (SMS * SM_HZ)
+    l2_bytes = (N // 64) * v_bytes + -(-rows // 128) * m_bytes + 2 * rows * N * 4
+    return _bound(nbytes / HBM_BPS, ops / INT8_OPS, t_cuda) + (l2_bytes, t_cuda * 1e3)
 
 
 def _k2_bound_ms(plan, group: int, R: int, B: int, n_rot_rows: int,
                  row_groups, single_add):
     """K2's least time: digits, the key step, the rotations, the forward
-    matrices and the psi rows this run gathers read once, v written once;
-    int8 MACs (2 ops each) against the tensor-core rate, one f32 multiply
-    per Barrett against the f32 rate."""
+    matrices and the psi rows this run gathers read once, v (int8 limb
+    planes) written once; int8 MACs (2 ops each) against the tensor-core
+    rate; and the CUDA-core stage counted instruction by instruction
+    (_cuda_core_clocks): every Barrett, the int32 multiply-adds of the
+    pointwise sums (2 S R per (b, k, prime)) and the multiplies of the
+    subset combine.  Returns the bound, then (for the printed line only) the
+    L2 -> SM bytes a 64 x 128 tiling moves, the kernel's widest (every
+    (prime, column tile) reads the digits, every row tile the matrices),
+    and the CUDA-core time in ms."""
     P, N, S = plan.n_primes, plan.N, (1 << group) - 1
-    nbytes = (B * R * N + S * P * R * 2 * N * 2 + group * B * 4
-              + 2 * P * N * N + n_rot_rows * P * N * 2 + P * B * 2 * N * 4)
+    d_bytes, m_bytes = B * R * N, 2 * P * N * N
+    v_bytes = P * B * 2 * 2 * N
+    nbytes = (d_bytes + S * P * R * 2 * N * 2 + group * B * 4 + m_bytes
+              + n_rot_rows * P * N * 2 + v_bytes)
     int8_ops = 2 * B * R * N * N * 2 * P
-    barretts = 0
+    clocks = 0.0
     for rg, single in zip(row_groups, single_add):
         ng = -(-R // rg)
         fwd = R * (1 if single else 3)
         if group == 2:
-            pw, comb = S * 2 * (ng + 1), 1 + 2 * 3
+            pw, comb, mults = S * 2 * (ng + 1), 1 + 2 * 3, 1 + 2 * 3
         else:
-            pw, comb = S * 2 * (ng + max(0, ng - 2)), (S - group) + 2 * (S + 1)
-        barretts += fwd + pw + comb
-    f32_ops = barretts * B * N
-    t_b = nbytes / HBM_BPS
-    t_o = max(int8_ops / INT8_OPS, f32_ops / F32_OPS)
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+            pw = S * 2 * (ng + max(0, ng - 2))
+            comb, mults = (S - group) + 2 * (S + 1), (S - group) + 2 * S
+        clocks += _cuda_core_clocks(fwd + pw + comb, imad=S * 2 * R + mults)
+    t_cuda = clocks * B * N / (SMS * SM_HZ)
+    tb = 64 // R
+    l2_bytes = (P * (N // 128) * d_bytes + -(-B // tb) * m_bytes + v_bytes)
+    return _bound(nbytes / HBM_BPS, int8_ops / INT8_OPS, t_cuda) + (l2_bytes, t_cuda * 1e3)
 
 
 def _k3_bound_ms(B: int, N: int, L: int, n_kl: int):
@@ -202,7 +270,7 @@ def _k3_bound_ms(B: int, N: int, L: int, n_kl: int):
     nbytes = B * 2 * L * N + n_kl * 2 * L * 2 * 2 * N + B * 2 * N * 4
     ops = 2 * B * (2 * L * N) * (2 * N) * n_kl
     t_b, t_o = nbytes / HBM_BPS, ops / INT8_OPS
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    return _bound(t_b, t_o, 0.0)
 
 
 def main() -> int:
@@ -241,8 +309,11 @@ def main() -> int:
         kernel = "?"
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                m = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", line)
-                kernel = m[1] + (f"<{m[2]}>" if m[2] else "") if m else "?"
+                m = re.search(r"([a-z][a-z_]*_kernel)(?:I((?:Li\d+E)+)E)?", line)
+                kernel = "?"
+                if m:
+                    args = re.findall(r"Li(\d+)E", m[2] or "")
+                    kernel = m[1] + (f"<{', '.join(args)}>" if args else "")
             elif "Used" in line or "spill" in line:
                 print(f"  ptxas {src.name} {kernel}: "
                       f"{line.split(':', 1)[-1].strip()}")
@@ -294,58 +365,85 @@ def main() -> int:
         group, e, levels = ck.bsk_group, ck.bsk_bgbit, ck.bsk_levels
         c = uniform((B_GATES, 2, P.N))
         acc = uniform((B_GATES, 2, P.N))
-        v = torch.stack(ntt.ntt_forward(c, plan, digit_limbs=4, digit_bound=128))
-        out = k1.ntt_inverse_to_crt_acc(v, acc, plan, drop)
-        ref = k1.ntt_inverse_to_crt_acc_reference(v, acc, plan, drop)
-        torch.cuda.synchronize()
-        err1 = int((out.long() - ref.long()).abs().max())
-        _check(err1 == 0, f"K1 differs from its plain version on {name} "
-               f"(max |diff| {err1})")
-        _check(torch.equal(out, acc + (c << drop)),
-               f"K1 output is not the exact acc + (c << drop) on {name}")
-
+        v = k1.split_limbs(torch.stack(
+            ntt.ntt_forward(c, plan, digit_limbs=4, digit_bound=128)))
         digits = _decompose_to_rows(acc, P, levels, bgbit=e).to(torch.int8)
-        a = uniform((group, B_GATES))
-        ts = modswitch(a, P)
+        ts = modswitch(uniform((group, B_GATES)), P)
         bsk_step = ck.bsk_ntt[0]
-        v2 = k2.ntt_step_fused(digits, bsk_step, ts, plan, e)
-        ref2 = k2.ntt_step_fused_reference(digits, bsk_step, ts, plan, e)
-        torch.cuda.synchronize()
-        err2 = int((v2.long() - ref2.long()).abs().max())
-        _check(torch.equal(v2, ref2), f"K2 differs from its plain version on "
-               f"{name} (max |diff| {err2})")
-        step_inputs[name] = (digits, bsk_step, ts, acc, v2)
-        print(f"{name}: K1 == plain == exact at [P=3, B={B_GATES}, 2, N=1024] "
-              f"drop {drop}; K2 == plain at digits [{B_GATES}, "
-              f"{digits.shape[1]}, 1024], key step {tuple(bsk_step.shape)}")
+        errs1, errs2 = [], []
+        for lanes in (B_GATES, RAGGED_LANES, 1):
+            out = k1.ntt_inverse_to_crt_acc(v[:, :lanes], acc[:lanes], plan, drop)
+            ref = k1.ntt_inverse_to_crt_acc_reference(v[:, :lanes], acc[:lanes],
+                                                      plan, drop)
+            torch.cuda.synchronize()
+            errs1.append(int((out.long() - ref.long()).abs().max()))
+            _check(errs1[-1] == 0, f"K1 differs from its plain version on "
+                   f"{name} at B={lanes} (max |diff| {errs1[-1]})")
+            _check(torch.equal(out, acc[:lanes] + (c[:lanes] << drop)),
+                   f"K1 output is not the exact acc + (c << drop) on {name} "
+                   f"at B={lanes}")
+            step = (digits[:lanes], bsk_step, ts[:, :lanes].contiguous(), plan, e)
+            v2 = k2.ntt_step_fused(*step)
+            ref2 = k2.ntt_step_fused_reference(*step)
+            torch.cuda.synchronize()
+            errs2.append(int((v2.long() - ref2.long()).abs().max()))
+            _check(torch.equal(v2, ref2), f"K2 differs from its plain version "
+                   f"on {name} at B={lanes} (max |diff| {errs2[-1]})")
+            if lanes == B_GATES:
+                step_inputs[name] = (digits, bsk_step, ts, acc, v2)
+        print(f"{name}: K1 == plain == exact at [P=3, B, 2, 2, N=1024] int8 limb "
+              f"planes, drop {drop}, and K2 == plain at digits [B, "
+              f"{digits.shape[1]}, 1024], key step {tuple(bsk_step.shape)}, for "
+              f"B = {B_GATES}, {RAGGED_LANES}, 1")
 
-        def run_k1(v=v, acc=acc, plan=plan, drop=drop):
-            k1.ntt_inverse_to_crt_acc(v, acc, plan, drop)
+        def run_k1(n=B_GATES, v=v, acc=acc, plan=plan, drop=drop):
+            k1.ntt_inverse_to_crt_acc(v[:, :n], acc[:n], plan, drop)
 
         def plain_k1(v=v, acc=acc, plan=plan, drop=drop):
             k1.ntt_inverse_to_crt_acc_reference(v, acc, plan, drop)
 
-        def run_k2(a=(digits, bsk_step, ts, plan, e)):
-            k2.ntt_step_fused(*a)
+        ts1 = ts[:, :1].contiguous()
+
+        def run_k2(n=B_GATES, a=(digits, bsk_step, ts, plan, e), ts1=ts1):
+            if n == 1:
+                k2.ntt_step_fused(a[0][:1], a[1], ts1, a[3], a[4])
+            else:
+                k2.ntt_step_fused(*a)
 
         def plain_k2(a=(digits, bsk_step, ts, plan, e)):
             k2.ntt_step_fused_reference(*a)
 
         ms1, plain1 = _kernel_vs_plain(run_k1, plain_k1)
         ms2, plain2 = _kernel_vs_plain(run_k2, plain_k2)
+        # B = 1: the host's enqueue rate (CUDA events around eager calls) and
+        # the kernel alone (the same calls replayed from a CUDA graph)
+        one1, one2 = (_cuda_ms(lambda f=f: f(1), KERNEL_ITERS)
+                      for f in (run_k1, run_k2))
+        dev1, dev2 = (_graph_ms(lambda f=f: f(1), KERNEL_ITERS)
+                      for f in (run_k1, run_k2))
         n_rows = int(torch.unique(ts & (2 * P.N - 1)).numel())
-        bound1, by1 = _k1_bound_ms(plan.n_primes, B_GATES, P.N)
-        bound2, by2 = _k2_bound_ms(plan, group, digits.shape[1], B_GATES, n_rows,
-                                   k2.row_groups(plan, group),
-                                   k2._host_scalars(plan, group, e)[3])
-        k_results["k1"][name] = dict(max_abs_err=err1, ms=ms1, plain_ms=plain1,
-                                     bound_ms=bound1, bound_by=by1)
-        k_results["k2"][name] = dict(max_abs_err=err2, ms=ms2, plain_ms=plain2,
-                                     bound_ms=bound2, bound_by=by2)
+        bound1, by1, unit1, l2_1, cc1 = _k1_bound_ms(plan.n_primes, B_GATES, P.N)
+        bound2, by2, unit2, l2_2, cc2 = _k2_bound_ms(
+            plan, group, digits.shape[1], B_GATES, n_rows,
+            k2.row_groups(plan, group), k2._host_scalars(plan, group, e)[3])
+        k_results["k1"][name] = dict(
+            max_abs_err=max(errs1), ms=ms1, plain_ms=plain1, bound_ms=bound1,
+            bound_by=by1, bound_unit=unit1,
+            b1_eager_ms=one1, b1_device_ms=dev1)
+        k_results["k2"][name] = dict(
+            max_abs_err=max(errs2), ms=ms2, plain_ms=plain2, bound_ms=bound2,
+            bound_by=by2, bound_unit=unit2,
+            b1_eager_ms=one2, b1_device_ms=dev2)
         print(f"{name} B={B_GATES}: K1 {ms1 * 1e3:.1f} us/call (plain "
-              f"{plain1 * 1e3:.1f} us, bound {bound1 * 1e3:.1f} us by {by1}); "
-              f"K2 {ms2 * 1e3:.1f} us/call (plain {plain2 * 1e3:.1f} us, bound "
-              f"{bound2 * 1e3:.1f} us by {by2}) [{gpu}]")
+              f"{plain1 * 1e3:.1f} us, bound {bound1 * 1e3:.1f} us by {unit1}, "
+              f"cuda cores {cc1 * 1e3:.1f} us, L2->SM of the widest tiling "
+              f"{l2_1 / 1e6:.0f} MB/call); K2 {ms2 * 1e3:.1f} us/call "
+              f"(plain {plain2 * 1e3:.1f} us, bound {bound2 * 1e3:.1f} us by "
+              f"{unit2}, cuda cores {cc2 * 1e3:.1f} us, L2->SM of the widest "
+              f"tiling {l2_2 / 1e6:.0f} MB/call) [{gpu}]")
+        print(f"{name} B=1: K1 {dev1 * 1e3:.1f} us/call on the device (CUDA "
+              f"graph replay; {one1 * 1e3:.1f} us eager, host-bound); K2 "
+              f"{dev2 * 1e3:.1f} us/call ({one2 * 1e3:.1f} us eager) [{gpu}]")
 
     # K3 on the digits of an accumulator difference (acc rotated by X^t,
     # minus acc) and the first step of the real Toeplitz key
@@ -375,15 +473,16 @@ def main() -> int:
 
     ms3, plain3 = _kernel_vs_plain(run_k3, plain_k3)
     int_mm3 = _cuda_ms(int_mm_k3, KERNEL_ITERS)
-    bound3, by3 = _k3_bound_ms(B_GATES, P.N, P.L, bsk3.shape[0])
+    bound3, by3, unit3 = _k3_bound_ms(B_GATES, P.N, P.L, bsk3.shape[0])
     k_results["k3"] = {TOEP: dict(max_abs_err=max(errs3), ms=ms3,
                                   plain_ms=plain3, bound_ms=bound3,
-                                  bound_by=by3, int_mm_prebuilt_ms=int_mm3)}
+                                  bound_by=by3, bound_unit=unit3,
+                                  int_mm_prebuilt_ms=int_mm3)}
     print(f"{TOEP}: K3 == plain at digits [B, {d3.shape[1]}] for B = "
           f"{B_GATES}, 200, 1, key step {tuple(bsk3.shape)}; B={B_GATES}: K3 "
           f"{ms3 * 1e3:.1f} us/call (plain {plain3 * 1e3:.1f} us, _int_mm on "
           f"prebuilt circulants {int_mm3 * 1e3:.1f} us, bound "
-          f"{bound3 * 1e3:.1f} us by {by3}) [{gpu}]")
+          f"{bound3 * 1e3:.1f} us by {unit3}) [{gpu}]")
 
     # -- 5. the main paths: B=2048 heterogeneous gates ------------------------
     x = torch.randint(0, 2, (B_GATES,), generator=g, device=dev).bool()
@@ -517,7 +616,7 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in k_results[kk].values()),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None,
+            "bound_unit": main["bound_unit"], "library_ms": None,
             "by_path": {p: {"launches": launches[p][kk], **k_results[kk][p]}
                         for p in k_results[kk]}})
     print(json.dumps({"kernels": kernels}))

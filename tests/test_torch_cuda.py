@@ -27,7 +27,8 @@ pytestmark = pytest.mark.cuda
 
 # (params, drop, group, levels, engine bgbit)
 _CASES = {"tiny": (params.TEST_TINY, 0, 3, (2, 2), 6),
-          "128bit": (params.SECURITY_128_BIT, 5, 3, (2, 2), 7)}
+          "128bit": (params.SECURITY_128_BIT, 5, 3, (2, 2), 7),
+          "128bit_g2": (params.SECURITY_128_BIT, 7, 2, (3, 2), 6)}
 
 _TRUTH = {
     "nand": lambda p, q: not (p and q), "or": lambda p, q: p or q,
@@ -50,8 +51,10 @@ def _plan(case):
                                pseudorandom_key=True), drop
 
 
+# B = 1 and 33 take the narrow column tile, 200 ends inside a row tile's
+# second warpgroup, 2049 leaves a row tile with one live row pair
 @pytest.mark.parametrize("case", sorted(_CASES))
-@pytest.mark.parametrize("B", [1, 8, 200, 2048])
+@pytest.mark.parametrize("B", [1, 8, 33, 200, 2048, 2049])
 def test_kernel_matches_plain_and_exact(dev, case, B):
     plan, drop = _plan(case)
     rng = np.random.default_rng(B)
@@ -65,6 +68,10 @@ def test_kernel_matches_plain_and_exact(dev, case, B):
     assert torch.equal(out, K.ntt_inverse_to_crt_acc_reference(v, acc, plan,
                                                                 drop))
     assert torch.equal(out, acc + (c << drop))
+    # the same residues as int8 limb planes, the form K2 hands over
+    v8 = K.split_limbs(v)
+    assert torch.equal(K.join_limbs(v8), v)
+    assert torch.equal(K.ntt_inverse_to_crt_acc(v8, acc, plan, drop), out)
 
 
 def test_kernel_rejects_what_it_cannot_take(dev):
@@ -160,14 +167,18 @@ def _step_inputs(dev, case, B, seed):
     return plan, bgbit, digits, bsk, ts
 
 
+# B = 1 and 33 take the narrow tile, 200 and 2049 end inside a 64-row tile
+# (16 lanes a tile at R = 4, 12 at R = 5)
 @pytest.mark.parametrize("case", sorted(_STEP_CASES))
-@pytest.mark.parametrize("B", [1, 64, 2048])
+@pytest.mark.parametrize("B", [1, 33, 64, 200, 2048, 2049])
 def test_step_kernel_matches_plain(dev, case, B):
     plan, bgbit, digits, bsk, ts = _step_inputs(dev, case, B, B)
     before = K2.ntt_step_fused.launches
     out = K2.ntt_step_fused(digits, bsk, ts, plan, bgbit)
     torch.cuda.synchronize()
     assert K2.ntt_step_fused.launches == before + 1
+    assert out.dtype == torch.int8
+    assert tuple(out.shape) == (plan.n_primes, B, 2, 2, plan.N)
     assert torch.equal(out, K2.ntt_step_fused_reference(digits, bsk, ts, plan,
                                                          bgbit))
 

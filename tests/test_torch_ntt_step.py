@@ -91,16 +91,21 @@ def test_group2_matches_pallas_step_kernel(case):
     rows2 = jnp.stack([jnp.take(t, t2, axis=0) for t in tabs])
     x_f = ntt_step_fused_pallas(jnp.asarray(digits), jnp.asarray(bsk), rows1,
                                 rows2, jplan, tile_b=64, interpret=True)
-    v = K2.ntt_step_fused_reference(_t(digits), _t(bsk), _t(ts), tplan, bgbit)
-    assert v.dtype == torch.int32 and tuple(v.shape) == (jplan.n_primes, 64, 2, N)
+    v8 = K2.ntt_step_fused_reference(_t(digits), _t(bsk), _t(ts), tplan, bgbit)
+    assert v8.dtype == torch.int8
+    assert tuple(v8.shape) == (jplan.n_primes, 64, 2, 2, N)
+    v = K1.join_limbs(v8)           # the residues, from their int8 limb planes
+    assert v.dtype == torch.int32 and torch.equal(K1.split_limbs(v), v8)
     xs = tntt.ntt_inverse_residues(list(v), tplan)
     for i, p in enumerate(tplan.primes):
         assert np.array_equal(xs[i].numpy(), np.asarray(x_f[i])), p
         assert int(v[i].abs().max()) <= 0.55 * p
     delta = jntt.crt_combine([x_f[i] for i in range(jplan.n_primes)], jplan)
     want = np.asarray(jnp.asarray(acc) + (delta << drop))
-    got = K1.ntt_inverse_to_crt_acc_reference(v, _t(acc), tplan, drop)
+    got = K1.ntt_inverse_to_crt_acc_reference(v8, _t(acc), tplan, drop)
     assert np.array_equal(got.numpy(), want)
+    assert torch.equal(
+        got, K1.ntt_inverse_to_crt_acc_reference(v, _t(acc), tplan, drop))
 
 
 @pytest.mark.parametrize("case", ["128bit_g3", "tiny_g3"])
@@ -114,7 +119,7 @@ def test_group3_matches_xla_step_multi(case):
                                     u_wide=True)
     v = K2.ntt_step_fused_reference(_t(digits), _t(bsk), _t(ts), tplan, bgbit)
     for i, p in enumerate(tplan.primes):
-        assert np.array_equal(v[i].numpy(), np.asarray(v_j[i])), p
+        assert np.array_equal(K1.join_limbs(v[i]).numpy(), np.asarray(v_j[i])), p
     delta = jntt.ntt_inverse_to_crt(v_j, jplan)
     want = np.asarray(jnp.asarray(acc) + (delta << drop))
     got = K1.ntt_inverse_to_crt_acc_reference(v, _t(acc), tplan, drop)

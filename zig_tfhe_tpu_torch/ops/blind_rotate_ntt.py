@@ -106,10 +106,11 @@ def blind_rotate_ntt(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
         a_cols = torch.cat([a_cols, a_cols.new_zeros(group * G - n0, B)])
     a_groups = a_cols.reshape(G, group, B)
     if group in FUSED_GROUPS and e_limbs == 1:
+        ts = modswitch(a_groups, params)     # every step's rotations at once
         for s in range(G):
             digits = _decompose_to_rows(acc, params, levels, bgbit=e)
-            v = ntt_step_fused(digits.to(torch.int8), bsk_ntt[s],
-                               modswitch(a_groups[s], params), plan, e)
+            v = ntt_step_fused(digits.to(torch.int8), bsk_ntt[s], ts[s],
+                               plan, e)
             acc = ntt_inverse_to_crt_acc(v, acc, plan, drop_bits)
         return acc
     for s in range(G):

@@ -3,7 +3,8 @@
 Every source in zig_tfhe_tpu_torch/csrc/ is compiled at first use with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
 cached in zig_tfhe_tpu_torch/_build/ (git-ignored) under the hash of the
-source and the flags, and loaded with ``ctypes``.  ``build`` starts one
+source, of every header in csrc/ (a source may include any of them) and of
+the flags, and loaded with ``ctypes``.  ``build`` starts one
 ``nvcc`` per source, all at once, and waits for them together.  Each
 library exports ``ztfhe_cuda_error_string`` beside its launch functions,
 which return ``cudaGetLastError()`` after the launch.
@@ -37,24 +38,32 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}_{digest}.so"
+def headers(source: Path) -> list:
+    """The headers ``source`` can include: all of its directory's."""
+    return sorted(h for pat in ("*.cuh", "*.h") for h in source.parent.glob(pat))
 
 
-def build(*sources: Path) -> dict:
+def library_path(source: Path, defines: tuple = ()) -> Path:
+    h = hashlib.sha256(source.read_bytes())
+    for header in headers(source):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+    return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build(*sources: Path, defines: tuple = ()) -> dict:
     """Compile each source's shared library (always; atomic replace), one
     ``nvcc`` process per source, all running at once.  Returns each
     source's nvcc report (ptxas: every kernel's registers, shared memory
-    and spills)."""
+    and spills).  ``defines`` are extra ``-D...`` flags (a measuring
+    script's stage switches); they are part of the library's name."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = []
     for src in sources:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, *defines, "-o", tmp, str(src)],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((src, tmp, proc))
@@ -63,7 +72,7 @@ def build(*sources: Path) -> dict:
         out, _ = proc.communicate()
         logs[src] = out
         if proc.returncode == 0:
-            os.replace(tmp, library_path(src))
+            os.replace(tmp, library_path(src, defines))
         else:
             failed.append(f"nvcc failed building {src}:\n{out}")
         if os.path.exists(tmp):

@@ -6,6 +6,12 @@ The source is zig_tfhe_tpu_torch/csrc/ntt_inverse.cu (its header gives the
 bound on the card and the design); ops/cuda/_build.py compiles it at first
 use and binds it with ``ctypes``.
 
+The residues pass from K2 (ops/cuda/ntt_step.py) to this kernel as int8
+limb planes [P, B, 2, 2, N] (``split_limbs``: v == lo + 256 * hi, every
+|v| <= 32,639 by construction, ops/ntt.py), which is the kernel's A operand
+as it stands and half the bytes of int32 residues.  Both functions below
+also take int32 residues [P, B, 2, N] and split them first.
+
 ``ntt_inverse_to_crt_acc`` launches the kernel for CUDA tensors (or
 raises) and runs the plain PyTorch version,
 ``ntt_inverse_to_crt_acc_reference``, for CPU tensors only.
@@ -25,14 +31,30 @@ from zig_tfhe_tpu_torch.ops.ntt import NTTPlan, ntt_inverse_to_crt
 
 SOURCE = _build.CSRC / "ntt_inverse.cu"
 _MAX_PRIMES = 8     # kMaxPrimes in the source
-_COL_TILE = 64      # N must be a multiple of the kernel's BN and BK
+_COL_TILE = 64      # N must be a multiple of the kernel's widest tile
+
+
+def split_limbs(v: torch.Tensor) -> torch.Tensor:
+    """int32 residues [..., N] with |v| <= 32,639 -> int8 limb planes
+    [..., 2, N]: lo in [-128, 128), hi = (v - lo) >> 8, v == lo + 256 hi."""
+    lo = ((v + 128) & 255) - 128
+    return torch.stack([lo, (v - lo) >> 8], dim=-2).to(torch.int8)
+
+
+def join_limbs(v8: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``split_limbs``: int8 [..., 2, N] -> int32 [..., N]."""
+    v = v8.to(torch.int32)
+    return v[..., 0, :] + (v[..., 1, :] << 8)
 
 
 def ntt_inverse_to_crt_acc_reference(v_stack: torch.Tensor, acc: torch.Tensor,
                                      plan: NTTPlan, drop: int) -> torch.Tensor:
     """Plain PyTorch version: acc + (ntt_inverse_to_crt(v) << drop), the
     JAX package's XLA formulation of the same step (blind_rotate_ntt.py
-    finish)."""
+    finish).  v_stack: int8 limb planes [P, B, 2, 2, N] or int32 residues
+    [P, B, 2, N]."""
+    if v_stack.dtype == torch.int8:
+        v_stack = join_limbs(v_stack)
     delta = ntt_inverse_to_crt(list(v_stack), plan)
     if drop:
         delta = delta << drop
@@ -59,6 +81,13 @@ class _KernelTables:
     inv_p: np.ndarray
     theta: np.ndarray
 
+    @functools.cached_property
+    def scalar_ptrs(self) -> tuple:
+        """The four host arrays as ctypes pointers (made once: the launch
+        path is host-bound at small batches)."""
+        return tuple(a.ctypes.data_as(ctypes.c_void_p)
+                     for a in (self.primes, self.crt_e, self.inv_p, self.theta))
+
 
 @functools.lru_cache(maxsize=None)
 def _kernel_tables(plan: NTTPlan, device: torch.device) -> _KernelTables:
@@ -78,14 +107,16 @@ def ntt_inverse_to_crt_acc(v_stack: torch.Tensor, acc: torch.Tensor,
                            plan: NTTPlan, drop: int) -> torch.Tensor:
     """acc + (CRT(invNTT(v)) << drop) mod 2^32.
 
-    v_stack: int32 [P, B, 2, N] per-prime residues (|.| <= 0.55p);
-    acc: int32 [B, 2, N].  Any B.  CUDA tensors launch the kernel (and
-    count the launch in ``ntt_inverse_to_crt_acc.launches``); CPU tensors
-    run the plain version."""
-    if v_stack.dtype != torch.int32 or acc.dtype != torch.int32:
+    v_stack: the per-prime residues (|.| <= 0.55p), as int8 limb planes
+    [P, B, 2, 2, N] (K2's output) or as int32 [P, B, 2, N], which is split
+    here; acc: int32 [B, 2, N].  Any B.  CUDA tensors launch the kernel
+    (and count the launch in ``ntt_inverse_to_crt_acc.launches``); CPU
+    tensors run the plain version."""
+    if (v_stack.dtype not in (torch.int32, torch.int8)
+            or acc.dtype != torch.int32):
         raise NotImplementedError(
-            "the kernel takes int32 residues and the 32-bit torus only "
-            f"(got {v_stack.dtype}, {acc.dtype})")
+            "the kernel takes int32 residues or their int8 limb planes and "
+            f"the 32-bit torus only (got {v_stack.dtype}, {acc.dtype})")
     if v_stack.device.type == "cpu" and acc.device.type == "cpu":
         return ntt_inverse_to_crt_acc_reference(v_stack, acc, plan, drop)
     if v_stack.device.type != "cuda" or acc.device != v_stack.device:
@@ -93,15 +124,17 @@ def ntt_inverse_to_crt_acc(v_stack: torch.Tensor, acc: torch.Tensor,
                          "both must be on the same CUDA device")
     P, N = plan.n_primes, plan.N
     B = acc.shape[0]
-    if (tuple(v_stack.shape) != (P, B, 2, N)
-            or tuple(acc.shape) != (B, 2, N)):
+    v_shape = (P, B, 2, N) if v_stack.dtype == torch.int32 else (P, B, 2, 2, N)
+    if tuple(v_stack.shape) != v_shape or tuple(acc.shape) != (B, 2, N):
         raise ValueError(f"shapes {tuple(v_stack.shape)}, {tuple(acc.shape)} "
-                         f"do not match [P={P}, B, 2, N={N}] and [B, 2, N]")
+                         f"do not match [P={P}, B, 2, (2,) N={N}] and [B, 2, N]")
     if P > _MAX_PRIMES or N % _COL_TILE:
         raise ValueError(f"kernel takes <= {_MAX_PRIMES} primes and N % "
                          f"{_COL_TILE} == 0 (plan has {P} primes, N={N})")
     if not 0 <= drop < 32:
         raise ValueError(f"drop {drop} outside [0, 32)")
+    if v_stack.dtype == torch.int32:
+        v_stack = split_limbs(v_stack)
     v_stack = v_stack.contiguous()
     acc = acc.contiguous()
     if v_stack.data_ptr() % 16 or acc.data_ptr() % 16:
@@ -109,15 +142,11 @@ def ntt_inverse_to_crt_acc(v_stack: torch.Tensor, acc: torch.Tensor,
     tabs = _kernel_tables(plan, v_stack.device)
     out = torch.empty_like(acc)
     lib = _library()
-
-    def ptr(a: np.ndarray):
-        return a.ctypes.data_as(ctypes.c_void_p)
-
     err = lib.ztfhe_ntt_inverse_crt_acc(
         v_stack.data_ptr(), acc.data_ptr(), out.data_ptr(),
-        tabs.m_lo.data_ptr(), tabs.m_hi.data_ptr(), ptr(tabs.primes),
-        ptr(tabs.crt_e), ptr(tabs.inv_p), ptr(tabs.theta), plan.p_mod, P,
-        2 * B, N, drop, torch.cuda.current_stream(v_stack.device).cuda_stream)
+        tabs.m_lo.data_ptr(), tabs.m_hi.data_ptr(), *tabs.scalar_ptrs,
+        plan.p_mod, P, 2 * B, N, drop,
+        torch.cuda.current_stream(v_stack.device).cuda_stream)
     _build.check(lib, err, "ntt_inverse_crt_acc")
     ntt_inverse_to_crt_acc.launches += 1
     return out

@@ -7,7 +7,10 @@ the multi-bit rotation combine) and widens it from group 2 to group 3, the
 128-bit key default.  The inverse NTT, the CRT lift and the accumulator add
 that the TPU kernel's caller ran after it stay in K1
 (ops/cuda/ntt_inverse.py), so one step is two launches:
-``ntt_step_fused`` then ``ntt_inverse_to_crt_acc``.  The source is
+``ntt_step_fused`` then ``ntt_inverse_to_crt_acc``, with the residues
+between them as int8 limb planes [P, B, 2, 2, N] (``split_limbs`` of
+ops/cuda/ntt_inverse.py: K1's operand as it stands, half the bytes of
+int32).  The source is
 zig_tfhe_tpu_torch/csrc/ntt_step.cu (its header gives the bound on the card
 and the design); ops/cuda/_build.py compiles it at first use.
 
@@ -43,12 +46,13 @@ import torch
 
 from zig_tfhe_tpu_torch.ops import ntt as _ntt
 from zig_tfhe_tpu_torch.ops.cuda import _build
+from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import split_limbs
 
 SOURCE = _build.CSRC / "ntt_step.cu"
 GROUPS = (2, 3)
 _MAX_PRIMES = 8     # kMaxPrimes in the source
 _MAX_ROWS = 10      # kMaxRows in the source: (5, 5) levels at Bg_e = 2^6
-_COL_TILE = 64      # N must be a multiple of the kernel's BN and BK
+_COL_TILE = 64      # N must be a multiple of the kernel's narrowest stage
 
 
 def _require_supported(digits: torch.Tensor, bsk_step: torch.Tensor,
@@ -117,25 +121,31 @@ def ntt_step_fused_reference(digits: torch.Tensor, bsk_step: torch.Tensor,
     digits: int8 [B, R, N] gadget digits of the accumulator (Bg_e =
     2^bgbit); bsk_step: int16 [2^g - 1, P, R, 2, N], one step of the key's
     ``bsk_ntt``; ts: int32 [g, B] rotation amounts in [0, 2N].  Returns
-    int32 [P, B, 2, N] residues with |v| <= 0.55p (K1's input)."""
+    the residues v (|v| <= 0.55p) as int8 limb planes [P, B, 2, 2, N],
+    K1's input (``join_limbs`` gives the int32 residues back)."""
     _require_supported(digits, bsk_step, ts, bgbit)
     d_hat = _ntt.ntt_forward(digits, plan, 1, 1 << (bgbit - 1))
     if ts.shape[0] == 2:
-        return torch.stack(_pointwise_combine2(d_hat, bsk_step, ts, plan))
-    us = [_ntt.pointwise_extprod(d_hat, bsk_step[m], plan, reduce_output=False)
-          for m in range(bsk_step.shape[0])]
-    return torch.stack(_ntt.rotate_combine_multi(us, list(ts), plan,
-                                                 u_wide=True))
+        v = _pointwise_combine2(d_hat, bsk_step, ts, plan)
+    else:
+        us = [_ntt.pointwise_extprod(d_hat, bsk_step[m], plan,
+                                     reduce_output=False)
+              for m in range(bsk_step.shape[0])]
+        v = _ntt.rotate_combine_multi(us, list(ts), plan, u_wide=True)
+    return split_limbs(torch.stack(v))
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.ztfhe_ntt_step_fused.argtypes = [p] * 11 + [i] * 5 + [p]
     lib.ztfhe_ntt_step_fused.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    return _bind(_build.load(SOURCE))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,11 +182,20 @@ def _host_scalars(plan: _ntt.NTTPlan, group: int, bgbit: int):
             np.array(single, np.int32))
 
 
+@functools.lru_cache(maxsize=None)
+def _host_scalar_ptrs(plan: _ntt.NTTPlan, group: int, bgbit: int) -> tuple:
+    """``_host_scalars`` as ctypes pointers (made once: the launch path is
+    host-bound at small batches; the cached arrays stay alive)."""
+    return tuple(a.ctypes.data_as(ctypes.c_void_p)
+                 for a in _host_scalars(plan, group, bgbit))
+
+
 def ntt_step_fused(digits: torch.Tensor, bsk_step: torch.Tensor,
                    ts: torch.Tensor, plan: _ntt.NTTPlan,
                    bgbit: int) -> torch.Tensor:
-    """Digits -> per-prime residues v int32 [P, B, 2, N] of one multi-bit
-    blind-rotation step (arguments as ``ntt_step_fused_reference``).  Any
+    """Digits -> per-prime residues v of one multi-bit blind-rotation step,
+    as int8 limb planes [P, B, 2, 2, N] (arguments as
+    ``ntt_step_fused_reference``).  Any
     B.  CUDA tensors launch the kernel (and count the launch in
     ``ntt_step_fused.launches``); CPU tensors run the plain version."""
     _require_supported(digits, bsk_step, ts, bgbit)
@@ -205,18 +224,13 @@ def ntt_step_fused(digits: torch.Tensor, bsk_step: torch.Tensor,
     if digits.data_ptr() % 16 or bsk_step.data_ptr() % 16:
         raise ValueError("kernel operands must be 16-byte aligned")
     tabs = _device_tables(plan, dev)
-    primes, inv_p, groups, single = _host_scalars(plan, group, bgbit)
-    v = torch.empty((P, B, 2, N), dtype=torch.int32, device=dev)
+    v = torch.empty((P, B, 2, 2, N), dtype=torch.int8, device=dev)
     lib = _library()
-
-    def ptr(a: np.ndarray):
-        return a.ctypes.data_as(ctypes.c_void_p)
-
     err = lib.ztfhe_ntt_step_fused(
         digits.data_ptr(), bsk_step.data_ptr(), ts.data_ptr(),
         tabs.fwd_lo_t.data_ptr(), tabs.fwd_hi_t.data_ptr(),
-        tabs.rot.data_ptr(), v.data_ptr(), ptr(primes), ptr(inv_p),
-        ptr(groups), ptr(single), P, group, B, R, N,
+        tabs.rot.data_ptr(), v.data_ptr(),
+        *_host_scalar_ptrs(plan, group, bgbit), P, group, B, R, N,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "ntt_step_fused")
     ntt_step_fused.launches += 1
