@@ -28,16 +28,18 @@ step of toep is one launch of K3 (csrc/extprod.cu: the digits against the
 negacyclic circulants of the key step's rows, 4 key limbs).  Phases:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the three kernels from zig_tfhe_tpu_torch/csrc (K1 and K2 on
+  2. build the three kernels from zig_tfhe_tpu_torch/csrc (all three on
      csrc/hopper_prims.cuh: TMA, mbarrier, wgmma) with nvcc for sm_90a, one
-     nvcc per source, started together; ptxas' registers and spills;
+     nvcc per source, started together; ptxas' registers and spills (and
+     any wgmma serialization it reports);
   3. key generation on the card, all three configurations;
   4. each kernel against its plain PyTorch version at each path's shapes,
      at B = 2048, 200 (a ragged last tile) and 1: K1 on the int8 limb
      planes of residues of bounded polynomials (bit-equal to the plain
      version and to the exact acc + (c << drop)); K2 on the digits of an
      accumulator and a step of the real key (bit-equal); K3 on the digits
-     of an accumulator difference and a step of the real key (bit-equal);
+     of an accumulator difference and a step of the real key (bit-equal),
+     also at B = 65 and 64 (one batch tile and a ragged second one);
   5. per path, B = 2048 heterogeneous gates with every launch count set to
      0 just before and read just after: accuracy must be 1.0, each kernel
      of the path must have been launched once per step and the others not
@@ -47,9 +49,10 @@ negacyclic circulants of the key step's rows, 4 key limbs).  Phases:
   6. timings with CUDA events, per path: gates/s at B = 2048, B = 1
      latency, each kernel and its plain version per call beside its bound
      (bytes, tensor-core operations or CUDA-core operations, whichever is
-     largest) and the L2 -> SM bytes of its tiling, K1 and K2 also per call
-     at B = 1 (K3 also against torch._int_mm on circulants built
-     beforehand, the build not timed), and one step split into its stages;
+     largest) and the L2 -> SM bytes of its tiling, each kernel also per
+     call at B = 1 from a CUDA graph (K3 also against torch._int_mm on
+     circulants built beforehand, the build not timed), and one step split
+     into its stages;
   7. per path, a torch.profiler trace of one warm batch at B = 2048 and at
      B = 1: device busy time, idle share and the costliest kernels.
 
@@ -266,11 +269,18 @@ def _k2_bound_ms(plan, group: int, R: int, B: int, n_rot_rows: int,
 
 def _k3_bound_ms(B: int, N: int, L: int, n_kl: int):
     """K3's least time: the digits, the key step and the output moved once;
-    B x 2N outputs x 2L*N depth per key limb, 2 ops per MAC."""
-    nbytes = B * 2 * L * N + n_kl * 2 * L * 2 * 2 * N + B * 2 * N * 4
+    B x 2N outputs x 2L*N depth per key limb, 2 ops per MAC.  Returns the
+    bound, then (for the printed line only) the L2 -> SM bytes of the
+    kernel's tiling: the digits once per 128-column block, every consumer
+    warpgroup's key windows (N + 64 bytes a key row and limb), the output."""
+    d_bytes, out_bytes = B * 2 * L * N, B * 2 * N * 4
+    nbytes = d_bytes + n_kl * 2 * L * 2 * 2 * N + out_bytes
     ops = 2 * B * (2 * L * N) * (2 * N) * n_kl
     t_b, t_o = nbytes / HBM_BPS, ops / INT8_OPS
-    return _bound(t_b, t_o, 0.0)
+    col_blocks, lane_tiles = 2 * N // 128, -(-B // 64)
+    l2_bytes = (col_blocks * d_bytes + out_bytes
+                + col_blocks * lane_tiles * 2 * n_kl * 2 * L * (N + 64))
+    return _bound(t_b, t_o, 0.0) + (l2_bytes,)
 
 
 def main() -> int:
@@ -314,7 +324,7 @@ def main() -> int:
                 if m:
                     args = re.findall(r"Li(\d+)E", m[2] or "")
                     kernel = m[1] + (f"<{', '.join(args)}>" if args else "")
-            elif "Used" in line or "spill" in line:
+            elif "Used" in line or "spill" in line or "Loss" in line:
                 print(f"  ptxas {src.name} {kernel}: "
                       f"{line.split(':', 1)[-1].strip()}")
 
@@ -452,7 +462,8 @@ def main() -> int:
     d3 = _digit_limbs(negacyclic_rotate(acc3, t3) - acc3, P)[..., 0].contiguous()
     bsk3 = ck_toep.bsk_ext_limbs[0]
     errs3 = []
-    for lanes in (B_GATES, 200, 1):
+    k3_lanes = (B_GATES, RAGGED_LANES, 65, 64, 1)
+    for lanes in k3_lanes:
         out3 = k3.extprod_matmul(d3[:lanes], bsk3, P)
         ref3 = k3.extprod_matmul_reference(d3[:lanes], bsk3, P)
         torch.cuda.synchronize()
@@ -461,8 +472,8 @@ def main() -> int:
                f"at B={lanes} (max |diff| {errs3[-1]})")
     mats3 = trgsw_matrices(bsk3, P)
 
-    def run_k3():
-        k3.extprod_matmul(d3, bsk3, P)
+    def run_k3(n=B_GATES):
+        k3.extprod_matmul(d3[:n], bsk3, P)
 
     def plain_k3():
         k3.extprod_matmul_reference(d3, bsk3, P)
@@ -473,16 +484,22 @@ def main() -> int:
 
     ms3, plain3 = _kernel_vs_plain(run_k3, plain_k3)
     int_mm3 = _cuda_ms(int_mm_k3, KERNEL_ITERS)
-    bound3, by3, unit3 = _k3_bound_ms(B_GATES, P.N, P.L, bsk3.shape[0])
+    one3 = _cuda_ms(lambda: run_k3(1), KERNEL_ITERS)
+    dev3 = _graph_ms(lambda: run_k3(1), KERNEL_ITERS)
+    bound3, by3, unit3, l2_3 = _k3_bound_ms(B_GATES, P.N, P.L, bsk3.shape[0])
     k_results["k3"] = {TOEP: dict(max_abs_err=max(errs3), ms=ms3,
                                   plain_ms=plain3, bound_ms=bound3,
                                   bound_by=by3, bound_unit=unit3,
-                                  int_mm_prebuilt_ms=int_mm3)}
+                                  int_mm_prebuilt_ms=int_mm3,
+                                  b1_eager_ms=one3, b1_device_ms=dev3)}
     print(f"{TOEP}: K3 == plain at digits [B, {d3.shape[1]}] for B = "
-          f"{B_GATES}, 200, 1, key step {tuple(bsk3.shape)}; B={B_GATES}: K3 "
-          f"{ms3 * 1e3:.1f} us/call (plain {plain3 * 1e3:.1f} us, _int_mm on "
-          f"prebuilt circulants {int_mm3 * 1e3:.1f} us, bound "
-          f"{bound3 * 1e3:.1f} us by {unit3}) [{gpu}]")
+          f"{', '.join(map(str, k3_lanes))}, key step {tuple(bsk3.shape)}; "
+          f"B={B_GATES}: K3 {ms3 * 1e3:.1f} us/call (plain {plain3 * 1e3:.1f} "
+          f"us, _int_mm on prebuilt circulants {int_mm3 * 1e3:.1f} us, bound "
+          f"{bound3 * 1e3:.1f} us by {unit3}, L2->SM of its tiling "
+          f"{l2_3 / 1e6:.0f} MB/call) [{gpu}]")
+    print(f"{TOEP} B=1: K3 {dev3 * 1e3:.1f} us/call on the device (CUDA graph "
+          f"replay; {one3 * 1e3:.1f} us eager) [{gpu}]")
 
     # -- 5. the main paths: B=2048 heterogeneous gates ------------------------
     x = torch.randint(0, 2, (B_GATES,), generator=g, device=dev).bool()

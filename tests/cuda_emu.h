@@ -2,16 +2,13 @@
 // for tests/test_torch_kernel_emulation.py.  A kernel source is compiled
 // with the host C++ compiler after textual rewrites (done by the test):
 // the includes of <cuda_runtime.h> and of csrc/hopper_prims.cuh become
-// this header, the `mma.sync` asm (csrc/extprod.cu) becomes emu_mma,
-// `kernel<<<...>>>(args)` becomes emu_launch, and the dynamic shared array
-// points at g_smem.
+// this header, `kernel<<<...>>>(args)` becomes emu_launch, and the dynamic
+// shared array points at g_smem.
 //
 // One std::thread per CUDA thread, one block at a time; __syncthreads is a
-// std::barrier over the block, and mma.sync.m16n8k32 s8 gathers the 32
-// lanes' fragments of a warp and computes each lane's accumulators from
-// them.  The float intrinsics round to nearest even like the card's (build
-// with -ffp-contract=off so no multiply-add is fused); __byte_perm is the
-// default mode.
+// std::barrier over the block.  The float intrinsics round to nearest even
+// like the card's (build with -ffp-contract=off so no multiply-add is
+// fused); __byte_perm is the default mode.
 //
 // namespace hopper holds host versions of exactly the functions of
 // csrc/hopper_prims.cuh: an mbarrier is a mutex-guarded (arrivals, bytes,
@@ -20,7 +17,11 @@
 // completes its bytes on the barrier, and a wgmma reads both operands
 // through their descriptors (start, 8-row stride, swizzle) and computes
 // the calling thread's own sums in the m64nNk32 fragment layout, at issue;
-// the commit is a barrier over the warpgroup, as the instruction is collective.
+// the commit is a barrier over the warpgroup, as the instruction is
+// collective.  A wgmma with A from registers gathers the warpgroup's 128
+// threads' A fragments first (a barrier over the warpgroup), then computes
+// each thread's own sums from them.  Computing at issue cannot show a
+// register rewritten while a wgmma on the card still reads it.
 #pragma once
 
 #include <algorithm>
@@ -63,7 +64,6 @@ inline int2 make_int2(int a, int b) { return {a, b}; }
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 gridDim;
 inline std::barrier<>* g_block_barrier = nullptr;
-inline std::vector<std::unique_ptr<std::barrier<>>> g_warp_barrier;
 alignas(1024) inline unsigned char g_smem[1 << 18];
 inline std::vector<std::unique_ptr<std::barrier<>>> g_warpgroup_barrier;
 
@@ -90,50 +90,14 @@ inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 
-struct WarpFragments { uint32_t a[32][4]; uint32_t b[32][2]; };
-inline WarpFragments g_frag[32];
-
-inline int emu_s8(uint32_t w, int byte) {
-  return static_cast<int8_t>((w >> (8 * byte)) & 0xFF);
-}
-
-// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32: lane (g = lane/4,
-// t = lane%4) holds A rows g, g+8 at k = 4t.., 16+4t..; B column g at the
-// same k; C rows g, g+8, columns 2t, 2t+1.
-inline void emu_mma(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  WarpFragments& f = g_frag[warp];
-  for (int i = 0; i < 4; ++i) f.a[lane][i] = a[i];
-  f.b[lane][0] = b0;
-  f.b[lane][1] = b1;
-  g_warp_barrier[warp]->arrive_and_wait();
-  const int g = lane >> 2, t = lane & 3;
-  for (int i = 0; i < 4; ++i) {
-    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
-    uint32_t acc = 0;
-    for (int k = 0; k < 32; ++k) {
-      const int a_lane = (row % 8) * 4 + (k % 16) / 4;
-      const int a_reg = (row >= 8 ? 1 : 0) + (k >= 16 ? 2 : 0);
-      const int b_lane = col * 4 + (k % 16) / 4;
-      acc += static_cast<uint32_t>(emu_s8(f.a[a_lane][a_reg], k % 4) *
-                                   emu_s8(f.b[b_lane][k >= 16], k % 4));
-    }
-    c[i] = static_cast<int>(static_cast<uint32_t>(c[i]) + acc);
-  }
-  g_warp_barrier[warp]->arrive_and_wait();
-}
-
 template <class F>
 inline void emu_launch(F f, dim3 grid, int threads, size_t = 0, void* = nullptr) {
   std::barrier<> block(threads);
   g_block_barrier = &block;
   gridDim = grid;
-  g_warp_barrier.clear();
   g_warpgroup_barrier.clear();
   for (int w = 0; w < threads / 128; ++w)
     g_warpgroup_barrier.emplace_back(std::make_unique<std::barrier<>>(128));
-  for (int w = 0; w < (threads + 31) / 32; ++w)
-    g_warp_barrier.emplace_back(std::make_unique<std::barrier<>>(32));
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
@@ -310,6 +274,7 @@ inline void wgmma_commit() {
 }
 template <int N> inline void wgmma_wait() {}
 template <int REGS> inline void fence_acc(int (&)[REGS]) {}
+template <int REGS> inline void fence_acc(uint32_t (&)[REGS]) {}
 
 // element (row, k) of the K-major operand a descriptor points at
 inline int emu_operand(uint64_t desc, int row, int k) {
@@ -335,6 +300,44 @@ inline void wgmma_s8(int (&d)[REGS], uint64_t a, uint64_t b, int accumulate) {
       sum += static_cast<uint32_t>(emu_operand(a, row, k) * emu_operand(b, col, k));
     d[i] = static_cast<int>((accumulate ? static_cast<uint32_t>(d[i]) : 0u) + sum);
   }
+}
+
+inline int emu_s8(uint32_t w, int byte) {
+  return static_cast<int8_t>((w >> (8 * byte)) & 0xFF);
+}
+
+// the A fragments of each warpgroup's 128 threads, gathered at issue
+struct WarpgroupFragments { uint32_t a[128][4]; };
+inline WarpgroupFragments g_wg_frag[4];
+
+// wgmma.mma_async.m64n64k32.s32.s8.s8 with A from registers: thread (warp
+// w, g, t) holds a[0] = A[16 w + g][4 t ..], a[1] = A[16 w + g + 8][4 t ..],
+// a[2] = A[16 w + g][16 + 4 t ..], a[3] = A[16 w + g + 8][16 + 4 t ..];
+// its sums are those of wgmma_s8 above.
+inline void wgmma_s8_rs(int (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                        int accumulate) {
+  const int wgi = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  WarpgroupFragments& f = g_wg_frag[wgi];
+  for (int i = 0; i < 4; ++i) f.a[tid][i] = a[i];
+  g_warpgroup_barrier[wgi]->arrive_and_wait();
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  int arow[2][32], bcol[16][32];
+  for (int h = 0; h < 2; ++h)        // A rows 16 warp + g + 8 h
+    for (int k = 0; k < 32; ++k) {
+      const int src = warp * 32 + g * 4 + (k % 16) / 4;
+      arow[h][k] = emu_s8(f.a[src][h + 2 * (k / 16)], k % 4);
+    }
+  for (int n = 0; n < 16; ++n)       // B rows 8 (n / 2) + 2 t + n % 2
+    for (int k = 0; k < 32; ++k)
+      bcol[n][k] = emu_operand(b, 8 * (n / 2) + 2 * t + n % 2, k);
+  for (int i = 0; i < 32; ++i) {
+    const int* ar = arow[(i / 2) % 2];
+    const int* bc = bcol[2 * (i / 4) + i % 2];
+    uint32_t sum = 0;
+    for (int k = 0; k < 32; ++k) sum += static_cast<uint32_t>(ar[k] * bc[k]);
+    d[i] = static_cast<int>((accumulate ? static_cast<uint32_t>(d[i]) : 0u) + sum);
+  }
+  g_warpgroup_barrier[wgi]->arrive_and_wait();   // f is read: it may be reused
 }
 
 inline int make_tensor_map(CUtensorMap* map, const void* base, int rank,

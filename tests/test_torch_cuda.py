@@ -241,6 +241,20 @@ def test_extprod_kernel_matches_plain(dev, name, n_kl, B):
     assert torch.equal(out, K3.extprod_matmul_reference(digits, ext, P))
 
 
+# 128-bit shapes (N = 1024, 128-byte digit chunks, 16 column blocks) at
+# every key-limb count: B = 63, 64, 65 end inside, at and past one 64-lane
+# batch tile, 2049 leaves a last tile of one lane
+@pytest.mark.parametrize("n_kl", [1, 2, 3, 4])
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 200, 2049])
+def test_extprod_kernel_matches_plain_128bit(dev, n_kl, B):
+    P, digits, ext = _extprod_inputs(dev, "128bit", n_kl, B, 7 * B + n_kl)
+    before = K3.extprod_matmul.launches
+    out = K3.extprod_matmul(digits, ext, P)
+    torch.cuda.synchronize()
+    assert K3.extprod_matmul.launches == before + 1
+    assert torch.equal(out, K3.extprod_matmul_reference(digits, ext, P))
+
+
 def test_extprod_kernel_rejects_what_it_cannot_take(dev):
     P, digits, ext = _extprod_inputs(dev, "tiny", 4, 4, 0)
     with pytest.raises(ValueError, match="shapes"):

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Build, check and time K1 and K2 of the PyTorch/CUDA port on one GPU.
+"""Build, check and time the hand-written kernels of the PyTorch/CUDA port
+on one GPU.
 
-    python3 tools/torch_kernel_probe.py [--kernels k1,k2] [--paths g3,g2]
+    python3 tools/torch_kernel_probe.py [--kernels k1,k2,k3] [--paths g3,g2]
                                         [--batches 2048,200,1] [--iters 20]
 
-A quicker loop than chip_smoke.py for work on the two kernels of the NTT
-blind-rotation step: it builds csrc/ntt_inverse.cu (K1) and csrc/ntt_step.cu
-(K2) with nvcc, prints ptxas' report (registers, shared memory, spills),
-and at the 128-bit shapes of each path (g3: group 3, Bg_e 2^7, R = 4, drop
-5; g2: group 2, Bg_e 2^6, R = 5, drop 7; N = 1024, 3 primes) holds each
-kernel bit-equal to its plain PyTorch version at every batch size given,
+A quicker loop than chip_smoke.py for work on one kernel: it builds the
+kernels asked for (csrc/ntt_inverse.cu K1, csrc/ntt_step.cu K2,
+csrc/extprod.cu K3) with nvcc, prints ptxas' report (registers, shared
+memory, spills, warnings), and at the 128-bit shapes of each path (g3:
+group 3, Bg_e 2^7, R = 4, drop 5; g2: group 2, Bg_e 2^6, R = 5, drop 7;
+N = 1024, 3 primes; K3: 2L = 6 digit rows, 1-4 key limbs of an ext-limb
+key step, ``--key-limbs``) holds each kernel bit-equal to its plain
+PyTorch version at every batch size given,
 then times kernel and plain version with CUDA events (plain, kernel, kernel,
 plain), the kernel alone replayed from a CUDA graph (device time without
 the host's gaps, which is what small batches otherwise measure) and the
@@ -26,6 +29,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -44,6 +48,70 @@ def _cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _time_calls(label, name, kern, plain, iters, gpu) -> None:
+    """Kernel and plain version in turns (plain, kernel, kernel, plain), the
+    kernel replayed from a CUDA graph, and the host's cost of one enqueue."""
+    import torch
+
+    kern()
+    plain()
+    t = {kern: [], plain: []}
+    for fn in (plain, kern, kern, plain):
+        t[fn].append(_cuda_ms(fn, iters))
+    # device time alone: the calls replayed from a CUDA graph
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            kern()
+    graph.replay()
+    dev_us = _cuda_ms(graph.replay, 3) / iters * 1e3
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(200):
+        kern()
+    host_us = (time.perf_counter() - h0) / 200 * 1e6
+    torch.cuda.synchronize()
+    print(f"{label}: {name} {sum(t[kern]) / 2 * 1e3:.1f} us/call "
+          f"({dev_us:.1f} us replayed from a CUDA graph; plain "
+          f"{sum(t[plain]) / 2 * 1e3:.1f} us; host "
+          f"{host_us:.1f} us per enqueue) [{gpu}]")
+
+
+def _k3(args, batches, gpu, label="K3") -> bool:
+    """K3 at the 128-bit Toeplitz shapes: digits in [-Bg/2, Bg/2), the ext
+    limbs of uniform key rows, for each key-limb count asked for."""
+    import torch
+
+    from zig_tfhe_tpu_torch import params, trgsw
+    from zig_tfhe_tpu_torch.ops.cuda import extprod as k3
+
+    dev = torch.device("cuda", 0)
+    P = params.SECURITY_128_BIT
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    half = 1 << (P.bgbit - 1)
+    ok = True
+    for n_kl in (int(n) for n in args.key_limbs.split(",")):
+        rows = torch.randint(0, 1 << 32, (2 * P.L, 2, P.N), dtype=torch.int64,
+                             generator=g, device=dev).to(torch.int32)
+        ext = trgsw.to_ext_limbs(rows, n_kl).contiguous()
+        for B in batches:
+            digits = torch.randint(-half, half, (B, 2 * P.L * P.N), generator=g,
+                                   device=dev, dtype=torch.int32).to(torch.int8)
+            out = k3.extprod_matmul(digits, ext, P)
+            ref = k3.extprod_matmul_reference(digits, ext, P)
+            torch.cuda.synchronize()
+            same = torch.equal(out, ref)
+            bad = int((out != ref).sum())
+            print(f"toep B={B} n_kl={n_kl}: {label} == plain: {same}"
+                  + ("" if same else f" ({bad} of {out.numel()} differ)"))
+            ok &= same
+            _time_calls(f"toep B={B} n_kl={n_kl}", label,
+                        lambda a=(digits, ext, P): k3.extprod_matmul(*a),
+                        lambda a=(digits, ext, P): k3.extprod_matmul_reference(*a),
+                        args.iters, gpu)
+    return ok
 
 
 def _stage_split(args, gpu) -> bool:
@@ -109,6 +177,12 @@ def main() -> int:
     ap.add_argument("--batches", default="2048,200,33,1")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--key-limbs", default="4",
+                    help="K3's key-limb counts (1-4), comma-separated")
+    ap.add_argument("--k3-source", action="append", default=[],
+                    help="another source of K3 (same C entry point; "
+                         "hopper_prims.cuh beside it) to build, check and "
+                         "time after the shipped one; repeatable")
     ap.add_argument("--split", action="store_true",
                     help="also time K2 built without its product stage and "
                          "without its pointwise stage (B = the first batch)")
@@ -121,6 +195,7 @@ def main() -> int:
     from zig_tfhe_tpu_torch import params
     from zig_tfhe_tpu_torch.ops import ntt
     from zig_tfhe_tpu_torch.ops.cuda import _build
+    from zig_tfhe_tpu_torch.ops.cuda import extprod as k3
     from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
     from zig_tfhe_tpu_torch.ops.cuda import ntt_step as k2
 
@@ -131,14 +206,16 @@ def main() -> int:
     print(f"[{gpu}] torch {torch.__version__}, CUDA {torch.version.cuda}")
     kernels = args.kernels.split(",")
     batches = [int(b) for b in args.batches.split(",")]
-    sources = [m.SOURCE for n, m in (("k1", k1), ("k2", k2)) if n in kernels]
+    sources = [m.SOURCE for n, m in (("k1", k1), ("k2", k2), ("k3", k3))
+               if n in kernels]
+    sources += [Path(v).resolve() for v in args.k3_source]
     t0 = time.perf_counter()
     logs = _build.build(*sources)
     print(f"built {[s.name for s in sources]} in {time.perf_counter() - t0:.1f} s")
     for src, log in logs.items():
         for line in log.splitlines():
             if ("Compiling entry" in line or "Used" in line or "spill" in line
-                    or "warning" in line.lower()):
+                    or "warning" in line.lower() or "Loss" in line):
                 print(f"  {src.name}: {line.split(':', 1)[-1].strip()[:150]}")
 
     P = params.SECURITY_128_BIT
@@ -150,7 +227,7 @@ def main() -> int:
                              generator=g, device=dev).to(torch.int32)
 
     ok = True
-    for path in args.paths.split(","):
+    for path in args.paths.split(",") if {"k1", "k2"} & set(kernels) else ():
         group, e, levels, drop = PATHS[path]
         plan = ntt.plan_for_params(P, drop, group, levels, bgbit=e,
                                    pseudorandom_key=True)
@@ -194,28 +271,24 @@ def main() -> int:
                     lambda a=(digits, bsk, ts, plan, e):
                         k2.ntt_step_fused_reference(*a))
             for name, (kern, plain) in calls.items():
-                kern()
-                plain()
-                t = {kern: [], plain: []}
-                for fn in (plain, kern, kern, plain):
-                    t[fn].append(_cuda_ms(fn, args.iters))
-                # device time alone: the calls replayed from a CUDA graph
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph):
-                    for _ in range(args.iters):
-                        kern()
-                graph.replay()
-                dev_us = _cuda_ms(graph.replay, 3) / args.iters * 1e3
-                torch.cuda.synchronize()
-                h0 = time.perf_counter()
-                for _ in range(200):
-                    kern()
-                host_us = (time.perf_counter() - h0) / 200 * 1e6
-                torch.cuda.synchronize()
-                print(f"{path} B={B}: {name} {sum(t[kern]) / 2 * 1e3:.1f} us/call "
-                      f"({dev_us:.1f} us replayed from a CUDA graph; plain "
-                      f"{sum(t[plain]) / 2 * 1e3:.1f} us; host "
-                      f"{host_us:.1f} us per enqueue) [{gpu}]")
+                _time_calls(f"{path} B={B}", name, kern, plain, args.iters, gpu)
+    if "k3" in kernels:
+        ok &= _k3(args, batches, gpu)
+    for v in args.k3_source:
+        import ctypes
+
+        lib = ctypes.CDLL(str(_build.library_path(Path(v).resolve())))
+        lib.ztfhe_extprod_matmul.argtypes = \
+            k3._library().ztfhe_extprod_matmul.argtypes
+        lib.ztfhe_extprod_matmul.restype = ctypes.c_int
+        lib.ztfhe_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.ztfhe_cuda_error_string.restype = ctypes.c_char_p
+        real = k3._library
+        k3._library = lambda lib=lib: lib   # the wrapper, on this build
+        try:
+            ok &= _k3(args, batches, gpu, label=Path(v).stem)
+        finally:
+            k3._library = real
     if args.split:
         ok &= _stage_split(args, gpu)
     print("probe ok" if ok else "probe FAILED")

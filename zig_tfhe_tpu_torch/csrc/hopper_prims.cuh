@@ -1,11 +1,12 @@
 // The Hopper (sm_90a) primitives that the kernels in this directory are
 // built from, one device function per PTX instruction: mbarrier, TMA tile
 // loads, wgmma (int8 operands from swizzled shared memory, s32 sums in
-// registers), named barriers, setmaxnreg, and the host-side encoding of a
-// TMA descriptor.  Every line of inline PTX of ntt_inverse.cu and
-// ntt_step.cu lives here, so that tests/cuda_emu.h can give host versions
-// of exactly these functions (same swizzle, same fragment layout) and the
-// kernels' own sources run on the CPU (tests/test_torch_kernel_emulation.py).
+// registers; or A from registers), named barriers, setmaxnreg, and the
+// host-side encoding of a TMA descriptor.  Every line of inline PTX of
+// ntt_inverse.cu, ntt_step.cu and extprod.cu lives here, so that
+// tests/cuda_emu.h can give host versions of exactly these functions (same
+// swizzle, same fragment layout) and the kernels' own sources run on the
+// CPU (tests/test_torch_kernel_emulation.py).
 //
 // Shared-memory operand layout.  A wgmma int8 operand is K-major: a tile is
 // [rows][SW bytes of the contraction axis], SW = 128 or 64, row r at byte
@@ -20,6 +21,12 @@
 // Accumulator layout of wgmma.m64nNk32: thread (warp w of the warpgroup,
 // g = lane / 4, t = lane % 4) holds register i for row 16 w + g + 8 * ((i /
 // 2) % 2) and column 8 * (i / 4) + 2 t + i % 2.
+//
+// Register A layout of wgmma.m64nNk32 .s8 (the A layout of
+// mma.m16n8k32 .s8, one 16-row slice per warp): thread (w, g, t) holds
+// a[0] = A[16 w + g][4 t .. 4 t + 3], a[1] = A[16 w + g + 8][4 t ..],
+// a[2] = A[16 w + g][16 + 4 t ..], a[3] = A[16 w + g + 8][16 + 4 t ..],
+// byte i of a register being contraction index (first) + i.
 #pragma once
 
 #include <cuda.h>
@@ -138,6 +145,38 @@ template <int REGS>
 __device__ __forceinline__ void fence_acc(int (&d)[REGS]) {
 #pragma unroll
   for (int i = 0; i < REGS; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// the A fragments a wgmma reads from registers, likewise
+template <int REGS>
+__device__ __forceinline__ void fence_acc(uint32_t (&a)[REGS]) {
+#pragma unroll
+  for (int i = 0; i < REGS; ++i) asm volatile("" : "+r"(a[i]) :: "memory");
+}
+
+// d[64 x 64] (+)= a[64 x 32] * b[64 x 32]^T, A from the warpgroup's
+// registers (layout above), B from shared memory through its descriptor,
+// s32 sums.  The registers of `a` must not be written again before a
+// wgmma_wait retires this wgmma.
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]),
+        "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
 // d[64 x N] (+)= a[64 x 32] * b[N x 32]^T, int8 operands from shared memory

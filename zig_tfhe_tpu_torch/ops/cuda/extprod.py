@@ -30,8 +30,8 @@ from zig_tfhe_tpu_torch.params import SecurityParams
 from zig_tfhe_tpu_torch.trgsw import N_KLIMBS, trgsw_matrices
 
 SOURCE = _build.CSRC / "extprod.cu"
-_COL_TILE = 64      # N must be a multiple of the kernel's BN and BK
-_MAX_N = 1024       # the kernel's static key-window buffer
+_COL_TILE = 64      # N must be a multiple of the kernel's column tile
+_MAX_N = 1024       # the kernel's shared memory is sized for N <= 1024
 
 
 def extprod_matmul_reference(digit_limb: torch.Tensor,
