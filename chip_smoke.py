@@ -54,7 +54,31 @@ negacyclic circulants of the key step's rows, 4 key limbs).  Phases:
      circulants built beforehand, the build not timed), and one step split
      into its stages;
   7. per path, a torch.profiler trace of one warm batch at B = 2048 and at
-     B = 1: device busy time, idle share and the costliest kernels.
+     B = 1: device busy time, idle share and the costliest kernels;
+  8. the circuit path (models/netlists.py, models/scheduler.py,
+     models/circuits.py) on the g3 key: the Bristol 64x64 -> 128-bit
+     multiplier (26,931 gates in 43 levels of the native level scheduler),
+     each level one heterogeneous apply_gates bootstrap, at B = 1 and in
+     serving mode at B = 4 clients, with the launch counts set to 0 just
+     before each run and read just after (K1 and K2 once per step of every
+     level with a bootstrapped lane, K3 never).  Each run is checked level
+     by level (_checked_run): every gate's output must decrypt to the sign
+     of its combination's phase unless that phase lies within the
+     modswitch noise of a decision boundary, NOT/COPY/CONST must be exact,
+     and the outputs must equal the evaluate run's.  A product is exact
+     unless a gate failed from input noise (its inputs' noise moved the
+     combination across a boundary: the scheme's failure, which the JAX
+     package, bit-equal, shares); such a gate is rerun alone against the
+     port's CPU path (bit-equal), and the exact products are counted; a
+     product with no such gate must equal eval_bristol_plain's bits.  One
+     warm run of each is timed with CUDA events (circuit gates/s, ms per
+     level) and the B = 1 run traced (idle share).  The Kogge-Stone adder
+     on 16 bits (402 + 304 = 706) and the ripple-carry adder on 4; a
+     scheduler-built full adder on the card bit-equal to the port's CPU
+     path, and on the toep key (K3 700 launches per level, sums exact);
+     the g3 key saved and loaded (utils/serialization.py) gives bit-equal
+     gate_pair outputs, and the product's ciphertext round-trips
+     bit-equal.
 
 The next-to-last stdout line is {"kernels": [...]}, before it the card's
 nvidia-smi name and power limit; the last line is {"ok": true, "device":
@@ -283,6 +307,301 @@ def _k3_bound_ms(B: int, N: int, L: int, n_kl: int):
     return _bound(t_b, t_o, 0.0) + (l2_bytes,)
 
 
+# A bootstrap decides its output's sign by its combination's phase after the
+# switch to [0, 2N); that rounding has std 2^-9.6 of the torus at 128 bits
+# (docs/NOISE.md section 6), so a phase within 6 of those, 2^-7, of a
+# decision boundary may come out either way.
+PHASE_BAND = 2.0 ** -7
+
+_TRUTH = {
+    "nand": lambda p, q: not (p and q), "or": lambda p, q: p or q,
+    "and": lambda p, q: p and q, "xor": lambda p, q: p != q,
+    "xnor": lambda p, q: p == q, "nor": lambda p, q: not (p or q),
+    "andny": lambda p, q: (not p) and q, "andyn": lambda p, q: p and not q,
+    "orny": lambda p, q: (not p) or q, "oryn": lambda p, q: p or not q}
+
+
+def _checked_run(plan, cts, ck, sk, out_ref):
+    """Run ``plan`` again level by level (scheduler._run_level, the body of
+    scheduler.evaluate), decrypting every lane, and check each gate of the
+    card against what its input ciphertexts require:
+
+      * every bootstrapped lane's output decrypts to the sign of its linear
+        combination's phase (computed here, with the secret key, from the
+        gate table), unless that phase lies within PHASE_BAND of a decision
+        boundary;
+      * NOT, COPY and CONST lanes are the exact tensor results;
+      * the outputs are bit-equal to ``out_ref`` (the evaluate run).
+
+    Returns the bootstrapped lanes checked, the lanes inside the band, the
+    closest phase's distance to a boundary, and the lanes whose output is
+    not the truth table of their inputs' decryptions (the scheme's noise
+    failures: input noise moved the combination across a boundary), each
+    as (level, lane, client, gate, input phases, combination phase,
+    (ids, a, b) on the card)."""
+    import numpy as np
+    import torch
+
+    from zig_tfhe_tpu_torch.models import gates, scheduler
+
+    if any((lvl[:, 0] == scheduler.OP_MUX).any() for lvl in plan.levels):
+        raise ValueError("_checked_run takes plans without MUX lanes")
+    s0, n0 = sk.key_lv0, ck.params.n0
+    dev = s0.device
+
+    def phase(ct):
+        return (ct[..., n0] - (ct[..., :n0] * s0).sum(-1).to(torch.int32)).long()
+
+    def idx(col):
+        return torch.from_numpy(col.astype(np.int64)).to(dev)
+
+    ca = torch.tensor(gates._COEFF_A, device=dev)
+    cb = torch.tensor(gates._COEFF_B, device=dev)
+    bias = torch.tensor(gates._BIAS, device=dev)
+    truth = torch.tensor([[[_TRUTH[n](p, q) for q in (False, True)]
+                           for p in (False, True)] for n in gates.GATE_NAMES],
+                         device=dev)
+    batched = cts.dim() == 3
+    inp = cts if batched else cts[:, None]
+    B = inp.shape[1]
+    arena = torch.zeros((plan.n_slots + 1, B, n0 + 1), dtype=torch.int32,
+                        device=dev)
+    arena[idx(plan.input_slots)] = inp
+    lanes, in_band, closest, failures = 0, 0, 0.5, []
+    for li, lvl in enumerate(plan.levels):
+        op = lvl[:, 0]
+        two = lvl[op < 100]
+        if len(two):
+            ids = idx(two[:, 0])
+            a, b = arena[idx(two[:, 1])], arena[idx(two[:, 2])]
+            combo = ca[ids, None, None] * a + cb[ids, None, None] * b
+            combo[..., n0] += bias[ids, None]
+            ph = phase(combo)
+            pa, pb = phase(a), phase(b)
+            want = truth[ids[:, None], (pa >= 0).long(), (pb >= 0).long()]
+        un = {c: (lvl[op == c], arena[idx(lvl[op == c][:, 1])])
+              for c in (scheduler.OP_NOT, scheduler.OP_COPY)}
+        scheduler._run_level(arena, lvl, ck)
+        if len(two):
+            got = phase(arena[idx(two[:, 4])]) >= 0
+            dist = torch.minimum(ph.abs(), (1 << 31) - ph.abs()).double() / 2**32
+            bad = (got != (ph >= 0)) & (dist >= PHASE_BAND)
+            _check(not bool(bad.any()),
+                   f"level {li}: {int(bad.sum())} bootstrapped lanes decrypt "
+                   f"against their combination's phase, outside the noise band")
+            lanes += ph.numel()
+            in_band += int((dist < PHASE_BAND).sum())
+            closest = min(closest, float(dist.min()))
+            for r, c in (got != want).nonzero().tolist():
+                failures.append((li, r, c, gates.GATE_NAMES[two[r, 0]],
+                                 (int(pa[r, c]) / 2**32, int(pb[r, c]) / 2**32),
+                                 int(ph[r, c]) / 2**32,
+                                 (ids[r:r + 1], a[r, c][None], b[r, c][None])))
+        for c, (rows, src) in un.items():
+            if len(rows):
+                want_t = -src if c == scheduler.OP_NOT else src
+                _check(torch.equal(arena[idx(rows[:, 4])], want_t),
+                       f"level {li}: NOT/COPY lanes are not exact")
+        for c, value in ((scheduler.OP_CONST0, False), (scheduler.OP_CONST1, True)):
+            rows = lvl[op == c]
+            if len(rows):
+                _check(torch.equal(arena[idx(rows[:, 4])],
+                                   gates.constant(value, ck.params,
+                                                  (len(rows), B), device=dev)),
+                       f"level {li}: CONST lanes are not exact")
+    outs = arena[idx(plan.output_slots)]
+    _check(torch.equal(outs if batched else outs[:, 0], out_ref),
+           "the level-by-level run differs from scheduler.evaluate's")
+    return lanes, in_band, closest, failures
+
+
+def _circuit_phase(P, g, sk, ck, ck_toep, counters, gpu) -> dict:
+    """Phase 8: the circuit path on the card (see the module docstring).
+    Returns each run's launch counts by kernel."""
+    import numpy as np
+    import torch
+
+    from zig_tfhe_tpu_torch import key, tlwe
+    from zig_tfhe_tpu_torch.models import circuits, gates, netlists, scheduler
+    from zig_tfhe_tpu_torch.utils import serialization
+
+    dev = sk.key_lv0.device
+    W = 64
+    t0 = time.perf_counter()
+    text = netlists.bristol_multiplier(W)
+    plan = scheduler.parse_bristol(text)
+    boot = [int(((lvl[:, 0] < 100) | (lvl[:, 0] == scheduler.OP_MUX)).sum())
+            for lvl in plan.levels]
+    stats = (plan.n_gates, sum(boot), plan.n_levels, plan.n_slots, max(boot))
+    _check(stats == (26931, 26803, 43, 5908, 2048),
+           f"the 64x64 plan is (gates, bootstrapped, levels, slots, widest) "
+           f"{stats}")
+    boot_levels = sum(1 for n in boot if n)
+    steps = -(-P.n0 // ck.bsk_group)
+    print(f"circuit: Bristol {W}x{W} multiplier, {plan.n_gates} gates "
+          f"({sum(boot)} bootstrapped) in {plan.n_levels} levels "
+          f"({boot_levels} with a bootstrapped lane), {plan.n_slots} arena "
+          f"slots, widest level {max(boot)}; netlist + native build + "
+          f"schedule {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(64)
+    pairs = [tuple(int(v) for v in rng.integers(0, 1 << 64, 2, dtype=np.uint64))
+             for _ in range(4)]
+    in_bits = [[(a >> i) & 1 for i in range(W)] + [(b >> i) & 1 for i in range(W)]
+               for a, b in pairs]
+    cts = tlwe.encrypt_bool(g, torch.tensor(in_bits, dtype=torch.bool,
+                                            device=dev).T,
+                            P.ksk_alpha, sk.key_lv0)        # [128, 4, n0+1]
+
+    def run(name, fn, expect):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: c.launches for k, c in counters.items()}
+        _check(counts == expect, f"{name}: launches {counts}, expected {expect}")
+        return out, counts, dt
+
+    def products(out):
+        dec = tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy()
+        return dec, [sum(int(v) << i for i, v in enumerate(col))
+                     for col in dec.reshape(2 * W, -1).T]
+
+    expect = {"k1": steps * boot_levels, "k2": steps * boot_levels, "k3": 0}
+    launches = {}
+    ck_cpu = key.CloudKey.from_numpy(
+        {n: t.cpu().numpy() for n, t in ck.named_buffers()}, P,
+        bsk_ntt_drop=ck.bsk_ntt_drop, bsk_group=ck.bsk_group,
+        bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit, device="cpu")
+    ct1 = cts[:, 0].contiguous()
+    exact, total, outs = 0, 0, {}
+    for B, inp in ((1, ct1), (4, cts)):
+        name = f"circuit_b{B}"
+        out, launches[name], first = run(
+            f"64x64 B={B}", lambda inp=inp: scheduler.evaluate(plan, inp, ck),
+            expect)
+        _check(out.dtype == torch.int32
+               and tuple(out.shape) == (2 * W, *inp.shape[1:-1], P.n0 + 1),
+               f"product output {out.dtype} {tuple(out.shape)}")
+        outs[B] = out
+        t0 = time.perf_counter()
+        lanes, in_band, closest, failures = _checked_run(plan, inp, ck, sk, out)
+        dec, prods = products(out)
+        dec = dec.reshape(2 * W, B)
+        ok = [p == x * y for p, (x, y) in zip(prods, pairs)]
+        for j in range(B):
+            failed = [f for f in failures if f[2] == j]
+            if not failed:
+                _check(ok[j] and dec[:, j].astype(int).tolist()
+                       == netlists.eval_bristol_plain(text, in_bits[j]),
+                       f"64x64 B={B} client {j}: every gate follows its inputs "
+                       f"but the bits differ from eval_bristol_plain")
+        exact, total = exact + sum(ok), total + B
+        print(f"circuit 64x64 B={B}: first run {first:.2f} s, launches "
+              f"{launches[name]} = {steps} x {boot_levels} levels; exact "
+              f"products {sum(ok)}/{B}; {lanes} bootstrapped lanes checked "
+              f"level by level ({time.perf_counter() - t0:.1f} s): each "
+              f"decrypts to the sign of its combination's phase "
+              f"({in_band} within 2^-7 of a boundary, closest "
+              f"{closest:.5f}); {len(failures)} gate outputs differ from the "
+              f"truth table of their inputs' decryptions")
+        for li, r, c, gname, (pa, pb), ph, lane in failures[:4]:
+            print(f"  input-noise failure: level {li} lane {r} client {c} "
+                  f"{gname}, input phases {pa:+.5f} {pb:+.5f}, combination "
+                  f"{ph:+.5f}")
+        if failures:
+            # the first failing gate again, alone, on the card and on the CPU
+            li, r, c, gname, _, _, (ids, a, b) = failures[0]
+            card = gates.apply_gates(ids, a, b, ck)
+            cpu = gates.apply_gates(ids.cpu(), a.cpu(), b.cpu(), ck_cpu)
+            _check(torch.equal(card.cpu(), cpu),
+                   f"64x64 B={B}: the failing gate's card output differs "
+                   f"from the port's CPU path")
+            print(f"  level {li} lane {r} client {c} {gname} alone: card == "
+                  f"the CPU path (the plain versions), output decrypts to "
+                  f"{bool(tlwe.decrypt_bool(cpu, sk.key_lv0.cpu())[0])}")
+    print(f"circuit 64x64: exact products {exact}/{total} [{gpu}]")
+    for B, inp in ((1, ct1), (4, cts)):
+        ms = _cuda_ms(lambda inp=inp: scheduler.evaluate(plan, inp, ck), 1)
+        print(f"circuit 64x64 B={B}: {ms:.1f} ms per product set, "
+              f"{plan.n_gates * B / (ms / 1e3):.1f} circuit gates/s "
+              f"({sum(boot) * B / (ms / 1e3):.1f} bootstrapped gates/s), "
+              f"{ms / plan.n_levels:.1f} ms per level [{gpu}]")
+    summ = _trace_summary(lambda: scheduler.evaluate(plan, ct1, ck))
+    if summ is None:
+        print("circuit 64x64 B=1: profiler recorded no kernels (idle share "
+              "not measured)")
+    else:
+        print(f"circuit 64x64 B=1 profile: busy {summ['busy_ms']:.1f} ms of "
+              f"{summ['span_ms']:.1f} ms device span, idle share "
+              f"{summ['idle_share']:.3f}, {summ['kernels']} kernels [{gpu}]")
+        for n, t, c in summ["top"]:
+            print(f"    {t:9.2f} ms {c:7d}x  {n}")
+
+    # the small adders of models/circuits.py
+    x = circuits.encrypt_bits(g, 402, 16, sk, P)
+    y = circuits.encrypt_bits(g, 304, 16, sk, P)
+    s, _ = circuits.kogge_stone_add(x, y, ck)
+    _check(circuits.decrypt_bits(s, sk) == 706, "kogge_stone_add 402 + 304")
+    u, v = (int(t) for t in rng.integers(0, 16, 2))
+    s, c = circuits.ripple_carry_add(
+        circuits.encrypt_bits(g, u, 4, sk, P), circuits.encrypt_bits(g, v, 4, sk, P),
+        gates.constant(False, P, (1,), device=dev), ck)
+    total = circuits.decrypt_bits(s, sk) + 16 * circuits.decrypt_bits(c, sk)
+    _check(total == u + v, f"ripple_carry_add {u} + {v} gave {total}")
+    print(f"circuits: kogge_stone_add 402 + 304 = 706 (16 bits), "
+          f"ripple_carry_add {u} + {v} = {total} (4 bits)")
+
+    # a scheduler-built full adder: card vs the CPU path (g3), and on toep
+    fa = scheduler.Circuit()
+    fa_in = [fa.input() for _ in range(3)]
+    xo, an = fa.gate("xor", fa_in[0], fa_in[1]), fa.gate("and", fa_in[0], fa_in[1])
+    fa.output(fa.gate("xor", xo, fa_in[2]))
+    fa.output(fa.gate("or", an, fa.gate("and", xo, fa_in[2])))
+    fa_plan = fa.schedule()
+    combos = np.array([(i >> 2 & 1, i >> 1 & 1, i & 1) for i in range(8)]).T
+    fa_cts = tlwe.encrypt_bool(g, torch.from_numpy(combos.astype(bool)).to(dev),
+                               P.ksk_alpha, sk.key_lv0)     # [3, 8, n0+1]
+    want = np.stack([combos.sum(0) % 2, combos.sum(0) // 2]).astype(bool)
+    fa1 = fa_cts[:, 5].contiguous()
+    out, launches["full_adder_g3"], _ = run(
+        "full adder g3", lambda: scheduler.evaluate(fa_plan, fa1, ck),
+        {"k1": 3 * steps, "k2": 3 * steps, "k3": 0})
+    t0 = time.perf_counter()
+    cpu = scheduler.evaluate(fa_plan, fa1.cpu(), ck_cpu)
+    _check(torch.equal(out.cpu(), cpu),
+           "full adder: card outputs differ from the port's CPU path")
+    _check(tlwe.decrypt_bool(out, sk.key_lv0).cpu().tolist() == want[:, 5].tolist(),
+           "full adder g3: wrong sum or carry")
+    out, launches["full_adder_toep"], _ = run(
+        "full adder toep", lambda: scheduler.evaluate(fa_plan, fa_cts, ck_toep),
+        {"k1": 0, "k2": 0, "k3": 3 * P.n0})
+    _check(np.array_equal(tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy(),
+                          want), "full adder toep: wrong sums or carries")
+    print(f"full adder: card == CPU path on g3 ({time.perf_counter() - t0:.1f} "
+          f"s on the host), all 8 inputs exact on toep, launches "
+          f"{launches['full_adder_g3']} / {launches['full_adder_toep']}")
+
+    # save and load: the g3 key and the product's ciphertext
+    with tempfile.TemporaryDirectory() as d:
+        serialization.save_cloud_key(os.path.join(d, "ck"), ck)
+        ck2 = serialization.load_cloud_key(os.path.join(d, "ck"), device=dev)
+        pair = (("nand", "xor"), (cts[0], cts[1]), (cts[64], cts[65]))
+        _check(torch.equal(gates.gate_pair(*pair, ck),
+                           gates.gate_pair(*pair, ck2)),
+               "gate_pair on the reloaded g3 key differs")
+        serialization.save_ciphertext(os.path.join(d, "ct"), outs[4], P)
+        back, p2 = serialization.load_ciphertext(os.path.join(d, "ct"), device=dev)
+        _check(p2 is P and torch.equal(back, outs[4]),
+               "the product's ciphertext did not round-trip")
+    print("serialization: g3 key saved and loaded, gate_pair bit-equal; "
+          "product ciphertext round-trips bit-equal")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -507,13 +826,7 @@ def main() -> int:
     ids = torch.arange(B_GATES, device=dev) % len(gates.GATE_NAMES)
     a = tlwe.encrypt_bool(g, x, P.ksk_alpha, sk.key_lv0)
     b = tlwe.encrypt_bool(g, y, P.ksk_alpha, sk.key_lv0)
-    truth = {
-        "nand": lambda p, q: not (p and q), "or": lambda p, q: p or q,
-        "and": lambda p, q: p and q, "xor": lambda p, q: p != q,
-        "xnor": lambda p, q: p == q, "nor": lambda p, q: not (p or q),
-        "andny": lambda p, q: (not p) and q, "andyn": lambda p, q: p and not q,
-        "orny": lambda p, q: (not p) or q, "oryn": lambda p, q: p or not q}
-    want = np.array([truth[gates.GATE_NAMES[i]](bool(p), bool(q)) for i, p, q
+    want = np.array([_TRUTH[gates.GATE_NAMES[i]](bool(p), bool(q)) for i, p, q
                      in zip(ids.tolist(), x.tolist(), y.tolist())])
     cks[TOEP] = ck_toep
     counters = {"k1": k1.ntt_inverse_to_crt_acc, "k2": k2.ntt_step_fused,
@@ -616,6 +929,11 @@ def main() -> int:
             for n, t, c in summ["top"]:
                 print(f"    {t:9.2f} ms {c:7d}x  {n}")
 
+    # -- 8. the circuit path -------------------------------------------------
+    circuit_launches = _circuit_phase(P, g, sk, cks["g3"], ck_toep, counters,
+                                      gpu)
+    launches.update(circuit_launches)
+
     print(gpu)
     kernels = []
     for kk, kname, route_src, replaces, main_path in (
@@ -635,7 +953,9 @@ def main() -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "bound_unit": main["bound_unit"], "library_ms": None,
             "by_path": {p: {"launches": launches[p][kk], **k_results[kk][p]}
-                        for p in k_results[kk]}})
+                        for p in k_results[kk]},
+            "circuit_launches": {p: n[kk] for p, n in
+                                 circuit_launches.items()}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

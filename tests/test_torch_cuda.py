@@ -9,7 +9,8 @@ The hand-written kernels are held bit-equal to their plain PyTorch versions
 (K1 also to the closed-form exact result) at the paths' shapes; the gate
 paths on the card (the NTT engine's and the Toeplitz engine's) are held
 bit-equal to the port's CPU path, which the other tests/test_torch_*.py
-files hold bit-equal to the JAX package.
+files hold bit-equal to the JAX package; so are scheduled circuits (the
+full adder and the w = 8 Bristol multiplier).
 """
 
 import numpy as np
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from zig_tfhe_tpu_torch import key, params, tlwe, trgsw
-from zig_tfhe_tpu_torch.models import gates
+from zig_tfhe_tpu_torch.models import gates, netlists, scheduler
 from zig_tfhe_tpu_torch.ops import ntt
 from zig_tfhe_tpu_torch.ops.cuda import extprod as K3
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K
@@ -309,3 +310,56 @@ def test_128bit_toeplitz_gates_on_card(dev):
         bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit, device="cpu")
     cpu = gates.apply_gates(ids[:2], a[:2].cpu(), b[:2].cpu(), ck_cpu)
     assert torch.equal(out[:2].cpu(), cpu)
+
+
+def _full_adder_plan():
+    c = scheduler.Circuit()
+    a, b, cin = c.input(), c.input(), c.input()
+    x, g = c.gate("xor", a, b), c.gate("and", a, b)
+    c.output(c.gate("xor", x, cin))
+    c.output(c.gate("or", g, c.gate("and", x, cin)))
+    return c.schedule()
+
+
+@pytest.mark.parametrize("circuit", ["full_adder", "mult8"])
+@pytest.mark.parametrize("engine", ["ntt", "toeplitz"])
+def test_tiny_circuits_on_card_equal_cpu_path(dev, circuit, engine):
+    """A scheduled circuit on a TEST_TINY key, single and serving mode
+    (B = 3), on the card: bit-equal to the CPU path, exact results, and
+    one launch per step of each bootstrapped level for the key's kernels."""
+    P = params.TEST_TINY
+    g = torch.Generator().manual_seed(7)
+    sk = key.SecretKey.generate(g, P)
+    ck = key.CloudKey.generate(g, sk, P, engines=(engine,), group=3)
+    rng = np.random.default_rng(8)
+    if circuit == "full_adder":
+        plan, w = _full_adder_plan(), 1
+        vals = rng.integers(0, 2, (3, 3))
+        bits = vals
+    else:
+        plan, w = scheduler.parse_bristol(netlists.bristol_multiplier(8)), 8
+        vals = rng.integers(0, 256, (2, 3))
+        bits = (vals[np.arange(16) // 8] >> (np.arange(16) % 8)[:, None]) & 1
+    cts = tlwe.encrypt_bool(g, torch.from_numpy(bits.astype(bool)),
+                            P.ksk_alpha, sk.key_lv0)          # [n_in, 3, n0+1]
+    cpu = scheduler.evaluate(plan, cts, ck)
+    boot_levels = sum(1 for lvl in plan.levels
+                      if ((lvl[:, 0] < 100) | (lvl[:, 0] == 104)).any())
+    steps = P.n0 if engine == "toeplitz" else ck.bsk_ntt.shape[0]
+    counters = (K.ntt_inverse_to_crt_acc, K2.ntt_step_fused, K3.extprod_matmul)
+    before = [c.launches for c in counters]
+    out = scheduler.evaluate(plan, cts.to(dev), ck.to(dev))
+    torch.cuda.synchronize()
+    ran = [c.launches - b for c, b in zip(counters, before)]
+    want = ([0, 0, steps] if engine == "toeplitz" else [steps, steps, 0])
+    assert ran == [n * boot_levels for n in want]
+    assert torch.equal(out.cpu(), cpu)
+    dec = tlwe.decrypt_bool(out.cpu(), sk.key_lv0).numpy().astype(np.int64)
+    if circuit == "full_adder":
+        total = vals.sum(0)
+        assert np.array_equal(dec, np.stack([total % 2, total // 2]))
+    else:
+        got = (dec << np.arange(16)[:, None]).sum(0)
+        assert np.array_equal(got, vals[0] * vals[1])
+    single = scheduler.evaluate(plan, cts[:, 1].to(dev), ck.to(dev))
+    assert torch.equal(single.cpu(), cpu[:, 1])

@@ -6,7 +6,8 @@ into the port; all 10 gates over all 4 input pairs run through
 for bit and decrypt to the truth tables.  The key also round-trips through
 the JAX package's ``.npz`` format into the port's loader.  The port's own
 key generation (torch.Generator randomness, so different bits) is held at
-the decrypt level.  Finally the port must import and run with jax blocked.
+the decrypt level.  Finally the port must import and run with jax blocked,
+gates, a scheduled circuit and the save side of serialization included.
 """
 
 import os
@@ -158,13 +159,16 @@ def test_port_encrypt_decrypts_under_jax():
 
 _NO_JAX = r"""
 import sys
+import tempfile
 sys.modules["jax"] = None       # any `import jax` now raises ImportError
 import torch
 import zig_tfhe_tpu_torch
 from zig_tfhe_tpu_torch import params, key, tlwe
-from zig_tfhe_tpu_torch.models import gates
+from zig_tfhe_tpu_torch.models import circuits, gates, netlists, scheduler
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse
 from zig_tfhe_tpu_torch.utils import serialization
+from zig_tfhe_tpu_torch.utils.serialization import (
+    load_ciphertext, save_ciphertext, save_cloud_key, save_secret_key)
 assert not any(m == "zig_tfhe_tpu" or m.startswith("zig_tfhe_tpu.")
                for m in sys.modules)
 g = torch.Generator().manual_seed(0)
@@ -175,6 +179,24 @@ a = tlwe.encrypt_bool(g, [True, True], 0.0, sk.key_lv0)
 b = tlwe.encrypt_bool(g, [True, False], 0.0, sk.key_lv0)
 out = gates.gate("nand", a, b, ck)
 assert tlwe.decrypt_bool(out, sk.key_lv0).tolist() == [False, True]
+c = scheduler.Circuit()
+x, y, z = c.input(), c.input(), c.input()
+p, q = c.gate("xor", x, y), c.gate("and", x, y)
+c.output(c.gate("xor", p, z))
+c.output(c.gate("or", q, c.gate("and", p, z)))
+cts = tlwe.encrypt_bool(g, [True, False, True], 0.0, sk.key_lv0)
+res = scheduler.evaluate(c.schedule(), cts, ck)
+assert tlwe.decrypt_bool(res, sk.key_lv0).tolist() == [False, True]
+assert netlists.bristol_multiplier(4).startswith("1")
+assert circuits.from_bits(circuits.to_bits(706, 16)) == 706
+with tempfile.TemporaryDirectory() as d:
+    save_cloud_key(d + "/ck", ck)
+    save_secret_key(d + "/sk", sk, P)
+    save_ciphertext(d + "/ct", res, P)
+    back, p2 = load_ciphertext(d + "/ct", device="cpu")
+    assert p2 is P and torch.equal(back, res)
+    assert torch.equal(serialization.load_cloud_key(d + "/ck",
+                                                    device="cpu").ksk1, ck.ksk1)
 print("ok")
 """
 

@@ -5,7 +5,13 @@ products for the NTT and the key switch, and hand-written Hopper kernels
 for the blind-rotation step (ops/cuda/ntt_step.py: forward NTT, pointwise
 products, subset combine; ops/cuda/ntt_inverse.py: inverse NTT + CRT
 lift; ops/cuda/extprod.py: the Toeplitz engine's external product, for
-keys made with ``engines=("toeplitz",)``).  The JAX package
+keys made with ``engines=("toeplitz",)``).  Circuits build on the gates:
+models/circuits.py (bit codecs, full adder, ripple-carry and Kogge-Stone
+adders), models/netlists.py (Bristol netlists, such as the 64x64
+multiplier) and models/scheduler.py (the repository's native level
+scheduler, built with g++ at first use, and an evaluator that runs each
+level as one batched bootstrap); utils/serialization.py saves and loads
+keys and ciphertexts in the JAX package's file format.  The JAX package
 ``zig_tfhe_tpu`` is the reference: on equal keys and ciphertexts both
 return the same bits.  This package imports torch and numpy only.
 

@@ -18,6 +18,8 @@ batch as given and the outputs are the same.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -98,6 +100,19 @@ def apply_gates(gate_ids, a: torch.Tensor, b: torch.Tensor,
     return _bootstrap_batch(combo, ck)
 
 
+# Named wrappers (free-function parity with gates.zig:157-238).
+nand = functools.partial(gate, "nand")
+or_ = functools.partial(gate, "or")
+and_ = functools.partial(gate, "and")
+xor = functools.partial(gate, "xor")
+xnor = functools.partial(gate, "xnor")
+nor = functools.partial(gate, "nor")
+andny = functools.partial(gate, "andny")
+andyn = functools.partial(gate, "andyn")
+orny = functools.partial(gate, "orny")
+oryn = functools.partial(gate, "oryn")
+
+
 def not_(a: torch.Tensor) -> torch.Tensor:
     """Bootstrap-free NOT (gates.zig:132-135)."""
     return -a
@@ -117,6 +132,27 @@ def constant(value: bool, params, batch=(), device="cuda") -> torch.Tensor:
     ct = torch.zeros((*batch, params.n0 + 1), dtype=torch.int32, device=device)
     ct[..., params.n0] = to_carrier(val, w)
     return ct
+
+
+def mux_naive(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+              ck: CloudKey) -> torch.Tensor:
+    """(a ? b : c) as OR(AND(a, b), AND(NOT a, c)): 3 bootstraps
+    (gates.zig:124-129), the two ANDs in one shared batch."""
+    both = gate_pair(("and", "andny"), (a, a), (b, c), ck)
+    return gate("or", both[0], both[1], ck)
+
+
+def gate_pair(names, lhs_pair, rhs_pair, ck: CloudKey) -> torch.Tensor:
+    """Two (possibly different) gate types in one shared bootstrap.
+
+    names: 2 gate names; lhs_pair, rhs_pair: 2 tensors [B, ..., n0+1] each.
+    Returns int32 [2, B, ..., n0+1]."""
+    B = lhs_pair[0].shape[0]
+    ids = torch.tensor([GATE_IDS[names[0]], GATE_IDS[names[1]]],
+                       device=lhs_pair[0].device).repeat_interleave(B)
+    res = apply_gates(ids, torch.cat(tuple(lhs_pair)),
+                      torch.cat(tuple(rhs_pair)), ck)
+    return res.reshape(2, B, *res.shape[1:])
 
 
 def mux(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

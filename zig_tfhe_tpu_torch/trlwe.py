@@ -13,6 +13,7 @@ import torch
 
 from zig_tfhe_tpu_torch.ops.poly import negacyclic_polymul_binary
 from zig_tfhe_tpu_torch.utils import rng as _rng
+from zig_tfhe_tpu_torch.utils.torus import to_carrier, torus_constant_w
 
 A, B = 0, 1  # component indices on axis -2
 
@@ -26,6 +27,25 @@ def encrypt_torus(gen: torch.Generator, mu: torch.Tensor, alpha: float,
     noise = _rng.gaussian_torus(gen, mu.shape, alpha, width)
     b = negacyclic_polymul_binary(a, sk_poly) + noise + mu
     return torch.stack([a, b], dim=-2)
+
+
+def encrypt_bool(gen: torch.Generator, bits, alpha: float,
+                 sk_poly: torch.Tensor) -> torch.Tensor:
+    """Encrypt boolean polynomials as +-1/8 per coefficient
+    (trlwe.zig:67-82).  Returns int32 [..., 2, N]."""
+    bits = torch.as_tensor(bits, dtype=torch.bool, device=gen.device)
+    mu = torch.where(bits, to_carrier(torus_constant_w(0.125, 32), 32),
+                     to_carrier(torus_constant_w(-0.125, 32), 32))
+    return encrypt_torus(gen, mu.to(torch.int32), alpha, sk_poly)
+
+
+def phase(ct: torch.Tensor, sk_poly: torch.Tensor) -> torch.Tensor:
+    """b - a*s, int32 [..., N] (exact)."""
+    return ct[..., B, :] - negacyclic_polymul_binary(ct[..., A, :], sk_poly)
+
+
+def decrypt_bool(ct: torch.Tensor, sk_poly: torch.Tensor) -> torch.Tensor:
+    return phase(ct, sk_poly) >= 0
 
 
 def sample_extract(ct: torch.Tensor, k: int = 0) -> torch.Tensor:

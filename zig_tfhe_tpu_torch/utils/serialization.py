@@ -1,23 +1,31 @@
-"""Loading keys written by zig_tfhe_tpu/utils/serialization.py, without JAX.
+"""Keys and ciphertexts in the file format of
+zig_tfhe_tpu/utils/serialization.py, without JAX.
 
 The format is a numpy ``.npz`` with a JSON ``__manifest__`` entry that
-carries the object kind and every field of the parameter set.  Only the
-load side of the secret and cloud keys is ported; the save side is a later
+carries the object kind and every field of the parameter set; torus arrays
+are stored as uint32, key material as int8/int16/int32.  Files written here
+load into the JAX package and the other way round.  Ported: the secret key,
+the cloud key and the (32-bit) ciphertext, both ways.  The seeded
+ciphertext and the public, re-encryption and packing keys are a later
 slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
 import numpy as np
+import torch
 
 from zig_tfhe_tpu_torch import key as K
 from zig_tfhe_tpu_torch import params as P
+from zig_tfhe_tpu_torch.utils.torus import require_width
 
 _KIND_SECRET = "secret_key"
 _KIND_CLOUD = "cloud_key"
+_KIND_CIPHERTEXT = "ciphertext"
 
 
 def _npz_path(path) -> str:
@@ -49,6 +57,18 @@ def _params_from_doc(m: dict) -> P.SecurityParams:
     return stock if stock == params else params
 
 
+def _manifest(kind: str, params: P.SecurityParams, extra=None) -> np.ndarray:
+    doc = {"format": "zig_tfhe_tpu.v1", "kind": kind, "params": params.name,
+           "params_full": dataclasses.asdict(params)}
+    if extra:
+        doc.update(extra)
+    return np.frombuffer(json.dumps(doc).encode(), dtype=np.uint8)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
 def _load(path, kind: str):
     """Arrays and manifest of an .npz of the given kind (raises on others)."""
     with np.load(_npz_path(path)) as z:
@@ -71,6 +91,23 @@ def load_secret_key(path, device="cuda"):
                                    device), _params_from_doc(m))
 
 
+def save_secret_key(path, sk: K.SecretKey, params: P.SecurityParams) -> None:
+    np.savez(path, __manifest__=_manifest(_KIND_SECRET, params),
+             key_lv0=_numpy(sk.key_lv0), key_lv1=_numpy(sk.key_lv1))
+
+
+def save_cloud_key(path, ck: K.CloudKey) -> None:
+    """The cloud key's arrays (testvec and ksk1 int32, bsk_ntt int16,
+    bsk_ext_limbs int8, the forms it holds) and its static fields."""
+    arrays = {name: _numpy(buf) for name, buf in ck.named_buffers()}
+    extra = {"bsk_ntt_drop": ck.bsk_ntt_drop, "bsk_group": ck.bsk_group,
+             "bsk_levels": (list(ck.bsk_levels)
+                            if ck.bsk_levels is not None else None),
+             "bsk_bgbit": ck.bsk_bgbit}
+    np.savez(path, __manifest__=_manifest(_KIND_CLOUD, ck.params, extra),
+             **arrays)
+
+
 def load_cloud_key(path, device="cuda") -> K.CloudKey:
     """A cloud key with its bootstrapping key forms (``bsk_ntt``,
     ``bsk_ext_limbs``: either or both) on ``device``; raises for a file
@@ -80,3 +117,21 @@ def load_cloud_key(path, device="cuda") -> K.CloudKey:
         arrays, _params_from_doc(m), bsk_ntt_drop=m.get("bsk_ntt_drop", 0),
         bsk_group=m.get("bsk_group", 1), bsk_levels=m.get("bsk_levels"),
         bsk_bgbit=m.get("bsk_bgbit"), device=device)
+
+
+def save_ciphertext(path, ct: torch.Tensor, params: P.SecurityParams) -> None:
+    """An int32 ciphertext array of any shape, stored as uint32."""
+    require_width(params.torus_bits)
+    if ct.dtype != torch.int32:
+        raise TypeError(f"ciphertexts are int32, not {ct.dtype}")
+    np.savez(path, __manifest__=_manifest(_KIND_CIPHERTEXT, params),
+             ct=_numpy(ct).view(np.uint32))
+
+
+def load_ciphertext(path, device="cuda"):
+    """Returns (ct int32 on ``device``, params)."""
+    arrays, m = _load(path, _KIND_CIPHERTEXT)
+    params = _params_from_doc(m)
+    require_width(params.torus_bits)
+    ct = torch.from_numpy(arrays["ct"].view(np.int32).copy()).to(device)
+    return ct, params
