@@ -32,14 +32,20 @@ negacyclic circulants of the key step's rows, 4 key limbs).  Phases:
      csrc/hopper_prims.cuh: TMA, mbarrier, wgmma) with nvcc for sm_90a, one
      nvcc per source, started together; ptxas' registers and spills (and
      any wgmma serialization it reports);
-  3. key generation on the card, all three configurations;
+  3. key generation on the card, all three configurations, and the
+     SECURITY_UINT4 and SECURITY_UINT8 keys of phase 9 (group 2, Bg_e 2^22
+     with (1, 1) levels: 3-limb engine digits, drop 0, 5 CRT primes; each
+     with its packing key);
   4. each kernel against its plain PyTorch version at each path's shapes,
      at B = 2048, 200 (a ragged last tile) and 1: K1 on the int8 limb
      planes of residues of bounded polynomials (bit-equal to the plain
      version and to the exact acc + (c << drop)); K2 on the digits of an
-     accumulator and a step of the real key (bit-equal); K3 on the digits
-     of an accumulator difference and a step of the real key (bit-equal),
-     also at B = 65 and 64 (one batch tile and a ragged second one);
+     accumulator and a step of the real key (bit-equal); both also at
+     uint4's shapes (K2 on the 6 limb planes of a real accumulator's
+     digits, R = 2 rows of 3 limbs; K1 at 5 primes and drop 0); K3 on the
+     digits of an accumulator difference and a step of the real key
+     (bit-equal), also at B = 65 and 64 (one batch tile and a ragged
+     second one);
   5. per path, B = 2048 heterogeneous gates with every launch count set to
      0 just before and read just after: accuracy must be 1.0, each kernel
      of the path must have been launched once per step and the others not
@@ -78,7 +84,28 @@ negacyclic circulants of the key step's rows, 4 key limbs).  Phases:
      path, and on the toep key (K3 700 launches per level, sums exact);
      the g3 key saved and loaded (utils/serialization.py) gives bit-equal
      gate_pair outputs, and the product's ciphertext round-trips
-     bit-equal.
+     bit-equal;
+  9. the LUT path (models/lut.py) on the uint keys, every blind-rotation
+     step K2 (3-limb digit planes) then K1, with the launch counts set to
+     0 just before each run and read just after (410 steps a rotation on
+     uint4, 580 on uint8; K3 never): bootstrap_lut at B = 2048 on uint4,
+     m = 16, f(x) = (7x + 3) mod 16 on lanes cycling all 16 messages;
+     bootstrap_multi_lut (x mod 8, x div 8) from one rotation at B = 2048;
+     bootstrap_lut_radix on uint8 at m = 256, f(x) = (5x + 1) mod 256, B =
+     512 (a multi-value rotation of 512 lanes, then a per-family select of
+     2 x 512); bootstrap_lut_bivariate, xy + 1 mod 16, on uint4 at B = 256.
+     Every lane of the uint4 runs must decrypt to what the test vector
+     holds at its modswitched input phase (computed here with the secret
+     key from the rounded mask and body, as the rotation rounds them: an
+     exact check that input noise cannot break); the accuracy against the
+     encrypted messages is printed, and a lane whose input noise moved its
+     phase out of its bin is counted, not failed.  The radix run must
+     reach accuracy >= 0.95, exact on every lane whose two digits stay in
+     their bins.  The first 16 uint4 lanes and the first 8 radix lanes are
+     bit-equal to the port's CPU path.  Timed with CUDA events: LUT/s at
+     B = 2048, B = 1 latency, the multi-value, radix and bivariate runs,
+     one uint4 step split into decompose / limb planes / K2 / K1; traced at
+     B = 2048 and B = 1 (idle share).
 
 The next-to-last stdout line is {"kernels": [...]}, before it the card's
 nvidia-smi name and power limit; the last line is {"ok": true, "device":
@@ -257,36 +284,41 @@ def _k1_bound_ms(P: int, B: int, N: int):
     return _bound(nbytes / HBM_BPS, ops / INT8_OPS, t_cuda) + (l2_bytes, t_cuda * 1e3)
 
 
-def _k2_bound_ms(plan, group: int, R: int, B: int, n_rot_rows: int,
-                 row_groups, single_add):
-    """K2's least time: digits, the key step, the rotations, the forward
-    matrices and the psi rows this run gathers read once, v (int8 limb
-    planes) written once; int8 MACs (2 ops each) against the tensor-core
-    rate; and the CUDA-core stage counted instruction by instruction
-    (_cuda_core_clocks): every Barrett, the int32 multiply-adds of the
-    pointwise sums (2 S R per (b, k, prime)) and the multiplies of the
-    subset combine.  Returns the bound, then (for the printed line only) the
-    L2 -> SM bytes a 64 x 128 tiling moves, the kernel's widest (every
-    (prime, column tile) reads the digits, every row tile the matrices),
-    and the CUDA-core time in ms."""
+def _k2_bound_ms(plan, group: int, R: int, n_dl: int, B: int,
+                 n_rot_rows: int, row_groups, single_add):
+    """K2's least time: the digits' R * n_dl int8 limb planes, the key
+    step, the rotations, the forward matrices and the psi rows this run
+    gathers read once, v (int8 limb planes) written once; int8 MACs (2 ops
+    each, every limb plane through both matrix limbs) against the
+    tensor-core rate; and the CUDA-core stage counted instruction by
+    instruction (_cuda_core_clocks): every Barrett (per limb plane the
+    forward combine, 1 or 3 as ``single_add`` [P, n_dl] says; per row the
+    n_dl - 1 Horner steps, each with a multiply-add), the int32
+    multiply-adds of the pointwise sums (2 S R per (b, k, prime)) and the
+    multiplies of the subset combine.  Returns the bound, then (for the
+    printed line only) the L2 -> SM bytes a 64 x 128 tiling moves, the
+    kernel's widest (every (prime, column tile) reads the digits, every row
+    tile the matrices), and the CUDA-core time in ms."""
     P, N, S = plan.n_primes, plan.N, (1 << group) - 1
-    d_bytes, m_bytes = B * R * N, 2 * P * N * N
+    d_bytes, m_bytes = B * R * n_dl * N, 2 * P * N * N
     v_bytes = P * B * 2 * 2 * N
     nbytes = (d_bytes + S * P * R * 2 * N * 2 + group * B * 4 + m_bytes
               + n_rot_rows * P * N * 2 + v_bytes)
-    int8_ops = 2 * B * R * N * N * 2 * P
+    int8_ops = 2 * B * R * n_dl * N * N * 2 * P
     clocks = 0.0
-    for rg, single in zip(row_groups, single_add):
+    for rg, singles in zip(row_groups, single_add):
         ng = -(-R // rg)
-        fwd = R * (1 if single else 3)
+        fwd = R * sum(1 if single else 3 for single in singles)
+        horner = R * (n_dl - 1)
         if group == 2:
             pw, comb, mults = S * 2 * (ng + 1), 1 + 2 * 3, 1 + 2 * 3
         else:
             pw = S * 2 * (ng + max(0, ng - 2))
             comb, mults = (S - group) + 2 * (S + 1), (S - group) + 2 * S
-        clocks += _cuda_core_clocks(fwd + pw + comb, imad=S * 2 * R + mults)
+        clocks += _cuda_core_clocks(fwd + horner + pw + comb,
+                                    imad=S * 2 * R + mults + horner)
     t_cuda = clocks * B * N / (SMS * SM_HZ)
-    tb = 64 // R
+    tb = 64 // (R * n_dl)
     l2_bytes = (P * (N // 128) * d_bytes + -(-B // tb) * m_bytes + v_bytes)
     return _bound(nbytes / HBM_BPS, int8_ops / INT8_OPS, t_cuda) + (l2_bytes, t_cuda * 1e3)
 
@@ -415,6 +447,24 @@ def _checked_run(plan, cts, ck, sk, out_ref):
     return lanes, in_band, closest, failures
 
 
+def _counted_run(counters, name, fn, expect):
+    """Run ``fn`` once with every launch count set to 0 just before and read
+    just after; fail unless the counts are ``expect``.  Returns (output,
+    counts, host seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {k: c.launches for k, c in counters.items()}
+    _check(counts == expect, f"{name}: launches {counts}, expected {expect}")
+    return out, counts, dt
+
+
 def _circuit_phase(P, g, sk, ck, ck_toep, counters, gpu) -> dict:
     """Phase 8: the circuit path on the card (see the module docstring).
     Returns each run's launch counts by kernel."""
@@ -454,16 +504,7 @@ def _circuit_phase(P, g, sk, ck, ck_toep, counters, gpu) -> dict:
                             P.ksk_alpha, sk.key_lv0)        # [128, 4, n0+1]
 
     def run(name, fn, expect):
-        torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = {k: c.launches for k, c in counters.items()}
-        _check(counts == expect, f"{name}: launches {counts}, expected {expect}")
-        return out, counts, dt
+        return _counted_run(counters, name, fn, expect)
 
     def products(out):
         dec = tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy()
@@ -602,6 +643,259 @@ def _circuit_phase(P, g, sk, ck, ck_toep, counters, gpu) -> dict:
     return launches
 
 
+# -- phase 9: the LUT path on the uint sets ------------------------------------
+
+LUT_LANES = 2048       # bootstrap_lut and bootstrap_multi_lut on uint4
+RADIX_LANES = 512      # bootstrap_lut_radix on uint8 (m = 256)
+BIVARIATE_LANES = 256  # bootstrap_lut_bivariate on uint4
+CPU_LUT_LANES = 16     # lanes held bit-equal to the port's CPU path
+CPU_RADIX_LANES = 8
+
+
+def _lut_f(x):
+    return (7 * x + 3) % 16
+
+
+def _radix_f(x):
+    return (5 * x + 1) % 256
+
+
+def _bivariate_f(x, y):
+    return x * y + 1
+
+
+def _ms_phase(ct, s, P):
+    """The rotation a blind rotation applies to its test vector: k = b~ -
+    <a~, s> mod 2N, from the modswitched mask a~ and body b~ (the same
+    ``modswitch`` the rotation rounds them with); the rotated test vector's
+    coefficient 0 is tv[k] for k < N, -tv[k - N] above."""
+    import torch
+
+    from zig_tfhe_tpu_torch.ops.blind_rotate import modswitch
+
+    n0 = P.n0
+    ta = modswitch(ct[..., :n0], P).long()
+    tb = modswitch(ct[..., n0], P).long()
+    return (tb - (ta * s.long()).sum(-1)) % (2 * P.N)
+
+
+def _tv_at(body, k, N: int):
+    """Coefficient 0 of X^-k times a trivial test vector of body ``body``
+    (int32 [N], or [T, N] for T tables at once)."""
+    import torch
+
+    v = body[..., k % N]
+    return torch.where(k < N, v, -v)
+
+
+def _decode(value, m: int):
+    """The message a noiseless torus value decrypts to (tlwe.decrypt_message's
+    rounding)."""
+    import torch
+
+    f = (value.long() & 0xFFFFFFFF).double() / float(1 << 32)
+    return torch.floor(f * (2 * m) + 0.5).long() % m
+
+
+def _bin(k, m: int, N: int):
+    """The message bin of modulus m a modswitched phase k falls in (the
+    codec's bins of width N/m centred on x N/m; m..2m-1: the negated half)."""
+    return ((k + N // (2 * m)) % (2 * N)) // (N // m)
+
+
+def _lut_phase(g, uint_keys, counters, gpu) -> dict:
+    """Phase 9: the LUT path on SECURITY_UINT4 and SECURITY_UINT8 (see the
+    module docstring).  Returns each run's launch counts by kernel."""
+    import numpy as np
+    import torch
+
+    from zig_tfhe_tpu_torch import key
+    from zig_tfhe_tpu_torch.models import lut
+    from zig_tfhe_tpu_torch.ops import ntt
+    from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows
+    from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
+    from zig_tfhe_tpu_torch.ops.cuda import ntt_step as k2
+
+    (sk4, ck4), (sk8, ck8) = uint_keys["uint4"], uint_keys["uint8"]
+    P4, P8 = ck4.params, ck8.params
+    N = P4.N
+    s4, s8 = sk4.key_lv0, sk8.key_lv0
+    dev = s4.device
+    steps4, steps8 = ck4.bsk_ntt.shape[0], ck8.bsk_ntt.shape[0]
+    launches = {}
+
+    def expect(n_rotations, steps):
+        return {"k1": n_rotations * steps, "k2": n_rotations * steps, "k3": 0}
+
+    def on_cpu(ck):
+        return key.CloudKey.from_numpy(
+            {n: t.cpu().numpy() for n, t in ck.named_buffers()}, ck.params,
+            bsk_ntt_drop=ck.bsk_ntt_drop, bsk_group=ck.bsk_group,
+            bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit,
+            pksk_gadget=ck.pksk_gadget, device="cpu")
+
+    ck4_cpu = on_cpu(ck4)
+
+    # -- bootstrap_lut, m = 16, lanes cycling all 16 messages ----------------
+    m = 16
+    gen = lut.Generator.new(m, P4)
+    table = gen.generate_lookup_table(_lut_f)
+    msgs = torch.arange(LUT_LANES, device=dev) % m
+    ct = lut.encrypt_message(g, msgs, m, P4.tlwe_lv0.alpha, s4)
+    out, launches["uint4"], first = _counted_run(
+        counters, "uint4 bootstrap_lut", lambda: lut.bootstrap_lut(ct, table, ck4),
+        expect(1, steps4))
+    _check(out.dtype == torch.int32 and tuple(out.shape) == (LUT_LANES, P4.n0 + 1),
+           f"bootstrap_lut output {out.dtype} {tuple(out.shape)}")
+    k = _ms_phase(ct, s4, P4)
+    got = lut.decrypt_message(out, m, s4).long()
+    want = _decode(_tv_at(torch.from_numpy(table.poly[1]).to(dev), k, N), m)
+    _check(torch.equal(got, want), f"uint4 bootstrap_lut: "
+           f"{int((got != want).sum())} lanes do not decrypt to f of the bin "
+           f"of their modswitched input phase")
+    truth = _lut_f(msgs)
+    accuracy = float((got == truth).double().mean())
+    off_bin = int((_bin(k, m, N) != msgs).sum())
+    t0 = time.perf_counter()
+    cpu = lut.bootstrap_lut(ct[:CPU_LUT_LANES].cpu(), table, ck4_cpu)
+    _check(torch.equal(cpu, out[:CPU_LUT_LANES].cpu()),
+           "uint4 bootstrap_lut: card lanes differ from the port's CPU path")
+    print(f"uint4 bootstrap_lut B={LUT_LANES} m={m} f(x) = (7x + 3) mod 16: "
+          f"every lane decrypts to f of its modswitched phase's bin; accuracy "
+          f"against the messages {accuracy} ({off_bin} inputs modswitched out "
+          f"of their bin); launches {launches['uint4']}; first call "
+          f"{first:.2f} s; first {CPU_LUT_LANES} lanes bit-equal to the CPU "
+          f"path ({time.perf_counter() - t0:.1f} s on the host)")
+
+    # -- bootstrap_multi_lut: mod 8 and div 8 from one rotation --------------
+    fs = (lambda x: x % 8, lambda x: x // 8)
+    tables = [gen.generate_lookup_table(f) for f in fs]
+    outs, launches["uint4_multi_lut"], _ = _counted_run(
+        counters, "uint4 bootstrap_multi_lut",
+        lambda: lut.bootstrap_multi_lut(ct, tables, m, ck4), expect(1, steps4))
+    _check(tuple(outs.shape) == (2, LUT_LANES, P4.n0 + 1),
+           f"bootstrap_multi_lut output {tuple(outs.shape)}")
+    multi_acc = []
+    for t, f, o in zip(tables, fs, outs):
+        got_t = lut.decrypt_message(o, m, s4).long()
+        want_t = _decode(_tv_at(torch.from_numpy(t.poly[1]).to(dev), k, N), m)
+        _check(torch.equal(got_t, want_t), "uint4 bootstrap_multi_lut: lanes "
+               "do not decrypt to f of their modswitched phase's bin")
+        multi_acc.append(float((got_t == f(msgs)).double().mean()))
+    print(f"uint4 bootstrap_multi_lut B={LUT_LANES} (x mod 8, x div 8): every "
+          f"lane right against its modswitched phase; accuracy {multi_acc}; "
+          f"launches {launches['uint4_multi_lut']}")
+
+    # -- bootstrap_lut_radix on uint8, m = 256: two rotations ---------------
+    M = 256
+    x8 = torch.arange(RADIX_LANES, device=dev) * 37 % M
+    lo, hi = lut.encrypt_radix_message(g, x8, M, P8.tlwe_lv0.alpha, s8)
+    (olo, ohi), launches["uint8_radix"], first = _counted_run(
+        counters, "uint8 bootstrap_lut_radix",
+        lambda: lut.bootstrap_lut_radix(lo, hi, _radix_f, M, ck8, ck8.pksk),
+        expect(2, steps8))
+    dec = lut.decrypt_radix_message((olo, ohi), M, s8).long()
+    ok = dec == _radix_f(x8)
+    radix_acc = float(ok.double().mean())
+    in_bins = ((_bin(_ms_phase(lo, s8, P8), 16, N) == x8 % 16)
+               & (_bin(_ms_phase(hi, s8, P8), M // 16, N) == x8 // 16))
+    _check(bool(ok[in_bins].all()), f"uint8 radix: "
+           f"{int((~ok & in_bins).sum())} lanes whose digits stay in their "
+           f"bins after the modswitch are wrong")
+    _check(radix_acc >= 0.95, f"uint8 radix accuracy {radix_acc} < 0.95")
+    ck8_cpu = on_cpu(ck8)
+    t0 = time.perf_counter()
+    c_lo, c_hi = lut.bootstrap_lut_radix(lo[:CPU_RADIX_LANES].cpu(),
+                                         hi[:CPU_RADIX_LANES].cpu(), _radix_f,
+                                         M, ck8_cpu, ck8_cpu.pksk)
+    _check(torch.equal(c_lo, olo[:CPU_RADIX_LANES].cpu())
+           and torch.equal(c_hi, ohi[:CPU_RADIX_LANES].cpu()),
+           "uint8 radix: card lanes differ from the port's CPU path")
+    print(f"uint8 bootstrap_lut_radix B={RADIX_LANES} m={M} f(x) = (5x + 1) "
+          f"mod 256: accuracy {radix_acc} ({int(in_bins.sum())} lanes with "
+          f"both digits in their bins, all exact); launches "
+          f"{launches['uint8_radix']}; first call {first:.2f} s; first "
+          f"{CPU_RADIX_LANES} lanes bit-equal to the CPU path "
+          f"({time.perf_counter() - t0:.1f} s on the host)")
+
+    # -- bootstrap_lut_bivariate on uint4: x * y + 1 mod 16 -------------------
+    nb = BIVARIATE_LANES
+    xb = torch.arange(nb, device=dev) % 16
+    yb = torch.arange(nb, device=dev) // 16 % 16
+    cx = lut.encrypt_message(g, xb, 16, P4.tlwe_lv0.alpha, s4)
+    cy = lut.encrypt_message(g, yb, 16, P4.tlwe_lv0.alpha, s4)
+    ob, launches["uint4_bivariate"], _ = _counted_run(
+        counters, "uint4 bootstrap_lut_bivariate",
+        lambda: lut.bootstrap_lut_bivariate(cx, cy, _bivariate_f, ck4, ck4.pksk),
+        expect(2, steps4))
+    got_b = lut.decrypt_message(ob, 16, s4).long()
+    # the mid layer's candidates: table h at x's phase; the select picks the
+    # block of y's phase (a negated block in the upper half)
+    tvs = torch.from_numpy(np.stack([gen.generate_lookup_table(
+        lambda v, h=h: _bivariate_f(v, h) % 16).poly[1] for h in range(16)])).to(dev)
+    cand = _tv_at(tvs, _ms_phase(cx, s4, P4), N)               # [16, B]
+    blk = _bin(_ms_phase(cy, s4, P4), 16, N)
+    val = cand.gather(0, (blk % 16)[None])[0]
+    want_b = _decode(torch.where(blk < 16, val, -val), 16)
+    _check(torch.equal(got_b, want_b), "uint4 bivariate: lanes do not decrypt "
+           "to f2 of their modswitched phases' bins")
+    biv_acc = float((got_b == _bivariate_f(xb, yb) % 16).double().mean())
+    print(f"uint4 bootstrap_lut_bivariate B={nb} f2(x, y) = xy + 1 mod 16: "
+          f"every lane right against both modswitched phases; accuracy "
+          f"{biv_acc}; launches {launches['uint4_bivariate']}")
+
+    # -- timings ---------------------------------------------------------------
+    lut_ms = _cuda_ms(lambda: lut.bootstrap_lut(ct, table, ck4), WARM_ITERS)
+    one = ct[:1]
+    lut.bootstrap_lut(one, table, ck4)
+    lat_ms = _cuda_ms(lambda: lut.bootstrap_lut(one, table, ck4), WARM_ITERS)
+    multi_ms = _cuda_ms(lambda: lut.bootstrap_multi_lut(ct, tables, m, ck4), 1)
+    radix_ms = _cuda_ms(lambda: lut.bootstrap_lut_radix(
+        lo, hi, _radix_f, M, ck8, ck8.pksk), 1)
+    biv_ms = _cuda_ms(lambda: lut.bootstrap_lut_bivariate(
+        cx, cy, _bivariate_f, ck4, ck4.pksk), 1)
+    print(f"uint4: LUT/s at B={LUT_LANES}: {LUT_LANES / (lut_ms / 1e3):.1f} "
+          f"({lut_ms:.1f} ms/batch); latency at B=1: {lat_ms:.1f} ms; "
+          f"multi-LUT {2 * LUT_LANES / (multi_ms / 1e3):.1f} LUT/s "
+          f"({multi_ms:.1f} ms for 2 x {LUT_LANES}); bivariate "
+          f"{nb / (biv_ms / 1e3):.1f} evals/s ({biv_ms:.1f} ms at B={nb}) [{gpu}]")
+    print(f"uint8: radix m=256 {RADIX_LANES / (radix_ms / 1e3):.1f} evals/s "
+          f"({radix_ms:.1f} ms at B={RADIX_LANES}) [{gpu}]")
+    e, levels = ck4.bsk_bgbit, ck4.bsk_levels
+    n_dl = ntt.engine_digit_limbs(e)
+    plan = ntt.plan_for_params(P4, ck4.bsk_ntt_drop, 2, levels, bgbit=e,
+                               pseudorandom_key=True)
+    acc = torch.randint(-2**31, 2**31, (LUT_LANES, 2, N), generator=g,
+                        device=dev, dtype=torch.int64).to(torch.int32)
+    rows = _decompose_to_rows(acc, P4, levels, bgbit=e)
+    planes = k2.digit_planes(rows, n_dl)
+    ts = torch.randint(0, 2 * N, (2, LUT_LANES), generator=g, device=dev,
+                       dtype=torch.int64).to(torch.int32)
+    v = k2.ntt_step_fused(planes, ck4.bsk_ntt[0], ts, plan, e)
+    stage = {"decompose": lambda: _decompose_to_rows(acc, P4, levels, bgbit=e),
+             "limbs": lambda: k2.digit_planes(rows, n_dl),
+             "K2": lambda: k2.ntt_step_fused(planes, ck4.bsk_ntt[0], ts, plan, e),
+             "K1": lambda: k1.ntt_inverse_to_crt_acc(v, acc, plan,
+                                                    ck4.bsk_ntt_drop)}
+    split = {name: _cuda_ms(fn, KERNEL_ITERS) for name, fn in stage.items()}
+    print(f"uint4: one step at B={LUT_LANES}: " + ", ".join(
+        f"{name} {t * 1e3:.1f} us" for name, t in split.items())
+        + f" (sum {sum(split.values()) * 1e3:.1f} us) [{gpu}]")
+    for lanes in (LUT_LANES, 1):
+        summ = _trace_summary(lambda n=lanes: lut.bootstrap_lut(ct[:n], table, ck4))
+        if summ is None:
+            print(f"uint4 bootstrap_lut B={lanes}: profiler recorded no "
+                  "kernels (idle share not measured)")
+            continue
+        print(f"uint4 bootstrap_lut B={lanes} profile: busy "
+              f"{summ['busy_ms']:.1f} ms of {summ['span_ms']:.1f} ms device "
+              f"span, idle share {summ['idle_share']:.3f}, {summ['kernels']} "
+              f"kernels [{gpu}]")
+        for n, t, c in summ["top"]:
+            print(f"    {t:9.2f} ms {c:7d}x  {n}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -682,6 +976,29 @@ def main() -> int:
           f"{tuple(ck_toep.bsk_ext_limbs.shape)} int8 "
           f"({ck_toep.bsk_ext_limbs.numel() / 1e6:.1f} MB)")
 
+    # the uint sets' keys (phase 9; uint4's also in phase 4): group 2, Bg_e
+    # 2^22 with (1, 1) levels (3-limb digits), drop 0, 5 primes, each with
+    # its packing key
+    uint_keys = {}
+    for name, steps in (("uint4", 410), ("uint8", 580)):
+        PU = params.PARAMS_BY_NAME[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sku = key.SecretKey.generate(g, PU)
+        cku = key.CloudKey.generate(g, sku, PU)
+        torch.cuda.synchronize()
+        cfg = (cku.bsk_group, cku.bsk_bgbit, cku.bsk_levels, cku.bsk_ntt_drop)
+        _check(cfg == (2, 22, (1, 1), 0) and cku.bsk_ntt.shape[:3] == (steps, 3, 5)
+               and cku.pksk is not None
+               and tuple(cku.pksk.shape) == (PU.n1 * PU.iks_t, 2, PU.N),
+               f"{name} key {cfg}, bsk_ntt {tuple(cku.bsk_ntt.shape)}")
+        uint_keys[name] = (sku, cku)
+        print(f"keygen {name} (group 2, Bg_e 2^22 (1, 1), 3 limbs, drop 0, 5 "
+              f"primes): {time.perf_counter() - t0:.2f} s, bsk_ntt "
+              f"{tuple(cku.bsk_ntt.shape)} int16, pksk "
+              f"{tuple(cku.pksk.shape)} int32 at (basebit, t) "
+              f"{cku.pksk_gadget}")
+
     def uniform(shape):
         return torch.randint(0, 1 << 32, shape, dtype=torch.int64,
                              generator=g, device=dev).to(torch.int32)
@@ -689,15 +1006,21 @@ def main() -> int:
     # -- 4. kernels vs plain versions at the paths' shapes -------------------
     k_results = {"k1": {}, "k2": {}, "k3": {}}
     step_inputs = {}
-    for name, ck in cks.items():
+    ck4 = uint_keys["uint4"][1]
+    plans["uint4"] = ntt.plan_for_params(ck4.params, 0, 2, (1, 1), bgbit=22,
+                                         pseudorandom_key=True)
+    for name, ck in {**cks, "uint4": ck4}.items():
+        PK = ck.params
         plan, drop = plans[name], ck.bsk_ntt_drop
         group, e, levels = ck.bsk_group, ck.bsk_bgbit, ck.bsk_levels
-        c = uniform((B_GATES, 2, P.N))
-        acc = uniform((B_GATES, 2, P.N))
+        n_dl = ntt.engine_digit_limbs(e)
+        c = uniform((B_GATES, 2, PK.N))
+        acc = uniform((B_GATES, 2, PK.N))
         v = k1.split_limbs(torch.stack(
             ntt.ntt_forward(c, plan, digit_limbs=4, digit_bound=128)))
-        digits = _decompose_to_rows(acc, P, levels, bgbit=e).to(torch.int8)
-        ts = modswitch(uniform((group, B_GATES)), P)
+        digits = k2.digit_planes(_decompose_to_rows(acc, PK, levels, bgbit=e),
+                                 n_dl)
+        ts = modswitch(uniform((group, B_GATES)), PK)
         bsk_step = ck.bsk_ntt[0]
         errs1, errs2 = [], []
         for lanes in (B_GATES, RAGGED_LANES, 1):
@@ -720,9 +1043,10 @@ def main() -> int:
                    f"on {name} at B={lanes} (max |diff| {errs2[-1]})")
             if lanes == B_GATES:
                 step_inputs[name] = (digits, bsk_step, ts, acc, v2)
-        print(f"{name}: K1 == plain == exact at [P=3, B, 2, 2, N=1024] int8 limb "
-              f"planes, drop {drop}, and K2 == plain at digits [B, "
-              f"{digits.shape[1]}, 1024], key step {tuple(bsk_step.shape)}, for "
+        print(f"{name}: K1 == plain == exact at [P={plan.n_primes}, B, 2, 2, "
+              f"N=1024] int8 limb planes, drop {drop}, and K2 == plain at "
+              f"digit limb planes [B, {digits.shape[1]} = R {levels} x "
+              f"{n_dl} limbs, 1024], key step {tuple(bsk_step.shape)}, for "
               f"B = {B_GATES}, {RAGGED_LANES}, 1")
 
         def run_k1(n=B_GATES, v=v, acc=acc, plan=plan, drop=drop):
@@ -750,10 +1074,10 @@ def main() -> int:
                       for f in (run_k1, run_k2))
         dev1, dev2 = (_graph_ms(lambda f=f: f(1), KERNEL_ITERS)
                       for f in (run_k1, run_k2))
-        n_rows = int(torch.unique(ts & (2 * P.N - 1)).numel())
-        bound1, by1, unit1, l2_1, cc1 = _k1_bound_ms(plan.n_primes, B_GATES, P.N)
+        n_rows = int(torch.unique(ts & (2 * PK.N - 1)).numel())
+        bound1, by1, unit1, l2_1, cc1 = _k1_bound_ms(plan.n_primes, B_GATES, PK.N)
         bound2, by2, unit2, l2_2, cc2 = _k2_bound_ms(
-            plan, group, digits.shape[1], B_GATES, n_rows,
+            plan, group, bsk_step.shape[2], n_dl, B_GATES, n_rows,
             k2.row_groups(plan, group), k2._host_scalars(plan, group, e)[3])
         k_results["k1"][name] = dict(
             max_abs_err=max(errs1), ms=ms1, plain_ms=plain1, bound_ms=bound1,
@@ -934,6 +1258,10 @@ def main() -> int:
                                       gpu)
     launches.update(circuit_launches)
 
+    # -- 9. the LUT path on the uint sets --------------------------------------
+    lut_launches = _lut_phase(g, uint_keys, counters, gpu)
+    launches.update(lut_launches)
+
     print(gpu)
     kernels = []
     for kk, kname, route_src, replaces, main_path in (
@@ -955,7 +1283,8 @@ def main() -> int:
             "by_path": {p: {"launches": launches[p][kk], **k_results[kk][p]}
                         for p in k_results[kk]},
             "circuit_launches": {p: n[kk] for p, n in
-                                 circuit_launches.items()}})
+                                 circuit_launches.items()},
+            "lut_launches": {p: n[kk] for p, n in lut_launches.items()}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

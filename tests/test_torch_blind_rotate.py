@@ -99,3 +99,40 @@ def test_key_plan_mismatch_raises():
     with pytest.raises(ValueError, match="CRT prime planes"):
         t_brn(ct, torch.zeros(2, 64, dtype=torch.int32), bsk, TP.TEST_TINY, 0,
               group=3, levels=(2, 2), bgbit=6)
+
+
+_SETS_32 = sorted(n for n, p in TP.PARAMS_BY_NAME.items() if p.torus_bits == 32)
+
+
+@pytest.mark.parametrize("name", _SETS_32)
+def test_blind_rotate_every_32bit_set_steps(name):
+    """Every 32-bit set at its key defaults (ops/ntt.py: default_group,
+    default_engine_gadget, default_drop_bits), n0 cut to 2g + 1 (two full
+    steps and a ragged one), random in-range key residues: group 3 at Bg_e
+    2^7 for the boolean sets, group 2 with 2-3-limb digits (Bg_e 2^10 to
+    2^23, 4-5 primes, K2's multi-limb path) for the uint sets."""
+    jp0, tp0 = JP.PARAMS_BY_NAME[name], TP.PARAMS_BY_NAME[name]
+    group = tntt.default_group(tp0)
+    bgbit, levels = tntt.default_engine_gadget(tp0, group)
+    drop = tntt.default_drop_bits(tp0, group, bgbit)
+    assert (group, bgbit, tuple(levels), drop) == (
+        jntt.default_group(jp0), *jntt.default_engine_gadget(jp0, group)[:1],
+        tuple(jntt.default_engine_gadget(jp0, group)[1]),
+        jntt.default_drop_bits(jp0, group, bgbit))
+    n0 = 2 * group + 1
+    jp, tp = (dataclasses.replace(p, tlwe_lv0=dataclasses.replace(p.tlwe_lv0, n=n0))
+              for p in (jp0, tp0))
+    plan = jntt.plan_for_params(jp, drop, group, levels, bgbit=bgbit,
+                                pseudorandom_key=True)
+    rng = np.random.default_rng(len(name))
+    rows = rng.integers(-2**31, 2**31, (3, (1 << group) - 1, sum(levels), 2,
+                                        plan.N)).astype(np.int32)
+    bsk = np.moveaxis(np.asarray(jntt.to_ntt_form(jnp.asarray(rows), plan,
+                                                  drop)), 0, 2)
+    ct = rng.integers(-2**31, 2**31, (3, n0 + 1)).astype(np.int32)
+    tv = rng.integers(-2**31, 2**31, (2, plan.N)).astype(np.int32)
+    kw = dict(group=group, levels=levels, bgbit=bgbit)
+    want = np.asarray(j_brn(jnp.asarray(ct), jnp.asarray(tv), jnp.asarray(bsk),
+                            jp, drop, **kw))
+    got = t_brn(_t(ct), _t(tv), _t(np.ascontiguousarray(bsk)), tp, drop, **kw)
+    assert np.array_equal(got.numpy(), want)

@@ -10,7 +10,8 @@ The hand-written kernels are held bit-equal to their plain PyTorch versions
 paths on the card (the NTT engine's and the Toeplitz engine's) are held
 bit-equal to the port's CPU path, which the other tests/test_torch_*.py
 files hold bit-equal to the JAX package; so are scheduled circuits (the
-full adder and the w = 8 Bristol multiplier).
+full adder and the w = 8 Bristol multiplier), and so are the LUT paths
+of models/lut.py on a TEST_TINY_UINT key (bootstrap_lut, tree_pbs).
 """
 
 import numpy as np
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from zig_tfhe_tpu_torch import key, params, tlwe, trgsw
-from zig_tfhe_tpu_torch.models import gates, netlists, scheduler
+from zig_tfhe_tpu_torch.models import gates, lut, netlists, scheduler
 from zig_tfhe_tpu_torch.ops import ntt
 from zig_tfhe_tpu_torch.ops.cuda import extprod as K3
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K
@@ -192,8 +193,73 @@ def test_step_kernel_rejects_what_it_cannot_take(dev):
         K2.ntt_step_fused(digits, bsk.cpu(), ts, plan, bgbit)
     with pytest.raises(NotImplementedError, match="groups"):
         K2.ntt_step_fused(digits, bsk[:1], ts[:1], plan, bgbit)
-    with pytest.raises(NotImplementedError, match="one-limb"):
-        K2.ntt_step_fused(digits, bsk, ts, plan, 10)
+    with pytest.raises(NotImplementedError, match="one-limb"):    # 4 limbs
+        K2.ntt_step_fused(digits, bsk, ts, plan, 25)
+
+
+# uint keys at their defaults: group 2, Bg_e 2^10 with (2, 2) levels and 2
+# limbs (8 planes, 8 lanes a tile), 4 primes, drop 3 (uint1); Bg_e 2^22 with
+# (1, 1) levels and 3 limbs (6 planes, 10 lanes a tile), 5 primes (uint4)
+def _limb_step_inputs(dev, name, B, seed):
+    """The limb planes of a real accumulator's digits (centred remainders
+    with a carry into the top limb), one step of in-range key residues, the
+    rotations and the accumulator."""
+    from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows
+
+    P = params.PARAMS_BY_NAME[name]
+    bgbit, levels = ntt.default_engine_gadget(P, 2)
+    drop = ntt.default_drop_bits(P, 2, bgbit)
+    plan = ntt.plan_for_params(P, drop, 2, levels, bgbit=bgbit,
+                               pseudorandom_key=True)
+    N, R = plan.N, sum(levels)
+    rng = np.random.default_rng(seed)
+    acc = torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, N))
+                           .astype(np.int32)).to(dev)
+    digits = K2.digit_planes(_decompose_to_rows(acc, P, levels, bgbit=bgbit),
+                             ntt.engine_digit_limbs(bgbit))
+    rows = torch.from_numpy(rng.integers(-2**31, 2**31, (3, R, 2, N))
+                            .astype(np.int32)).to(dev)
+    bsk = ntt.to_ntt_form(rows, plan, drop).movedim(0, 1).contiguous()
+    ts = torch.from_numpy(rng.integers(0, 2 * N + 1, (2, B))
+                          .astype(np.int32)).to(dev)
+    return plan, bgbit, drop, digits, bsk, ts, acc
+
+
+# B = 10 fills one uint4 tile, 11 spills one lane into a second, 1 and 10
+# take the narrow column tile
+@pytest.mark.parametrize("name", ["uint1", "uint4"])
+@pytest.mark.parametrize("B", [1, 10, 11, 200, 2049])
+def test_step_kernel_multi_limb_matches_plain(dev, name, B):
+    plan, bgbit, drop, digits, bsk, ts, acc = _limb_step_inputs(dev, name, B, B)
+    before = K2.ntt_step_fused.launches
+    out = K2.ntt_step_fused(digits, bsk, ts, plan, bgbit)
+    torch.cuda.synchronize()
+    assert K2.ntt_step_fused.launches == before + 1
+    assert tuple(out.shape) == (plan.n_primes, B, 2, 2, plan.N)
+    assert torch.equal(out, K2.ntt_step_fused_reference(digits, bsk, ts, plan,
+                                                         bgbit))
+    # and K1 after it, at 4-5 primes and drop 3 / 0
+    acc2 = K.ntt_inverse_to_crt_acc(out, acc, plan, drop)
+    assert torch.equal(acc2, K.ntt_inverse_to_crt_acc_reference(out, acc, plan,
+                                                                 drop))
+
+
+@pytest.mark.parametrize("B", [1, 200, 2048])
+def test_kernel_five_primes_drop0_matches_plain_and_exact(dev, B):
+    """K1 at uint4's plan: 5 primes, drop 0, on residues of bounded
+    polynomials."""
+    P = params.PARAMS_BY_NAME["uint4"]
+    plan = ntt.plan_for_params(P, 0, 2, (1, 1), bgbit=22, pseudorandom_key=True)
+    assert plan.n_primes == 5
+    rng = np.random.default_rng(B + 5)
+    c, acc = (torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, plan.N))
+                               .astype(np.int32)).to(dev) for _ in range(2))
+    v = K.split_limbs(torch.stack(ntt.ntt_forward(c, plan, digit_limbs=4,
+                                                  digit_bound=128)))
+    out = K.ntt_inverse_to_crt_acc(v, acc, plan, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.ntt_inverse_to_crt_acc_reference(v, acc, plan, 0))
+    assert torch.equal(out, acc + c)
 
 
 @pytest.mark.parametrize("knobs, steps", [({}, 234),
@@ -363,3 +429,41 @@ def test_tiny_circuits_on_card_equal_cpu_path(dev, circuit, engine):
         assert np.array_equal(got, vals[0] * vals[1])
     single = scheduler.evaluate(plan, cts[:, 1].to(dev), ck.to(dev))
     assert torch.equal(single.cpu(), cpu[:, 1])
+
+
+def test_tiny_uint_luts_on_card_equal_cpu_path(dev):
+    """TEST_TINY_UINT (group 2, 2-limb digits: every step K2 + K1): a
+    bootstrap_lut batch and both tree_pbs select shapes (radix m = 32
+    interleaved, m = 64 per-family) on the card equal the CPU path."""
+    P = params.TEST_TINY_UINT
+    g = torch.Generator().manual_seed(31)
+    sk = key.SecretKey.generate(g, P)
+    ck = key.CloudKey.generate(g, sk, P)
+    steps = ck.bsk_ntt.shape[0]
+    ck_dev = key.CloudKey.from_numpy(
+        {n: t.numpy() for n, t in ck.named_buffers()}, P,
+        bsk_ntt_drop=ck.bsk_ntt_drop, bsk_group=ck.bsk_group,
+        bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit,
+        pksk_gadget=ck.pksk_gadget, device=dev)
+    msgs = torch.arange(40) % 16
+    ct = lut.encrypt_message(g, msgs, 16, 0.0, sk.key_lv0)
+    tab = lut.Generator.new(16, P).generate_lookup_table(lambda x: (7 * x + 3) % 16)
+    cpu = lut.bootstrap_lut(ct, tab, ck)
+    before = (K2.ntt_step_fused.launches, K.ntt_inverse_to_crt_acc.launches)
+    out = lut.bootstrap_lut(ct.to(dev), tab, ck_dev)
+    torch.cuda.synchronize()
+    assert (K2.ntt_step_fused.launches - before[0],
+            K.ntt_inverse_to_crt_acc.launches - before[1]) == (steps, steps)
+    assert torch.equal(out.cpu(), cpu)
+    assert torch.equal(lut.decrypt_message(cpu, 16, sk.key_lv0), (7 * msgs + 3) % 16)
+    for m in (32, 64):
+        x = torch.arange(12) * 5 % m
+        lo, hi = lut.encrypt_radix_message(g, x, m, 0.0, sk.key_lv0)
+        f = lambda v, m=m: (3 * v + 1) % m       # noqa: E731
+        want = lut.bootstrap_lut_radix(lo, hi, f, m, ck, ck.pksk)
+        got = lut.bootstrap_lut_radix(lo.to(dev), hi.to(dev), f, m, ck_dev,
+                                      ck_dev.pksk)
+        for w, t in zip(want, got):
+            assert torch.equal(t.cpu(), w)
+        assert torch.equal(lut.decrypt_radix_message(want, m, sk.key_lv0).long(),
+                           (3 * x + 1) % m)

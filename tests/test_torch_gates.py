@@ -7,7 +7,9 @@ for bit and decrypt to the truth tables.  The key also round-trips through
 the JAX package's ``.npz`` format into the port's loader.  The port's own
 key generation (torch.Generator randomness, so different bits) is held at
 the decrypt level.  Finally the port must import and run with jax blocked,
-gates, a scheduled circuit and the save side of serialization included.
+gates, a scheduled circuit, the save side of serialization and a
+TEST_TINY_UINT bootstrap_lut (models/lut.py, ops/packing_keyswitch.py)
+included.
 """
 
 import os
@@ -164,7 +166,8 @@ sys.modules["jax"] = None       # any `import jax` now raises ImportError
 import torch
 import zig_tfhe_tpu_torch
 from zig_tfhe_tpu_torch import params, key, tlwe
-from zig_tfhe_tpu_torch.models import circuits, gates, netlists, scheduler
+from zig_tfhe_tpu_torch.models import circuits, gates, lut, netlists, scheduler
+from zig_tfhe_tpu_torch.ops import packing_keyswitch
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse
 from zig_tfhe_tpu_torch.utils import serialization
 from zig_tfhe_tpu_torch.utils.serialization import (
@@ -197,6 +200,14 @@ with tempfile.TemporaryDirectory() as d:
     assert p2 is P and torch.equal(back, res)
     assert torch.equal(serialization.load_cloud_key(d + "/ck",
                                                     device="cpu").ksk1, ck.ksk1)
+U = params.TEST_TINY_UINT
+sku = key.SecretKey.generate(g, U)
+cku = key.CloudKey.generate(g, sku, U)
+assert cku.pksk is not None
+ctu = lut.encrypt_message(g, [3, 14], 16, 0.0, sku.key_lv0)
+tab = lut.Generator.new(16, U).generate_lookup_table(lambda x: (7 * x + 3) % 16)
+outu = lut.bootstrap_lut(ctu, tab, cku)
+assert lut.decrypt_message(outu, 16, sku.key_lv0).tolist() == [8, 5]
 print("ok")
 """
 

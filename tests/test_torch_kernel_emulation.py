@@ -12,7 +12,8 @@ versions bit for bit, at shapes that cover several column tiles, ragged
 batch tiles, B = 1, every column-tile width the entry points pick (forced
 through the emulated SM count), 1 to 4 primes, 3 to 10 digit rows,
 pointwise sums of up to 5 row groups, and both branches of the forward
-limb combine; for K3, 1 to 4 key limbs, one- and two-limb gadgets, batch
+limb combine; multi-limb digit planes (the uint sets' 2 and 3 limbs, a
+ragged row tile at uint4's 10 lanes a tile); for K3, 1 to 4 key limbs, one- and two-limb gadgets, batch
 tiles of 64 lanes (full, ragged, several), both stage widths (64- and
 128-byte digit chunks), blocks whose two column tiles straddle the two
 components (N = 64, 192), and the 128-bit shape (N = 1024, 6 rows: every
@@ -99,7 +100,7 @@ def emu(tmp_path_factory):
                         str(cpp)], check=True, capture_output=True)
         libs[stem] = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    libs["ntt_step"].ztfhe_ntt_step_fused.argtypes = [p] * 11 + [i] * 5 + [p]
+    libs["ntt_step"].ztfhe_ntt_step_fused.argtypes = [p] * 11 + [i] * 6 + [p]
     libs["ntt_inverse"].ztfhe_ntt_inverse_crt_acc.argtypes = [p] * 9 + [i] * 5 + [p]
     libs["extprod"].ztfhe_extprod_matmul.argtypes = [p] * 3 + [i] * 4 + [p]
     libs["wgmma_rs"].emu_wgmma_rs.argtypes = [p] * 3 + [i]
@@ -160,7 +161,60 @@ def test_step_kernel_source_matches_plain(emu, case):
         digits.data_ptr(), bsk.data_ptr(), ts.data_ptr(),
         tabs.fwd_lo_t.data_ptr(), tabs.fwd_hi_t.data_ptr(), tabs.rot.data_ptr(),
         v.data_ptr(), _ptr(primes), _ptr(inv_p), _ptr(groups), _ptr(single),
-        plan.n_primes, group, B, R, N, None)
+        plan.n_primes, group, B, R, 1, N, None)
+    assert err == 0
+    assert torch.equal(v, K2.ntt_step_fused_reference(digits, bsk, ts, plan,
+                                                      bgbit))
+
+
+# name -> (params, B, emulated SM count): group-2 keys with multi-limb engine
+# digits at their key defaults.  TEST_TINY_UINT: Bg_e 2^11, (2, 2) levels, 2
+# limbs (8 planes, 8 lanes a tile), 4 primes, N = 256; uint4: Bg_e 2^22, (1,
+# 1) levels, 3 limbs (6 planes, 10 lanes a tile), 5 primes, N = 1024, where
+# the lower limbs take the reduce-then-combine branch at the three large
+# primes and the single add at the two small ones.  B = 11 at uint4 ends one lane into
+# the second row tile; one SM walks every tile of the tiny set.
+_K2_LIMB_CASES = {
+    "tiny_uint_B5": ("tiny_uint", 5, 4),
+    "tiny_uint_B17_one_block": ("tiny_uint", 17, 1),
+    "uint4_B3": ("uint4", 3, 4),
+    "uint4_B11_ragged": ("uint4", 11, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_K2_LIMB_CASES))
+def test_step_kernel_source_multi_limb_matches_plain(emu, case):
+    """The limb planes of real accumulators' digits (centred remainders
+    with a carry into the top limb), a step of in-range key residues."""
+    from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows
+
+    name, B, sms = _K2_LIMB_CASES[case]
+    P = TP.PARAMS_BY_NAME[name]
+    bgbit, levels = ntt.default_engine_gadget(P, 2)
+    n_dl = ntt.engine_digit_limbs(bgbit)
+    assert n_dl > 1
+    plan = ntt.plan_for_params(P, 0, 2, levels, bgbit=bgbit,
+                               pseudorandom_key=True)
+    N, R = plan.N, sum(levels)
+    rng = np.random.default_rng(B)
+    acc = torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, N)).astype(np.int32))
+    digits = K2.digit_planes(_decompose_to_rows(acc, P, levels, bgbit=bgbit),
+                             n_dl)
+    rows = torch.from_numpy(rng.integers(-2**31, 2**31, (3, R, 2, N)).astype(np.int32))
+    bsk = ntt.to_ntt_form(rows, plan, 0).movedim(0, 1).contiguous()
+    ts = torch.from_numpy(rng.integers(0, 2 * N + 1, (2, B)).astype(np.int32))
+    tabs = K2._device_tables(plan, torch.device("cpu"))
+    primes, inv_p, groups, single = K2._host_scalars(plan, 2, bgbit)
+    assert single.shape == (plan.n_primes, n_dl)
+    if name == "uint4":     # lower limbs: single add at the two small primes only
+        assert single[:, -1].all() and single[:, :-1].sum() == 4
+    v = torch.full((plan.n_primes, B, 2, 2, N), 7, dtype=torch.int8)
+    emu["ntt_step"].emu_set_sm_count(sms)
+    err = emu["ntt_step"].ztfhe_ntt_step_fused(
+        digits.data_ptr(), bsk.data_ptr(), ts.data_ptr(),
+        tabs.fwd_lo_t.data_ptr(), tabs.fwd_hi_t.data_ptr(), tabs.rot.data_ptr(),
+        v.data_ptr(), _ptr(primes), _ptr(inv_p), _ptr(groups), _ptr(single),
+        plan.n_primes, 2, B, R, n_dl, N, None)
     assert err == 0
     assert torch.equal(v, K2.ntt_step_fused_reference(digits, bsk, ts, plan,
                                                       bgbit))

@@ -6,6 +6,9 @@ it follows, and the keygen knobs that select its configurations.
   zig_tfhe_tpu/ops/pallas/ntt_step.py:ntt_step_fused_pallas, in interpret
   mode; the accumulator after K1's plain version equals the kernel's
   caller (crt_combine, << drop, acc +).
+* Group 2 with multi-limb engine digits (the uint sets): the accumulator
+  is bit-equal to the JAX package's XLA step2, which runs those keys, and
+  the residues equal its own modulo p.
 * Group 3: the residues are bit-equal to the XLA step_multi fold
   (pointwise_extprod(reduce_output=False), rotate_combine_multi(u_wide)),
   and the accumulator to its ``finish``.
@@ -123,6 +126,63 @@ def test_group3_matches_xla_step_multi(case):
     delta = jntt.ntt_inverse_to_crt(v_j, jplan)
     want = np.asarray(jnp.asarray(acc) + (delta << drop))
     got = K1.ntt_inverse_to_crt_acc_reference(v, _t(acc), tplan, drop)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["tiny_uint", "uint1", "uint4"])
+def test_group2_multi_limb_matches_xla_step2(name):
+    """One step of a uint key at its defaults (group 2; Bg_e 2^11, 2^10, 2^22
+    with 2, 2, 3 digit limbs; 4, 4, 5 primes): the digits of a real
+    accumulator, as limb planes, through the plain version and K1's plain
+    version give the JAX package's XLA step2 accumulator bit for bit
+    (pointwise_extprod + rotate_combine2, no fold, as it runs these keys).
+    The forward NTT is bit-equal per prime; the residues follow the group-2
+    Pallas arithmetic, so they equal JAX's modulo p, within 0.55p."""
+    from zig_tfhe_tpu.ops.blind_rotate import _decompose_to_rows as j_rows
+    from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows as t_rows
+
+    jp, tp = JP.PARAMS_BY_NAME[name], TP.PARAMS_BY_NAME[name]
+    bgbit, levels = tntt.default_engine_gadget(tp, 2)
+    drop = tntt.default_drop_bits(tp, 2, bgbit)
+    n_dl = tntt.engine_digit_limbs(bgbit)
+    kw = dict(bgbit=bgbit, pseudorandom_key=True)
+    jplan = jntt.plan_for_params(jp, drop, 2, levels, **kw)
+    tplan = tntt.plan_for_params(tp, drop, 2, levels, **kw)
+    N, R, B = tplan.N, sum(levels), 5
+    assert n_dl > 1 and tplan.primes == jplan.primes
+    rng = np.random.default_rng(len(name))
+    acc = rng.integers(-2**31, 2**31, (B, 2, N)).astype(np.int32)
+    rows = rng.integers(-2**31, 2**31, (3, R, 2, N)).astype(np.int32)
+    bsk = np.ascontiguousarray(np.moveaxis(np.asarray(jntt.to_ntt_form(
+        jnp.asarray(rows), jplan, drop)), 0, 1))
+    ts = rng.integers(0, 2 * N + 1, (2, B)).astype(np.int32)
+
+    digits_j = j_rows(jnp.asarray(acc), jp, levels, bgbit=bgbit)
+    digits_t = t_rows(_t(acc), tp, levels, bgbit=bgbit)
+    assert np.array_equal(digits_t.numpy(), np.asarray(digits_j))
+    dbound = jntt.top_limb_bound(1 << (bgbit - 1), n_dl)
+    d_hat = jntt.ntt_forward(digits_j, jplan, n_dl, dbound)
+    us = [jntt.pointwise_extprod(d_hat, jnp.asarray(bsk[m]), jplan)
+          for m in range(3)]
+    v_j = jntt.rotate_combine2(*us, jnp.asarray(ts[0]), jnp.asarray(ts[1]),
+                               jplan)
+    delta = jntt.ntt_inverse_to_crt(v_j, jplan)
+    want = np.asarray(jnp.asarray(acc) + (delta << drop))
+
+    planes = K2.digit_planes(digits_t, n_dl)
+    assert planes.dtype == torch.int8 and tuple(planes.shape) == (B, R * n_dl, N)
+    limbs = planes.reshape(B, R, n_dl, N)
+    d_hat_t = tntt.ntt_forward_limbs([limbs[:, :, l] for l in range(n_dl)],
+                                     tplan, dbound)
+    for i in range(tplan.n_primes):
+        assert np.array_equal(d_hat_t[i].numpy(), np.asarray(d_hat[i]))
+    v8 = K2.ntt_step_fused_reference(planes, _t(bsk), _t(ts), tplan, bgbit)
+    v = K1.join_limbs(v8)
+    for i, p in enumerate(tplan.primes):
+        assert not ((v[i].numpy().astype(np.int64)
+                     - np.asarray(v_j[i]).astype(np.int64)) % p).any(), p
+        assert int(v[i].abs().max()) <= 0.55 * p
+    got = K1.ntt_inverse_to_crt_acc_reference(v8, _t(acc), tplan, drop)
     assert np.array_equal(got.numpy(), want)
 
 
@@ -248,8 +308,8 @@ def test_wrapper_refuses_what_it_cannot_take():
     d, k, t = _t(digits), _t(bsk), _t(ts)
     with pytest.raises(NotImplementedError, match="groups"):      # group 1
         K2.ntt_step_fused(d, k[:1], t[:1], tplan, bgbit)
-    with pytest.raises(NotImplementedError, match="one-limb"):    # Bg_e 2^10
-        K2.ntt_step_fused(d, k, t, tplan, 10)
+    with pytest.raises(NotImplementedError, match="one-limb"):    # 4 limbs
+        K2.ntt_step_fused(d, k, t, tplan, 25)
     with pytest.raises(NotImplementedError, match="32-bit"):      # width 64
         K2.ntt_step_fused(d.long(), k, t, tplan, bgbit)
 
@@ -257,9 +317,11 @@ def test_wrapper_refuses_what_it_cannot_take():
 def test_port_entry_points_default_to_the_card():
     from zig_tfhe_tpu_torch.utils import serialization as tser
 
+    from zig_tfhe_tpu_torch.models import lut as TL
+
     for fn in (TK.SecretKey.from_numpy, TK.CloudKey.from_numpy,
                TK.gen_testvec, tser.load_secret_key, tser.load_cloud_key,
-               TG.constant):
+               tser.load_packing_ksk, TL.LookupTable.as_torch, TG.constant):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     if torch.cuda.is_available():
         assert TK.gen_testvec(TP.TEST_TINY).device.type == "cuda"

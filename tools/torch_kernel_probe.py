@@ -8,16 +8,18 @@ on one GPU.
 A quicker loop than chip_smoke.py for work on one kernel: it builds the
 kernels asked for (csrc/ntt_inverse.cu K1, csrc/ntt_step.cu K2,
 csrc/extprod.cu K3) with nvcc, prints ptxas' report (registers, shared
-memory, spills, warnings), and at the 128-bit shapes of each path (g3:
-group 3, Bg_e 2^7, R = 4, drop 5; g2: group 2, Bg_e 2^6, R = 5, drop 7;
-N = 1024, 3 primes; K3: 2L = 6 digit rows, 1-4 key limbs of an ext-limb
-key step, ``--key-limbs``) holds each kernel bit-equal to its plain
-PyTorch version at every batch size given,
+memory, spills, warnings), and at the shapes of each path (the 128-bit
+g3: group 3, Bg_e 2^7, R = 4, drop 5, and g2: group 2, Bg_e 2^6, R = 5,
+drop 7, both with 3 primes; uint4: group 2, Bg_e 2^22, R = 2 rows of 3
+digit limbs, drop 0, 5 primes; N = 1024; K3: 2L = 6 digit rows, 1-4 key
+limbs of an ext-limb key step, ``--key-limbs``) holds each kernel
+bit-equal to its plain PyTorch version at every batch size given,
 then times kernel and plain version with CUDA events (plain, kernel, kernel,
 plain), the kernel alone replayed from a CUDA graph (device time without
 the host's gaps, which is what small batches otherwise measure) and the
 host's cost of enqueueing one call.  Inputs are seeded:
-uniform accumulators, digits in the gadget's range, key residues of uniform
+uniform accumulators, digits in the gadget's range (multi-limb digits: the
+limb planes of a uniform accumulator's digits), key residues of uniform
 polynomials.  Prints the card's nvidia-smi name and power limit beside the
 times.  Needs a CUDA device.
 """
@@ -33,8 +35,28 @@ from pathlib import Path
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# path -> (group, engine bgbit, levels, drop)
-PATHS = {"g3": (3, 7, (2, 2), 5), "g2": (2, 6, (3, 2), 7)}
+# path -> (parameter set, group, engine bgbit, levels, drop)
+PATHS = {"g3": ("128bit", 3, 7, (2, 2), 5), "g2": ("128bit", 2, 6, (3, 2), 7),
+         "uint4": ("uint4", 2, 22, (1, 1), 0)}
+
+
+def _digits(P, levels, e, B, g):
+    """K2's digit operand: int8 [B, R * n_dl, N], digits in [-Bg/2, Bg/2)
+    for one limb, else the limb planes of a uniform accumulator's digits."""
+    import torch
+
+    from zig_tfhe_tpu_torch.ops import ntt
+    from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows
+    from zig_tfhe_tpu_torch.ops.cuda import ntt_step as k2
+
+    n_dl = ntt.engine_digit_limbs(e)
+    if n_dl == 1:
+        half = 1 << (e - 1)
+        return torch.randint(-half, half, (B, sum(levels), P.N), generator=g,
+                             device=g.device, dtype=torch.int32).to(torch.int8)
+    acc = torch.randint(0, 1 << 32, (B, 2, P.N), dtype=torch.int64,
+                        generator=g, device=g.device).to(torch.int32)
+    return k2.digit_planes(_decompose_to_rows(acc, P, levels, bgbit=e), n_dl)
 
 
 def _cuda_ms(fn, iters):
@@ -129,19 +151,17 @@ def _stage_split(args, gpu) -> bool:
     from zig_tfhe_tpu_torch.ops.cuda import ntt_step as k2
 
     dev = torch.device("cuda", 0)
-    P = params.SECURITY_128_BIT
     B = int(args.batches.split(",")[0])
     g = torch.Generator(device=dev).manual_seed(args.seed)
     variants = {"whole": (), "no pointwise": ("-DZTFHE_PROBE_NO_POINTWISE",),
                 "no product": ("-DZTFHE_PROBE_NO_PRODUCT",)}
     for path in args.paths.split(","):
-        group, e, levels, drop = PATHS[path]
+        name, group, e, levels, drop = PATHS[path]
+        P = params.PARAMS_BY_NAME[name]
         plan = ntt.plan_for_params(P, drop, group, levels, bgbit=e,
                                    pseudorandom_key=True)
         R, S, N = sum(levels), (1 << group) - 1, P.N
-        half = 1 << (e - 1)
-        digits = torch.randint(-half, half, (B, R, N), generator=g, device=dev,
-                               dtype=torch.int32).to(torch.int8)
+        digits = _digits(P, levels, e, B, g)
         bsk = ntt.to_ntt_form(
             torch.randint(0, 1 << 32, (S, R, 2, N), dtype=torch.int64,
                           generator=g, device=dev).to(torch.int32),
@@ -218,8 +238,6 @@ def main() -> int:
                     or "warning" in line.lower() or "Loss" in line):
                 print(f"  {src.name}: {line.split(':', 1)[-1].strip()[:150]}")
 
-    P = params.SECURITY_128_BIT
-    N = P.N
     g = torch.Generator(device=dev).manual_seed(args.seed)
 
     def uniform(shape):
@@ -228,7 +246,9 @@ def main() -> int:
 
     ok = True
     for path in args.paths.split(",") if {"k1", "k2"} & set(kernels) else ():
-        group, e, levels, drop = PATHS[path]
+        name, group, e, levels, drop = PATHS[path]
+        P = params.PARAMS_BY_NAME[name]
+        N = P.N
         plan = ntt.plan_for_params(P, drop, group, levels, bgbit=e,
                                    pseudorandom_key=True)
         R, S = sum(levels), (1 << group) - 1
@@ -251,9 +271,7 @@ def main() -> int:
                     lambda a=(v, acc, plan, drop):
                         k1.ntt_inverse_to_crt_acc_reference(*a))
             if "k2" in kernels:
-                half = 1 << (e - 1)
-                digits = torch.randint(-half, half, (B, R, N), generator=g,
-                                       device=dev, dtype=torch.int32).to(torch.int8)
+                digits = _digits(P, levels, e, B, g)
                 bsk = ntt.to_ntt_form(uniform((S, R, 2, N)), plan,
                                       drop).movedim(0, 1).contiguous()
                 ts = torch.randint(0, 2 * N + 1, (group, B), generator=g,

@@ -10,8 +10,11 @@ models/circuits.py (bit codecs, full adder, ripple-carry and Kogge-Stone
 adders), models/netlists.py (Bristol netlists, such as the 64x64
 multiplier) and models/scheduler.py (the repository's native level
 scheduler, built with g++ at first use, and an evaluator that runs each
-level as one batched bootstrap); utils/serialization.py saves and loads
-keys and ciphertexts in the JAX package's file format.  The JAX package
+level as one batched bootstrap).  Programmable bootstrapping runs on the
+uint sets' keys: models/lut.py (lookup tables, multi-value and radix tree
+PBS, bivariate LUTs) on the packing key switch of
+ops/packing_keyswitch.py.  utils/serialization.py saves and loads keys
+and ciphertexts in the JAX package's file format.  The JAX package
 ``zig_tfhe_tpu`` is the reference: on equal keys and ciphertexts both
 return the same bits.  This package imports torch and numpy only.
 

@@ -3,10 +3,14 @@
 // Replaces the TPU kernel zig_tfhe_tpu/ops/pallas/ntt_step.py:
 // ntt_step_fused_pallas (Pallas body `_k_fused`, arithmetic
 // `_fwd_pointwise_rotate`), and widens it from multi-bit group 2 to group 3,
-// the 128-bit key default.  For one step of the blind rotation and each CRT
-// prime p it computes, from the accumulator's int8 gadget digits:
+// the 128-bit key default, and from one-limb engine digits to the uint
+// sets' 2- and 3-limb digits (Bg_e up to 2^24) at group 2.  For one step of
+// the blind rotation and each CRT prime p it computes, from the int8 limb
+// planes of the accumulator's gadget digits (digit r = sum_l 256^l limb
+// (r, l), n_dl limbs):
 //
-//   d_hat = barrett(digits @ fwd_lo + 256 * (digits @ fwd_hi))    forward NTT
+//   y_l   = barrett(limb_l @ fwd_lo + 256 * (limb_l @ fwd_hi))  per limb
+//   d_hat = Horner over the limbs, top down: barrett(d * 256 + y_l)
 //   u_S   = sum over rows r of d_hat[r] * bsk[S, p, r]            per subset S
 //   v     = sum over subsets S of prod_{i in S}(psi^{t_i} - 1) * u_S
 //
@@ -14,12 +18,21 @@
 // places them, so v is bit-equal to the JAX package's residues:
 //   group 2: the Pallas kernel (one row group for every prime, a final
 //            Barrett per pointwise sum, barrett(barrett(d1 u1 + d2 u2) +
-//            barrett(d12 u12)));
+//            barrett(d12 u12))); with multi-limb digits the same
+//            arithmetic after ops/ntt.py:ntt_forward's limb loop (the JAX
+//            package runs those keys on its XLA step2, whose residues
+//            differ from these by multiples of p, so K1 gives the same
+//            accumulator);
 //   group 3: the XLA step_multi fold (pointwise_extprod(reduce_output=
-//            False) with per-prime row groups, rotate_combine_multi(u_wide)).
-// The forward limb combine is the single add lo + (hi << 8) or, where its
-// bound fails (Bg_e = 2^8), barrett(barrett(lo) + 256 barrett(hi)), as
-// _limb_pair_combine chooses.
+//            False) with per-prime row groups, rotate_combine_multi(u_wide)),
+//            one-limb digits only.
+// Each limb's combine is the single add lo + (hi << 8) or, where its bound
+// fails, barrett(barrett(lo) + 256 barrett(hi)), as _limb_pair_combine
+// chooses per prime and limb: a lower limb is bounded by 128, the top limb
+// by ops/ntt.py:top_limb_bound (33 at uint4's Bg_e = 2^22, where the top
+// limb takes the single add at every prime and the lower limbs only at the
+// two primes below 2^15; one-limb digits by Bg_e / 2, which fails the
+// single add at 2^8).
 //
 // What the TPU kernel did next -- the residue limb split, the concatenated
 // inverse NTT -- and what its caller did after it -- crt_combine, << drop,
@@ -50,7 +63,10 @@
 //     4.2 SM-clocks, 34.0 us), by the issue rate.
 // So the tensor cores bound it, with the CUDA-core stage close behind at
 // group 3 (chip_smoke.py computes the same counts per path and prints them
-// beside the bound).
+// beside the bound).  At uint4's LUT path (group 2, R = 2 rows of 3 limbs,
+// 5 primes) the int8 MACs are B * 6 * N * N * 2 * 5 = 128.8 G: 130 us, and
+// the CUDA-core stage (per (b, k, prime) 14 forward-combine, 4 Horner, 18
+// pointwise and 7 combine Barretts) about 54 us.
 //
 // L2 -> SM traffic per call at those shapes (group 3; group 2 in brackets).
 // A tile reads its 64 digit rows over all N for one prime, and its column
@@ -70,8 +86,10 @@
 //
 // Design.  Persistent blocks, one per SM, walk the tiles (prime, column
 // tile, row tile; row tiles fastest, so a prime's matrices stay hot in L2).
-// A tile is 64 wgmma rows (TB = 64 / R batch elements with all their R
-// digit rows) x BN NTT columns (BN = 128; 32 when 128 would leave SMs
+// A tile is 64 wgmma rows (TB = 64 / (R n_dl) batch elements with all
+// their R digit rows of n_dl limb planes each: the limbs ride wgmma's M
+// dimension as extra rows, 10 elements a tile at uint4's R n_dl = 6) x BN
+// NTT columns (BN = 128; 32 when 128 would leave SMs
 // without a tile or N is not a multiple of 128, chosen in the entry point).
 // Five warpgroups with three roles, so that the CUDA-core stage of one tile
 // runs while the tensor cores work on the next ones:
@@ -82,15 +100,20 @@
 //   * one product warpgroup: waits for a stage, issues its 8
 //     wgmma.m64nBNk32.s8.s8 (4 contraction steps x 2 matrix limbs), commits,
 //     releases the stage before it when that group has retired, and after a
-//     tile's last stage forms d_hat (limb combine + Barrett) into one of two
-//     shared buffers (`d_full` / `d_empty` mbarriers);
+//     tile's last stage forms each limb plane's y_l (limb pair combine +
+//     Barrett) into one of two shared buffers (`d_full` / `d_empty`
+//     mbarriers);
 //   * three (group 2) or two (group 3) pointwise warpgroups (thread = NTT
 //     column, that many batch elements in flight per column; the count is
 //     what the stage's registers allow): they stage the column tile's
 //     key residues and the tile's rotation amounts, wait for d_hat, gather
 //     the psi rows rot[p][t_j(b) & (2N-1), k] themselves two elements ahead,
-//     and run the pointwise sums and the subset combine in registers, the
-//     first version's arithmetic operation for operation.
+//     join each digit row's limb planes by Horner as they read it, and run
+//     the pointwise sums and the subset combine in registers, the first
+//     version's arithmetic operation for operation.  (The limbs of one row
+//     sit in different threads of the product warpgroup's accumulator
+//     layout, so the Horner join belongs to the stage that reads d_hat by
+//     column.)
 // The pointwise stage is what holds the kernel (measured: 1.4 to 2.5 times
 // the product stage's time alone), so it gets most of the block's warps;
 // the product warpgroup keeps its 128 sums in registers through setmaxnreg
@@ -110,8 +133,9 @@ namespace {
 using namespace hopper;
 
 constexpr int kMaxPrimes = 8;
-constexpr int kMaxRows = 10;    // digit rows R = la + lb
-constexpr int BM = 64;          // wgmma rows per tile: TB = BM / R batch elements
+constexpr int kMaxRows = 10;    // limb planes R n_dl of a batch element
+constexpr int kMaxLimbs = 3;    // int8 limbs of an engine digit (Bg_e <= 2^24)
+constexpr int BM = 64;          // wgmma rows per tile: TB = BM / (R n_dl)
 // Warpgroups of a block: pointwise_groups(G) for the pointwise stage first,
 // then one product warpgroup (wgmma) and the producer's.  Three pointwise
 // warpgroups leave 96 registers a thread, which the group-2 stage fits and
@@ -156,7 +180,9 @@ struct StepParams {
   int p[kMaxPrimes];
   float inv_p[kMaxPrimes];
   int row_group[kMaxPrimes];   // rows summed before a Barrett
-  int single_add[kMaxPrimes];  // forward limb combine: 1 = lo + (hi << 8)
+  // forward limb combine per prime and limb (pi * kMaxLimbs + l):
+  // 1 = lo + (hi << 8)
+  int single_add[kMaxPrimes * kMaxLimbs];
 };
 
 __device__ __forceinline__ uint32_t u32(int x) { return static_cast<uint32_t>(x); }
@@ -167,6 +193,17 @@ __device__ __forceinline__ int barrett(uint32_t x, int p, float inv_p) {
   return static_cast<int>(x - u32(q) * u32(p));
 }
 
+// d_hat of one digit row from its n_dl limb planes' y_l (d[l * LDD]): the
+// top limb, then r = barrett(r * 256 + y_l) down to limb 0 (ntt_forward)
+template <int LDD>
+__device__ __forceinline__ int limb_horner(const int* d, int n_dl, int p,
+                                           float inv_p) {
+  int r = d[(n_dl - 1) * LDD];
+  for (int l = n_dl - 2; l >= 0; --l)
+    r = barrett(u32(r) * 256u + u32(d[l * LDD]), p, inv_p);
+  return r;
+}
+
 // The pointwise sums of one (b, k): u[s][c] = sum_r d[r] * key[s, r, c],
 // with a Barrett after every `rg` rows.  Group 2 (the Pallas kernel): the
 // group partials are summed and reduced once more.  Group 3
@@ -174,10 +211,12 @@ __device__ __forceinline__ int barrett(uint32_t x, int p, float inv_p) {
 // pairwise from the front, and the last two are added unreduced.  The row
 // loop is outermost and not unrolled, so the group-end test runs once per
 // row for all 2S sums, and the code holds one copy of the 2S-wide body.
-// d[r] is d_col[r * LDD]; key[s, r, c] is k_col[((s * R + r) * 2 + c) * BN].
+// d[r] joins d_col[(r * n_dl + l) * LDD] over the limbs l; key[s, r, c] is
+// k_col[((s * R + r) * 2 + c) * BN].
 template <int G, int BN>
 __device__ __forceinline__ void pointwise(const int* d_col, const int16_t* k_col,
-                                          int R, int rg, int p, float inv_p,
+                                          int R, int n_dl, int rg, int p,
+                                          float inv_p,
                                           int (&u)[(1 << G) - 1][2]) {
   constexpr int S = (1 << G) - 1;
   constexpr int LDD = BN + 8;
@@ -194,7 +233,9 @@ __device__ __forceinline__ void pointwise(const int* d_col, const int16_t* k_col
   int cnt = 0, have = 0;  // rows in the open group; partials so far (<= 2)
 #pragma unroll 1
   for (int r = 0; r < R; ++r) {
-    const uint32_t dr = u32(d_col[r * LDD]);
+    const uint32_t dr =
+        u32(n_dl == 1 ? d_col[r * LDD]
+                      : limb_horner<LDD>(d_col + r * n_dl * LDD, n_dl, p, inv_p));
 #pragma unroll
     for (int s = 0; s < S; ++s)
 #pragma unroll
@@ -254,7 +295,8 @@ __host__ __device__ constexpr int stages_that_fit(int group, int R, int bn, int 
   return n > kMaxStages ? kMaxStages : n;
 }
 
-// map_d:  int8 [B * R, N]       gadget digits of the accumulator, box [64, BK]
+// map_d:  int8 [B * R * n_dl, N] limb planes of the accumulator's gadget
+//                               digits (plane r * n_dl + l), box [64, BK]
 // map_lo, map_hi: int8 [P * N, N]  forward matrix limbs, transposed (k, j) so
 //                               the contraction axis is contiguous, box [BN, BK]
 // bsk:    int16 [S, P, R, 2, N] one step of the key (S = 2^G - 1 subsets)
@@ -269,8 +311,8 @@ ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
                       const int16_t* __restrict__ bsk,
                       const int* __restrict__ ts,
                       const int16_t* __restrict__ rot, int8_t* __restrict__ v,
-                      StepParams sp, int n_primes, int B, int R, int N,
-                      int n_stages) {
+                      StepParams sp, int n_primes, int B, int R, int n_dl,
+                      int N, int n_stages) {
   constexpr int S = (1 << G) - 1;
   constexpr int kPointwiseGroups = pointwise_groups(G);
   constexpr int kPointwiseThreads = 128 * kPointwiseGroups;
@@ -288,7 +330,8 @@ ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
-  const int tb = BM / R;                  // batch elements per tile
+  const int RL = R * n_dl;                // limb planes per batch element
+  const int tb = BM / RL;                 // batch elements per tile
   const int nrt = (B + tb - 1) / tb;      // row tiles
   const int nct = N / BN;                 // column tiles
   const int n_tiles = n_primes * nct * nrt;
@@ -319,7 +362,7 @@ ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
           mbar_wait(empty + s, ph);
           unsigned char* st = tiles + s * stage_bytes(BN, BK);
           mbar_arrive_expect_tx(full + s, stage_bytes(BN, BK));
-          tma_load_2d(st, &map_d, kc * BK, rt * tb * R, full + s);
+          tma_load_2d(st, &map_d, kc * BK, rt * tb * RL, full + s);
           tma_load_2d(st + BM * BK, &map_lo, kc * BK, pi * N + ct * BN, full + s);
           tma_load_2d(st + BM * BK + BN * BK, &map_hi, kc * BK,
                       pi * N + ct * BN, full + s);
@@ -386,9 +429,13 @@ ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
       const int buf = j % kBuffers;
       int* d_s = reinterpret_cast<int*>(bufs + buf * buffer_bytes(G, R, BN));
       mbar_wait(d_empty + buf, ((j / kBuffers) & 1) ^ 1);
-      const bool single = sp.single_add[pi] != 0;
+      // a thread's two rows warp * 16 + g (+ 8) are limb planes l = row % n_dl
+      const int* single_p = sp.single_add + pi * kMaxLimbs;
+      const bool single0 = single_p[(warp * 16 + g) % n_dl] != 0;
+      const bool single1 = single_p[(warp * 16 + g + 8) % n_dl] != 0;
 #pragma unroll
       for (int i = 0; i < REGS; i += 2) {
+        const bool single = (i / 2) % 2 ? single1 : single0;
         int y[2];
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
@@ -466,7 +513,8 @@ ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
         }
         gather(b + 2 * BSTEP, raw2);
         int u[S][2];
-        pointwise<G, BN>(d_s + b * R * LDD + k, k_s + k, R, rg, p, inv_p, u);
+        pointwise<G, BN>(d_s + b * RL * LDD + k, k_s + k, R, n_dl, rg, p,
+                         inv_p, u);
 
         int out[2];
         if constexpr (G == 2) {
@@ -527,8 +575,8 @@ struct MatrixMaps {
 template <int G, int BN, int BK>
 int launch(const int8_t* digits, const int16_t* bsk, const int* ts,
            const int8_t* f_lo, const int8_t* f_hi, const int16_t* rot,
-           int8_t* v, const StepParams& sp, int n_primes, int B, int R, int N,
-           cudaStream_t stream) {
+           int8_t* v, const StepParams& sp, int n_primes, int B, int R,
+           int n_dl, int N, cudaStream_t stream) {
   thread_local MatrixMaps cache;
   MatrixMaps& m = cache;
   const uint64_t n64 = static_cast<uint64_t>(N);
@@ -546,7 +594,7 @@ int launch(const int8_t* digits, const int16_t* bsk, const int* ts,
   }
   CUtensorMap map_d;
   {
-    const uint64_t dims[2] = {n64, static_cast<uint64_t>(B) * R};
+    const uint64_t dims[2] = {n64, static_cast<uint64_t>(B) * R * n_dl};
     const uint64_t strides[1] = {n64};
     const uint32_t box[2] = {BK, BM};
     const int e = make_tensor_map(&map_d, digits, 2, dims, strides, box);
@@ -568,12 +616,12 @@ int launch(const int8_t* digits, const int16_t* bsk, const int* ts,
     cap_device = device;
     cap_bytes = bytes;
   }
-  const int tb = BM / R;
+  const int tb = BM / (R * n_dl);
   const int n_tiles = n_primes * (N / BN) * ((B + tb - 1) / tb);
   const dim3 grid(n_tiles < sm_count() ? n_tiles : sm_count());
   ntt_step_fused_kernel<G, BN, BK><<<grid, threads(G), bytes, stream>>>(
-      map_d, m.map_lo, m.map_hi, bsk, ts, rot, v, sp, n_primes, B, R, N,
-      n_stages);
+      map_d, m.map_lo, m.map_hi, bsk, ts, rot, v, sp, n_primes, B, R, n_dl,
+      N, n_stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -583,19 +631,19 @@ int launch(const int8_t* digits, const int16_t* bsk, const int* ts,
 template <int G>
 int dispatch(const int8_t* digits, const int16_t* bsk, const int* ts,
              const int8_t* f_lo, const int8_t* f_hi, const int16_t* rot,
-             int8_t* v, const StepParams& sp, int n_primes, int B, int R, int N,
-             cudaStream_t stream) {
-  const int tb = BM / R;
+             int8_t* v, const StepParams& sp, int n_primes, int B, int R,
+             int n_dl, int N, cudaStream_t stream) {
+  const int tb = BM / (R * n_dl);
   const int row_tiles = (B + tb - 1) / tb;
   if (N % 128 == 0 && n_primes * (N / 128) * row_tiles >= sm_count() &&
       stages_that_fit(G, R, 128, 128) >= 3)
     return launch<G, 128, 128>(digits, bsk, ts, f_lo, f_hi, rot, v, sp,
-                               n_primes, B, R, N, stream);
+                               n_primes, B, R, n_dl, N, stream);
   if (N % 128 == 0)
     return launch<G, 32, 128>(digits, bsk, ts, f_lo, f_hi, rot, v, sp,
-                              n_primes, B, R, N, stream);
+                              n_primes, B, R, n_dl, N, stream);
   return launch<G, 32, 64>(digits, bsk, ts, f_lo, f_hi, rot, v, sp, n_primes,
-                           B, R, N, stream);
+                           B, R, n_dl, N, stream);
 }
 
 }  // namespace
@@ -603,15 +651,19 @@ int dispatch(const int8_t* digits, const int16_t* bsk, const int* ts,
 // Plain C entry point (bound with ctypes).  Launches on `stream`, does not
 // synchronise, and returns cudaGetLastError() after the launch (0 = ok).
 // The caller guarantees: device pointers of the stated shapes, contiguous,
-// 16-byte aligned; N % 64 == 0; 1 <= n_primes <= 8; 1 <= R <= 10.
+// 16-byte aligned; N % 64 == 0; 1 <= n_primes <= 8; digits of 1 <= n_dl <= 3
+// limbs (more than one only at group 2) and 1 <= R * n_dl <= 10 limb planes
+// a batch element; single_add holds n_primes * n_dl flags, (prime, limb).
 extern "C" int ztfhe_ntt_step_fused(
     const int8_t* digits, const int16_t* bsk, const int* ts,
     const int8_t* f_lo, const int8_t* f_hi, const int16_t* rot, int8_t* v,
     const int* primes, const float* inv_p, const int* row_group,
-    const int* single_add, int n_primes, int group, int B, int R, int N,
-    void* stream) {
+    const int* single_add, int n_primes, int group, int B, int R, int n_dl,
+    int N, void* stream) {
   if (n_primes < 1 || n_primes > kMaxPrimes || (group != 2 && group != 3) ||
-      B < 1 || R < 1 || R > kMaxRows || N < 64 || N % 64 != 0)
+      B < 1 || R < 1 || n_dl < 1 || n_dl > kMaxLimbs ||
+      (group != 2 && n_dl != 1) || R * n_dl > kMaxRows || N < 64 ||
+      N % 64 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   StepParams sp;
   for (int i = 0; i < kMaxPrimes; ++i) {
@@ -619,15 +671,17 @@ extern "C" int ztfhe_ntt_step_fused(
     sp.p[i] = live ? primes[i] : 1;
     sp.inv_p[i] = live ? inv_p[i] : 1.0f;
     sp.row_group[i] = live ? row_group[i] : 1;
-    sp.single_add[i] = live ? single_add[i] : 1;
+    for (int l = 0; l < kMaxLimbs; ++l)
+      sp.single_add[i * kMaxLimbs + l] =
+          live && l < n_dl ? single_add[i * n_dl + l] : 1;
     if (sp.row_group[i] < 1)
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return group == 2 ? dispatch<2>(digits, bsk, ts, f_lo, f_hi, rot, v, sp,
-                                  n_primes, B, R, N, s)
+                                  n_primes, B, R, n_dl, N, s)
                     : dispatch<3>(digits, bsk, ts, f_lo, f_hi, rot, v, sp,
-                                  n_primes, B, R, N, s);
+                                  n_primes, B, R, n_dl, N, s);
 }
 
 extern "C" const char* ztfhe_cuda_error_string(int code) {

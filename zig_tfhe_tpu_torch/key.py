@@ -3,12 +3,13 @@
 Counterpart of zig_tfhe_tpu/key.py.  Both keys are ``nn.Module``s whose
 arrays are registered buffers, so ``.to(device)`` moves a key.  Generation
 runs on the device of the ``torch.Generator`` it is given.  The cloud key
-holds the signed-digit key-switching key and one or both bootstrapping-key
+holds the signed-digit key-switching key, one or both bootstrapping-key
 forms: the NTT engine's (the multi-bit subset-product BSK of the JAX
 package, in CRT residue form) and the Toeplitz engine's (a per-bit TRGSW
-at the parameter-set gadget, in ext-limb form).  Its layouts equal the JAX
-package's, so a JAX-made key carries over with ``CloudKey.from_numpy`` or
-utils/serialization.py:load_cloud_key.
+at the parameter-set gadget, in ext-limb form), and for the uint sets the
+TLWE -> TRLWE packing key that the tree PBS of models/lut.py runs on.  Its
+layouts equal the JAX package's, so a JAX-made key carries over with
+``CloudKey.from_numpy`` or utils/serialization.py:load_cloud_key.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from zig_tfhe_tpu_torch import tlwe as _tlwe
 from zig_tfhe_tpu_torch import trgsw as _trgsw
 from zig_tfhe_tpu_torch.ops import ntt as _ntt
 from zig_tfhe_tpu_torch.ops.keyswitch import ks_plaintexts
+from zig_tfhe_tpu_torch.ops.packing_keyswitch import (default_packing_gadget,
+                                                      gen_packing_ksk)
 from zig_tfhe_tpu_torch.params import SecurityParams
 from zig_tfhe_tpu_torch.utils import rng as _rng
 from zig_tfhe_tpu_torch.utils.torus import (require_width, to_carrier,
@@ -64,15 +67,20 @@ class CloudKey(nn.Module):
     bsk_ext_limbs: int8 [n0, n_klimbs, 2L, 2, 2N]: TRGSW(s0[i]) in ext-limb
              form, the Toeplitz engine's key (trgsw.py:to_ext_limbs); or
              None.
+    pksk:    int32 [n1*t, 2, N]: the TLWE -> TRLWE packing key-switch key
+             (ops/packing_keyswitch.py:gen_packing_ksk), or None.
     bsk_group, bsk_levels and bsk_bgbit describe bsk_ntt (1, None and None
-    when the key has none, as in the JAX package).
+    when the key has none, as in the JAX package); pksk_gadget is the
+    (basebit, t) the packing key was built at (None without one).
     """
 
     def __init__(self, testvec: torch.Tensor, ksk1: torch.Tensor,
                  bsk_ntt: torch.Tensor | None, params: SecurityParams, *,
                  bsk_ntt_drop: int, bsk_group: int,
                  bsk_levels: tuple | None, bsk_bgbit: int | None,
-                 bsk_ext_limbs: torch.Tensor | None = None):
+                 bsk_ext_limbs: torch.Tensor | None = None,
+                 pksk: torch.Tensor | None = None,
+                 pksk_gadget: tuple | None = None):
         super().__init__()
         require_width(params.torus_bits)
         if bsk_ntt is None and bsk_ext_limbs is None:
@@ -82,6 +90,8 @@ class CloudKey(nn.Module):
         self.register_buffer("ksk1", ksk1)
         self.register_buffer("bsk_ntt", bsk_ntt)
         self.register_buffer("bsk_ext_limbs", bsk_ext_limbs)
+        self.register_buffer("pksk", pksk)
+        self.pksk_gadget = tuple(pksk_gadget) if pksk_gadget is not None else None
         self.params = params
         self.bsk_ntt_drop = bsk_ntt_drop
         self.bsk_group = bsk_group
@@ -92,7 +102,8 @@ class CloudKey(nn.Module):
     def generate(cls, gen: torch.Generator, secret_key: SecretKey,
                  params: SecurityParams, engines=("ntt",),
                  group: int | None = None, decomp_levels=None,
-                 engine_bgbit: int | None = None) -> "CloudKey":
+                 engine_bgbit: int | None = None,
+                 packing_key: bool | None = None) -> "CloudKey":
         """Generate on the generator's device.
 
         ``engines`` selects the bootstrapping-key forms to make, "ntt"
@@ -108,7 +119,9 @@ class CloudKey(nn.Module):
         ``engine_bgbit`` alone takes every level at that base.  group > 1
         publishes TRGSWs of secret-bit subset products (BMMP16-style); see
         the JAX package's CloudKey.generate for the security note.  The
-        Toeplitz key is the reference's per-bit BSK."""
+        Toeplitz key is the reference's per-bit BSK.  ``packing_key``
+        (default: ``default_packing_key(params)``, True for the uint sets)
+        adds the packing key at the set's (basebit, iks_t), drawn last."""
         if params.torus_bits != 32 and "toeplitz" in engines:
             raise ValueError(
                 "the Toeplitz engine is 32-bit-only (ext-limb key form); "
@@ -130,20 +143,27 @@ class CloudKey(nn.Module):
                                          levels, bgbit) if with_ntt else None)
         bsk_ext = (gen_bootstrapping_key(gen, secret_key, params)
                    if "toeplitz" in engines else None)
+        if packing_key is None:
+            packing_key = default_packing_key(params)
+        pksk = (gen_packing_ksk(gen, secret_key.key_lv1, params)
+                if packing_key else None)
         return cls(gen_testvec(params, gen.device), ksk1, bsk, params,
                    bsk_ntt_drop=drop, bsk_group=group if with_ntt else 1,
                    bsk_levels=levels if with_ntt else None,
                    bsk_bgbit=bgbit if with_ntt else None,
-                   bsk_ext_limbs=bsk_ext)
+                   bsk_ext_limbs=bsk_ext, pksk=pksk,
+                   pksk_gadget=(default_packing_gadget(params)
+                                if pksk is not None else None))
 
     @classmethod
     def from_numpy(cls, arrays, params: SecurityParams, *, bsk_ntt_drop: int,
                    bsk_group: int, bsk_levels, bsk_bgbit,
-                   device="cuda") -> "CloudKey":
-        """Build from a JAX key's arrays (numpy ``testvec``, ``ksk1`` and
-        at least one of ``bsk_ntt``, ``bsk_ext_limbs``) and its static
-        fields."""
+                   pksk_gadget=None, device="cuda") -> "CloudKey":
+        """Build from a JAX key's arrays (numpy ``testvec``, ``ksk1``, at
+        least one of ``bsk_ntt``, ``bsk_ext_limbs``, and ``pksk`` where the
+        key has one) and its static fields."""
         bsk_ntt, bsk_ext = arrays.get("bsk_ntt"), arrays.get("bsk_ext_limbs")
+        pksk = arrays.get("pksk")
         return cls(_tensor(arrays["testvec"], np.int32, device),
                    _tensor(arrays["ksk1"], np.int32, device),
                    None if bsk_ntt is None
@@ -151,7 +171,17 @@ class CloudKey(nn.Module):
                    bsk_ntt_drop=bsk_ntt_drop, bsk_group=bsk_group,
                    bsk_levels=bsk_levels, bsk_bgbit=bsk_bgbit,
                    bsk_ext_limbs=None if bsk_ext is None
-                   else _tensor(bsk_ext, np.int8, device))
+                   else _tensor(bsk_ext, np.int8, device),
+                   pksk=None if pksk is None else _tensor(pksk, np.int32, device),
+                   pksk_gadget=pksk_gadget)
+
+
+def default_packing_key(params: SecurityParams) -> bool:
+    """Whether CloudKey.generate builds the packing key by default: for the
+    multi-bit message sets (uint1-8 and tiny_uint), whose radix and
+    bivariate LUTs run the tree PBS on it (the JAX package's rule, less its
+    64-bit sets, which the port does not run yet)."""
+    return params.name.startswith("uint") or params.name == "tiny_uint"
 
 
 def gen_testvec(params: SecurityParams, device="cuda") -> torch.Tensor:

@@ -10,19 +10,21 @@ Counterpart of zig_tfhe_tpu/ops/blind_rotate_ntt.py.  Per step:
 
 ``lax.scan`` becomes a Python loop over the steps (234 at the 128-bit
 default, group 3).  At multi-bit groups 2 and 3 with one-limb engine
-digits (every boolean key) a step is three calls: ``_decompose_to_rows``,
-the fused step core ops/cuda/ntt_step.py:ntt_step_fused (K2: forward NTT,
-pointwise products and subset combine) and
-ops/cuda/ntt_inverse.py:ntt_inverse_to_crt_acc (K1).  Each is the
-hand-written kernel on CUDA tensors and its plain version on CPU tensors.
-At group 2 K2 follows the JAX package's Pallas step kernel
-(``ZTFHE_PALLAS=1``), at group 3 its XLA ``step_multi``; at group 2 the
-accumulator is also bit-equal to the JAX package's default XLA step,
-whose residues differ only by multiples of p.  Group 1, groups above 3
-and multi-limb digits (the uint sets) run the plain ops of the JAX
-package's XLA step (the pointwise/rotate barrett fold for one-limb
-digits) and then K1.  The path is chosen from the key's configuration
-before any launch.
+digits (every boolean key), and at group 2 with 2-3-limb engine digits
+(every uint key: Bg_e 2^10 to 2^23), a step is decompose -> limb planes
+(``digit_planes``; the digits themselves for one limb) -> the fused step
+core ops/cuda/ntt_step.py:ntt_step_fused (K2: forward NTT, pointwise
+products and subset combine) -> ops/cuda/ntt_inverse.py:
+ntt_inverse_to_crt_acc (K1).  Each is the hand-written kernel on CUDA
+tensors and its plain version on CPU tensors.  At group 2 K2 follows the
+JAX package's Pallas step kernel (``ZTFHE_PALLAS=1``), at group 3 its XLA
+``step_multi``; at group 2 the accumulator is also bit-equal to the JAX
+package's default XLA step (``step2``, which the JAX package runs for the
+uint keys), whose residues differ only by multiples of p.  Group 1,
+groups above 3 and group 3 with multi-limb digits run the plain ops of
+the JAX package's XLA step (the pointwise/rotate barrett fold for
+one-limb digits) and then K1.  The path is chosen from the key's
+configuration before any launch.
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ import torch
 from zig_tfhe_tpu_torch.ops import ntt as _ntt
 from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows, modswitch
 from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import ntt_inverse_to_crt_acc
-from zig_tfhe_tpu_torch.ops.cuda.ntt_step import GROUPS as FUSED_GROUPS
-from zig_tfhe_tpu_torch.ops.cuda.ntt_step import ntt_step_fused
+from zig_tfhe_tpu_torch.ops.cuda.ntt_step import (digit_planes,
+                                                  ntt_step_fused, supports)
 from zig_tfhe_tpu_torch.params import SecurityParams
 from zig_tfhe_tpu_torch.utils.torus import require_width
 
@@ -105,12 +107,12 @@ def blind_rotate_ntt(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
     if n0 < group * G:                   # ragged n0: pad a = 0 (no rotation)
         a_cols = torch.cat([a_cols, a_cols.new_zeros(group * G - n0, B)])
     a_groups = a_cols.reshape(G, group, B)
-    if group in FUSED_GROUPS and e_limbs == 1:
+    if supports(group, e_limbs):
         ts = modswitch(a_groups, params)     # every step's rotations at once
         for s in range(G):
             digits = _decompose_to_rows(acc, params, levels, bgbit=e)
-            v = ntt_step_fused(digits.to(torch.int8), bsk_ntt[s], ts[s],
-                               plan, e)
+            v = ntt_step_fused(digit_planes(digits, e_limbs), bsk_ntt[s],
+                               ts[s], plan, e)
             acc = ntt_inverse_to_crt_acc(v, acc, plan, drop_bits)
         return acc
     for s in range(G):

@@ -4,7 +4,9 @@ hand-written in CUDA C++ for Hopper.
 Replaces zig_tfhe_tpu/ops/pallas/ntt_step.py:ntt_step_fused_pallas (forward
 NTT, the pointwise external products against the step's BSK residues and
 the multi-bit rotation combine) and widens it from group 2 to group 3, the
-128-bit key default.  The inverse NTT, the CRT lift and the accumulator add
+128-bit key default, and from one-limb engine digits to the 2-3-limb
+digits of the uint sets (group 2, Bg_e up to 2^24), which every LUT
+bootstrap runs.  The inverse NTT, the CRT lift and the accumulator add
 that the TPU kernel's caller ran after it stay in K1
 (ops/cuda/ntt_inverse.py), so one step is two launches:
 ``ntt_step_fused`` then ``ntt_inverse_to_crt_acc``, with the residues
@@ -25,14 +27,27 @@ they (and not only the accumulator) are bit-equal to the JAX package's:
     ``pointwise_extprod(reduce_output=False)`` with per-prime row groups,
     then ``rotate_combine_multi(u_wide=True)``.
 
-The forward NTT's limb combine takes ``_limb_pair_combine``'s branch: the
-single add at Bg_e <= 2^7, reduce-then-combine at 2^8.
+Multi-limb digits (group 2 only) enter as int8 limb planes [B, R * n_dl,
+N], plane r * n_dl + l holding limb l (little-endian, ``digit_planes`` of
+``_decompose_to_rows``).  Their forward NTT is ops/ntt.py:ntt_forward's
+limb loop (each limb's ``_limb_pair_combine``, then Horner from the top
+limb down), followed by the group-2 arithmetic above.  The JAX package
+runs these keys on its XLA ``step2`` (``pointwise_extprod`` +
+``rotate_combine2``, no fold), whose residues differ from these only by
+multiples of p; both lie within 0.55p, so K1's accumulator is bit-equal.
+
+Each limb's combine takes ``_limb_pair_combine``'s branch at that limb's
+bound: the single add where N * bound * (128 + 256 (p // 512 + 1)) <
+2^31 (one-limb digits at Bg_e <= 2^7; the top limb of the uint sets,
+bounded by ``top_limb_bound``), reduce-then-combine otherwise (Bg_e = 2^8;
+every lower limb, bounded by 128).
 
 ``ntt_step_fused`` launches the kernel for CUDA tensors (or raises) and
 runs the plain PyTorch version, ``ntt_step_fused_reference``, for CPU
 tensors only.  Both take groups 2 and 3 with one-limb engine digits
-(Bg_e <= 2^8) on the 32-bit torus, and raise ``NotImplementedError`` for
-anything else.
+(Bg_e <= 2^8) and group 2 with 2-3-limb digits (Bg_e <= 2^24) on the
+32-bit torus, and raise ``NotImplementedError`` for anything else (group 3
+with multi-limb digits stays on the plain ops of ops/blind_rotate_ntt.py).
 """
 
 from __future__ import annotations
@@ -47,30 +62,51 @@ import torch
 from zig_tfhe_tpu_torch.ops import ntt as _ntt
 from zig_tfhe_tpu_torch.ops.cuda import _build
 from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import split_limbs
+from zig_tfhe_tpu_torch.utils.torus import i32_to_i8_limbs
 
 SOURCE = _build.CSRC / "ntt_step.cu"
 GROUPS = (2, 3)
 _MAX_PRIMES = 8     # kMaxPrimes in the source
-_MAX_ROWS = 10      # kMaxRows in the source: (5, 5) levels at Bg_e = 2^6
+_MAX_ROWS = 10      # kMaxRows in the source: limb planes R * n_dl
+_MAX_LIMBS = 3      # kMaxLimbs in the source: Bg_e <= 2^24
 _COL_TILE = 64      # N must be a multiple of the kernel's narrowest stage
 
 
+def supports(group: int, digit_limbs: int) -> bool:
+    """Whether the fused step takes a key of this multi-bit group and
+    engine-digit limb count."""
+    return group in GROUPS and (digit_limbs == 1 or (
+        group == 2 and digit_limbs <= _MAX_LIMBS))
+
+
 def _require_supported(digits: torch.Tensor, bsk_step: torch.Tensor,
-                       ts: torch.Tensor, bgbit: int) -> None:
+                       ts: torch.Tensor, plan: _ntt.NTTPlan,
+                       bgbit: int) -> None:
     group = ts.shape[0]
     if group not in GROUPS:
         raise NotImplementedError(
             f"the fused step takes multi-bit groups {GROUPS}, not {group}")
-    if _ntt.engine_digit_limbs(bgbit) != 1:
+    n_dl = _ntt.engine_digit_limbs(bgbit)
+    if not supports(group, n_dl):
         raise NotImplementedError(
-            f"the fused step takes one-limb engine digits (Bg_e <= 2^8), "
-            f"not Bg_e = 2^{bgbit}")
+            f"the fused step takes one-limb engine digits (Bg_e <= 2^8) at "
+            f"groups {GROUPS} and 2-3-limb digits (Bg_e <= 2^24) at group "
+            f"2, not Bg_e = 2^{bgbit} at group {group}")
     if (digits.dtype != torch.int8 or bsk_step.dtype != torch.int16
             or ts.dtype != torch.int32):
         raise NotImplementedError(
             "the fused step takes int8 digits, int16 key residues and int32 "
             f"rotations of the 32-bit torus (got {digits.dtype}, "
             f"{bsk_step.dtype}, {ts.dtype})")
+    P, N = plan.n_primes, plan.N
+    B, R = digits.shape[0], bsk_step.shape[2]
+    if (tuple(digits.shape) != (B, R * n_dl, N)
+            or tuple(bsk_step.shape) != ((1 << group) - 1, P, R, 2, N)
+            or tuple(ts.shape) != (group, B)):
+        raise ValueError(
+            f"shapes {tuple(digits.shape)}, {tuple(bsk_step.shape)}, "
+            f"{tuple(ts.shape)} do not match [B, R*n_dl, N={N}] (n_dl = "
+            f"{n_dl}), [2^g-1, P={P}, R, 2, N] and [g, B]")
 
 
 def row_groups(plan: _ntt.NTTPlan, group: int) -> tuple:
@@ -79,6 +115,17 @@ def row_groups(plan: _ntt.NTTPlan, group: int) -> tuple:
     prime's own ``row_group`` at group 3 (``pointwise_extprod``)."""
     groups = tuple(plan.row_group(p) for p in plan.primes)
     return (min(groups),) * len(groups) if group == 2 else groups
+
+
+def digit_planes(rows: torch.Tensor, digit_limbs: int) -> torch.Tensor:
+    """Gadget digit rows int32 [B, R, N] (``_decompose_to_rows``) -> the
+    kernel's int8 limb planes [B, R * n_dl, N], plane r * n_dl + l holding
+    limb l of row r (utils/torus.py:i32_to_i8_limbs, little-endian)."""
+    if digit_limbs == 1:
+        return rows.to(torch.int8)
+    B, R, N = rows.shape
+    limbs = i32_to_i8_limbs(rows, digit_limbs)            # [B, R, N, n_dl]
+    return limbs.movedim(-1, -2).reshape(B, R * digit_limbs, N).contiguous()
 
 
 def _pointwise_combine2(d_hat, bsk_step: torch.Tensor, ts: torch.Tensor,
@@ -118,13 +165,20 @@ def ntt_step_fused_reference(digits: torch.Tensor, bsk_step: torch.Tensor,
                              bgbit: int) -> torch.Tensor:
     """Plain PyTorch version of the fused step core.
 
-    digits: int8 [B, R, N] gadget digits of the accumulator (Bg_e =
-    2^bgbit); bsk_step: int16 [2^g - 1, P, R, 2, N], one step of the key's
-    ``bsk_ntt``; ts: int32 [g, B] rotation amounts in [0, 2N].  Returns
-    the residues v (|v| <= 0.55p) as int8 limb planes [P, B, 2, 2, N],
-    K1's input (``join_limbs`` gives the int32 residues back)."""
-    _require_supported(digits, bsk_step, ts, bgbit)
-    d_hat = _ntt.ntt_forward(digits, plan, 1, 1 << (bgbit - 1))
+    digits: int8 [B, R * n_dl, N], the limb planes of the accumulator's
+    gadget digits (``digit_planes``; n_dl = ``engine_digit_limbs(bgbit)``,
+    1 for the boolean keys, whose planes are the digits); bsk_step: int16
+    [2^g - 1, P, R, 2, N], one step of the key's ``bsk_ntt``; ts: int32
+    [g, B] rotation amounts in [0, 2N].  Returns the residues v (|v| <=
+    0.55p) as int8 limb planes [P, B, 2, 2, N], K1's input (``join_limbs``
+    gives the int32 residues back)."""
+    _require_supported(digits, bsk_step, ts, plan, bgbit)
+    n_dl = _ntt.engine_digit_limbs(bgbit)
+    B, N = digits.shape[0], digits.shape[-1]
+    planes = digits.reshape(B, -1, n_dl, N)
+    d_hat = _ntt.ntt_forward_limbs(
+        [planes[:, :, l] for l in range(n_dl)], plan,
+        _ntt.top_limb_bound(1 << (bgbit - 1), n_dl))
     if ts.shape[0] == 2:
         v = _pointwise_combine2(d_hat, bsk_step, ts, plan)
     else:
@@ -138,7 +192,7 @@ def ntt_step_fused_reference(digits: torch.Tensor, bsk_step: torch.Tensor,
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.ztfhe_ntt_step_fused.argtypes = [p] * 11 + [i] * 5 + [p]
+    lib.ztfhe_ntt_step_fused.argtypes = [p] * 11 + [i] * 6 + [p]
     lib.ztfhe_ntt_step_fused.restype = i
     return lib
 
@@ -171,11 +225,14 @@ def _device_tables(plan: _ntt.NTTPlan, device: torch.device) -> _DeviceTables:
 @functools.lru_cache(maxsize=None)
 def _host_scalars(plan: _ntt.NTTPlan, group: int, bgbit: int):
     """Per-prime scalars passed by value: p, f32 1/p, the pointwise row
-    group and whether the forward limb combine is the single add
-    (``_limb_pair_combine``'s test at the digit bound Bg_e/2)."""
-    bound = 1 << (bgbit - 1)
-    single = [int(plan.N * bound * (128 + 256 * (p // 512 + 1)) < 2**31)
-              for p in plan.primes]
+    group, and per prime and limb [P, n_dl] whether the forward limb
+    combine is the single add (``_limb_pair_combine``'s test at the limb's
+    bound: 128 below the top limb, ``top_limb_bound`` at it)."""
+    n_dl = _ntt.engine_digit_limbs(bgbit)
+    bounds = ([128] * (n_dl - 1)
+              + [_ntt.top_limb_bound(1 << (bgbit - 1), n_dl)])
+    single = [[int(plan.N * b * (128 + 256 * (p // 512 + 1)) < 2**31)
+               for b in bounds] for p in plan.primes]
     return (np.array(plan.primes, np.int32),
             np.array([np.float32(1.0 / p) for p in plan.primes], np.float32),
             np.array(row_groups(plan, group), np.int32),
@@ -198,7 +255,7 @@ def ntt_step_fused(digits: torch.Tensor, bsk_step: torch.Tensor,
     ``ntt_step_fused_reference``).  Any
     B.  CUDA tensors launch the kernel (and count the launch in
     ``ntt_step_fused.launches``); CPU tensors run the plain version."""
-    _require_supported(digits, bsk_step, ts, bgbit)
+    _require_supported(digits, bsk_step, ts, plan, bgbit)
     tensors = (digits, bsk_step, ts)
     if all(t.device.type == "cpu" for t in tensors):
         return ntt_step_fused_reference(digits, bsk_step, ts, plan, bgbit)
@@ -207,19 +264,13 @@ def ntt_step_fused(digits: torch.Tensor, bsk_step: torch.Tensor,
         raise ValueError(f"tensors on {[str(t.device) for t in tensors]}: "
                          "all must be on the same CUDA device")
     group = ts.shape[0]
+    n_dl = _ntt.engine_digit_limbs(bgbit)
     P, N = plan.n_primes, plan.N
-    B, R = digits.shape[0], digits.shape[1]
-    if (tuple(digits.shape) != (B, R, N)
-            or tuple(bsk_step.shape) != ((1 << group) - 1, P, R, 2, N)
-            or tuple(ts.shape) != (group, B)):
-        raise ValueError(
-            f"shapes {tuple(digits.shape)}, {tuple(bsk_step.shape)}, "
-            f"{tuple(ts.shape)} do not match [B, R, N={N}], "
-            f"[2^g-1, P={P}, R, 2, N] and [g, B]")
-    if P > _MAX_PRIMES or R > _MAX_ROWS or N % _COL_TILE:
+    B, R = digits.shape[0], bsk_step.shape[2]
+    if P > _MAX_PRIMES or R * n_dl > _MAX_ROWS or N % _COL_TILE:
         raise ValueError(f"kernel takes <= {_MAX_PRIMES} primes, <= "
-                         f"{_MAX_ROWS} gadget rows and N % {_COL_TILE} == 0 "
-                         f"(got {P} primes, R={R}, N={N})")
+                         f"{_MAX_ROWS} limb planes and N % {_COL_TILE} == 0 "
+                         f"(got {P} primes, R*n_dl={R * n_dl}, N={N})")
     digits, bsk_step, ts = (t.contiguous() for t in tensors)
     if digits.data_ptr() % 16 or bsk_step.data_ptr() % 16:
         raise ValueError("kernel operands must be 16-byte aligned")
@@ -230,7 +281,7 @@ def ntt_step_fused(digits: torch.Tensor, bsk_step: torch.Tensor,
         digits.data_ptr(), bsk_step.data_ptr(), ts.data_ptr(),
         tabs.fwd_lo_t.data_ptr(), tabs.fwd_hi_t.data_ptr(),
         tabs.rot.data_ptr(), v.data_ptr(),
-        *_host_scalar_ptrs(plan, group, bgbit), P, group, B, R, N,
+        *_host_scalar_ptrs(plan, group, bgbit), P, group, B, R, n_dl, N,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "ntt_step_fused")
     ntt_step_fused.launches += 1

@@ -351,17 +351,23 @@ def ntt_forward(digits: torch.Tensor, plan: NTTPlan, digit_limbs: int = 1,
     top limb is bounded by digit_bound.  Returns a list per prime of int32
     [..., N] centered residues (|.| <= p(1/2 + 2^-6))."""
     if digit_limbs == 1:
-        d8 = [digits.to(torch.int8)]
-        bounds = [digit_bound]
-    else:
-        limbs = i32_to_i8_limbs(digits, digit_limbs)   # [..., N, n_dl]
-        d8 = [limbs[..., i] for i in range(digit_limbs)]
-        bounds = [128] * (digit_limbs - 1) + [digit_bound]
-    tabs = plan_tables(plan, digits.device)
+        return ntt_forward_limbs([digits.to(torch.int8)], plan, digit_bound)
+    limbs = i32_to_i8_limbs(digits, digit_limbs)       # [..., N, n_dl]
+    return ntt_forward_limbs([limbs[..., i] for i in range(digit_limbs)],
+                             plan, digit_bound)
+
+
+def ntt_forward_limbs(d8, plan: NTTPlan, top_bound: int) -> list:
+    """``ntt_forward`` of digits given as their int8 limbs, little-endian
+    (d8[l]: int8 [..., N]; every limb but the top one bounded by 128, the
+    top one by ``top_bound``): per prime, each limb's matmul pair and
+    ``_limb_pair_combine``, joined by Horner from the top limb down."""
+    bounds = [128] * (len(d8) - 1) + [top_bound]
+    tabs = plan_tables(plan, d8[0].device)
     out = []
     for i, p in enumerate(plan.primes):
         r = None
-        for dl in reversed(range(digit_limbs)):
+        for dl in reversed(range(len(d8))):
             lo = matmul_i8(d8[dl], tabs.fwd_lo[i])
             hi = matmul_i8(d8[dl], tabs.fwd_hi[i])
             yr = _limb_pair_combine(lo, hi, p, plan.N, bounds[dl])

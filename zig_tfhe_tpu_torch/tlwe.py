@@ -2,15 +2,18 @@
 
 Counterpart of zig_tfhe_tpu/tlwe.py.  A TLWE ciphertext is int32
 ``[..., n+1]``: the mask ``a`` in the first n slots and the body ``b`` last
-(tlwe.zig:11-14).  Boolean encoding is +-1/8 (tlwe.zig:52-55).
+(tlwe.zig:11-14).  Boolean encoding is +-1/8 (tlwe.zig:52-55); the PBS
+message codec puts message x of modulus m at x/(2m) (tlwe.zig:74-117).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from zig_tfhe_tpu_torch.utils import rng as _rng
-from zig_tfhe_tpu_torch.utils.torus import to_carrier, torus_constant_w
+from zig_tfhe_tpu_torch.utils.torus import (f64_to_torus, require_width,
+                                            to_carrier, torus_constant_w)
 
 BOOL_MU = 0.125  # tlwe.zig:53
 
@@ -52,6 +55,35 @@ def phase(ct: torch.Tensor, sk: torch.Tensor) -> torch.Tensor:
 def decrypt_bool(ct: torch.Tensor, sk: torch.Tensor) -> torch.Tensor:
     """Sign test on the phase (tlwe.zig:58-68)."""
     return phase(ct, sk) >= 0
+
+
+def encrypt_message(gen: torch.Generator, message, message_modulus: int,
+                    alpha: float, sk: torch.Tensor,
+                    width: int = 32) -> torch.Tensor:
+    """PBS codec encrypt: msg * 1/(2m) on the torus (tlwe.zig:74-88).
+    Returns int32 [..., n+1] on the generator's device."""
+    require_width(width)
+    message = torch.as_tensor(message, device=gen.device).long() % message_modulus
+    mu = torch.from_numpy(_encode_message_table(message_modulus, width))
+    return encrypt_torus(gen, mu.to(gen.device)[message], alpha, sk, width)
+
+
+def _encode_message_table(message_modulus: int, width: int = 32) -> np.ndarray:
+    """Torus encodings of all messages in [0, m): trunc(x/(2m) * 2^32)."""
+    require_width(width)
+    return f64_to_torus(np.arange(message_modulus) * (1.0 / (2.0 * message_modulus)))
+
+
+def decrypt_message(ct: torch.Tensor, message_modulus: int, sk: torch.Tensor,
+                    width: int = 32) -> torch.Tensor:
+    """PBS codec decrypt with +0.5 rounding (tlwe.zig:100-117), in float32
+    as the JAX package computes it: int32 [...] in [0, m)."""
+    require_width(width)
+    ph = phase(ct, sk)
+    f = ph.to(torch.float32)
+    f = torch.where(ph < 0, f + float(1 << 32), f) / float(1 << 32)
+    m = torch.floor(f * (2.0 * message_modulus) + 0.5).to(torch.int32)
+    return m % message_modulus
 
 
 # Linear homomorphic ops (tlwe.zig:119-239) — int32 wrap == u32 wrap.

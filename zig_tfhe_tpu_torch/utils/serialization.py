@@ -5,9 +5,9 @@ The format is a numpy ``.npz`` with a JSON ``__manifest__`` entry that
 carries the object kind and every field of the parameter set; torus arrays
 are stored as uint32, key material as int8/int16/int32.  Files written here
 load into the JAX package and the other way round.  Ported: the secret key,
-the cloud key and the (32-bit) ciphertext, both ways.  The seeded
-ciphertext and the public, re-encryption and packing keys are a later
-slice.
+the cloud key (its packing key included), the (32-bit) ciphertext and the
+stand-alone packing key, both ways.  The seeded ciphertext and the public
+and re-encryption keys are a later slice.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from zig_tfhe_tpu_torch.utils.torus import require_width
 _KIND_SECRET = "secret_key"
 _KIND_CLOUD = "cloud_key"
 _KIND_CIPHERTEXT = "ciphertext"
+_KIND_PACKING = "packing_ksk"
 
 
 def _npz_path(path) -> str:
@@ -98,25 +99,38 @@ def save_secret_key(path, sk: K.SecretKey, params: P.SecurityParams) -> None:
 
 def save_cloud_key(path, ck: K.CloudKey) -> None:
     """The cloud key's arrays (testvec and ksk1 int32, bsk_ntt int16,
-    bsk_ext_limbs int8, the forms it holds) and its static fields."""
+    bsk_ext_limbs int8, the forms it holds, and pksk int32 where it has
+    one) and its static fields, the packing key's (basebit, t) among them
+    (the set's (basebit, iks_t) for a key that does not record it)."""
     arrays = {name: _numpy(buf) for name, buf in ck.named_buffers()}
     extra = {"bsk_ntt_drop": ck.bsk_ntt_drop, "bsk_group": ck.bsk_group,
              "bsk_levels": (list(ck.bsk_levels)
                             if ck.bsk_levels is not None else None),
              "bsk_bgbit": ck.bsk_bgbit}
+    if ck.pksk is not None:
+        extra["pksk_gadget"] = list(
+            ck.pksk_gadget if ck.pksk_gadget is not None
+            else (ck.params.basebit, ck.params.iks_t))
     np.savez(path, __manifest__=_manifest(_KIND_CLOUD, ck.params, extra),
              **arrays)
 
 
 def load_cloud_key(path, device="cuda") -> K.CloudKey:
     """A cloud key with its bootstrapping key forms (``bsk_ntt``,
-    ``bsk_ext_limbs``: either or both) on ``device``; raises for a file
-    with neither."""
+    ``bsk_ext_limbs``: either or both) and its packing key where the file
+    has one, on ``device``; raises for a file with neither BSK form.  A
+    file with ``pksk`` but no recorded ``pksk_gadget`` (written before the
+    field existed) takes the set's (basebit, iks_t), as CloudKey.generate
+    always built it."""
     arrays, m = _load(path, _KIND_CLOUD)
+    params = _params_from_doc(m)
+    gadget = m.get("pksk_gadget")
+    if gadget is None and "pksk" in arrays:
+        gadget = (params.basebit, params.iks_t)
     return K.CloudKey.from_numpy(
-        arrays, _params_from_doc(m), bsk_ntt_drop=m.get("bsk_ntt_drop", 0),
+        arrays, params, bsk_ntt_drop=m.get("bsk_ntt_drop", 0),
         bsk_group=m.get("bsk_group", 1), bsk_levels=m.get("bsk_levels"),
-        bsk_bgbit=m.get("bsk_bgbit"), device=device)
+        bsk_bgbit=m.get("bsk_bgbit"), pksk_gadget=gadget, device=device)
 
 
 def save_ciphertext(path, ct: torch.Tensor, params: P.SecurityParams) -> None:
@@ -135,3 +149,23 @@ def load_ciphertext(path, device="cuda"):
     require_width(params.torus_bits)
     ct = torch.from_numpy(arrays["ct"].view(np.int32).copy()).to(device)
     return ct, params
+
+
+def save_packing_ksk(path, pksk: torch.Tensor, params: P.SecurityParams,
+                     basebit: int | None = None, t: int | None = None) -> None:
+    """A packing key-switch key (ops/packing_keyswitch.py:gen_packing_ksk)
+    with the (basebit, t) it was built at: the set's key-switch settings
+    unless given."""
+    require_width(params.torus_bits)
+    np.savez(path, __manifest__=_manifest(
+        _KIND_PACKING, params,
+        {"basebit": params.basebit if basebit is None else basebit,
+         "t": params.iks_t if t is None else t}),
+        pksk=_numpy(pksk))
+
+
+def load_packing_ksk(path, device="cuda"):
+    """Returns (pksk int32 on ``device``, params, basebit, t)."""
+    arrays, m = _load(path, _KIND_PACKING)
+    pksk = torch.from_numpy(arrays["pksk"].astype(np.int32)).to(device)
+    return pksk, _params_from_doc(m), m["basebit"], m["t"]
