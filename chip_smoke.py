@@ -105,7 +105,36 @@ negacyclic circulants of the key step's rows, 4 key limbs).  Phases:
      bit-equal to the port's CPU path.  Timed with CUDA events: LUT/s at
      B = 2048, B = 1 latency, the multi-value, radix and bivariate runs,
      one uint4 step split into decompose / limb planes / K2 / K1; traced at
-     B = 2048 and B = 1 (idle share).
+     B = 2048 and B = 1 (idle share);
+ 10. the integer layer (models/integer.py) on phase 3's uint4 key, every
+     blind rotation 410 steps of K2 then K1, the launch counts set to 0
+     just before each op and read just after (K1 = K2 = 410 x the op's
+     blind rotations, which tests/test_torch_integer*.py pin; K3 never):
+     the five ops of bench_integer.py at B = 256 on 6-bit (2-digit)
+     operands from a numpy seed -- radix_mul (the tree PBS on the key's
+     packing key), radix_add mod 64, radix_divmod (divisors >= 1, quotient
+     and remainder), radix_lt, radix_eq (half the pairs equal) -- every
+     lane exact against numpy (a miss fails the run, printing the op, the
+     lane and both values), except div's quotient, whose misses are
+     traced instead (_check_divmod: every quotient bit and remainder
+     exact, the reassembly rotation exact against its modswitched input,
+     the wrong digits exactly those whose sum b0 + 2 b1 + 4 b2 left its
+     bin, bit-equal to the CPU path) and counted as the scheme's noise,
+     which must stay within what was measured (DIV_NOISE_STD_MAX, and
+     DIV_MISS_RATE plus DIV_MISS_SIGMAS binomial std in crossed lanes);
+     the first 4 lanes of add and lt bit-equal to
+     the port's CPU path; the classic digit multiplier (radix_mul on a
+     uint4 key generated here with packing_key=False) at B = 256; FheInt
+     at B = 64 on 2-digit signed values (+, -, <, >> 2, >> an encrypted
+     amount, abs, div_rem, whose quotient is traced as div's) exact
+     against Python's two's complement; the
+     gates bridge at B = 64 (to_bools of two 3-bit values, a 3-bit ripple
+     adder built with scheduler.Circuit and run by scheduler.evaluate,
+     from_bools), sums exact.  Timed with CUDA events (the median of 3
+     warm calls): ops/s at B = 256 per op, B = 1 latency of add and mul,
+     peak device memory per op; one warm mul traced (busy time, idle
+     share, kernels per op, the costliest kernels); the phase's wall time,
+     split into the CPU-path checks, the timings and the rest.
 
 The next-to-last stdout line is {"kernels": [...]}, before it the card's
 nvidia-smi name and power limit; the last line is {"ok": true, "device":
@@ -116,6 +145,7 @@ Without a CUDA device it exits 2 before printing anything.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -465,13 +495,25 @@ def _counted_run(counters, name, fn, expect):
     return out, counts, dt
 
 
+def _on_cpu(ck):
+    """The cloud key's copy on the CPU (the port's CPU path runs the plain
+    versions of the kernels)."""
+    from zig_tfhe_tpu_torch import key
+
+    return key.CloudKey.from_numpy(
+        {n: t.cpu().numpy() for n, t in ck.named_buffers()}, ck.params,
+        bsk_ntt_drop=ck.bsk_ntt_drop, bsk_group=ck.bsk_group,
+        bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit,
+        pksk_gadget=ck.pksk_gadget, device="cpu")
+
+
 def _circuit_phase(P, g, sk, ck, ck_toep, counters, gpu) -> dict:
     """Phase 8: the circuit path on the card (see the module docstring).
     Returns each run's launch counts by kernel."""
     import numpy as np
     import torch
 
-    from zig_tfhe_tpu_torch import key, tlwe
+    from zig_tfhe_tpu_torch import tlwe
     from zig_tfhe_tpu_torch.models import circuits, gates, netlists, scheduler
     from zig_tfhe_tpu_torch.utils import serialization
 
@@ -513,10 +555,7 @@ def _circuit_phase(P, g, sk, ck, ck_toep, counters, gpu) -> dict:
 
     expect = {"k1": steps * boot_levels, "k2": steps * boot_levels, "k3": 0}
     launches = {}
-    ck_cpu = key.CloudKey.from_numpy(
-        {n: t.cpu().numpy() for n, t in ck.named_buffers()}, P,
-        bsk_ntt_drop=ck.bsk_ntt_drop, bsk_group=ck.bsk_group,
-        bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit, device="cpu")
+    ck_cpu = _on_cpu(ck)
     ct1 = cts[:, 0].contiguous()
     exact, total, outs = 0, 0, {}
     for B, inp in ((1, ct1), (4, cts)):
@@ -709,7 +748,6 @@ def _lut_phase(g, uint_keys, counters, gpu) -> dict:
     import numpy as np
     import torch
 
-    from zig_tfhe_tpu_torch import key
     from zig_tfhe_tpu_torch.models import lut
     from zig_tfhe_tpu_torch.ops import ntt
     from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows
@@ -727,14 +765,7 @@ def _lut_phase(g, uint_keys, counters, gpu) -> dict:
     def expect(n_rotations, steps):
         return {"k1": n_rotations * steps, "k2": n_rotations * steps, "k3": 0}
 
-    def on_cpu(ck):
-        return key.CloudKey.from_numpy(
-            {n: t.cpu().numpy() for n, t in ck.named_buffers()}, ck.params,
-            bsk_ntt_drop=ck.bsk_ntt_drop, bsk_group=ck.bsk_group,
-            bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit,
-            pksk_gadget=ck.pksk_gadget, device="cpu")
-
-    ck4_cpu = on_cpu(ck4)
+    ck4_cpu = _on_cpu(ck4)
 
     # -- bootstrap_lut, m = 16, lanes cycling all 16 messages ----------------
     m = 16
@@ -803,7 +834,7 @@ def _lut_phase(g, uint_keys, counters, gpu) -> dict:
            f"{int((~ok & in_bins).sum())} lanes whose digits stay in their "
            f"bins after the modswitch are wrong")
     _check(radix_acc >= 0.95, f"uint8 radix accuracy {radix_acc} < 0.95")
-    ck8_cpu = on_cpu(ck8)
+    ck8_cpu = _on_cpu(ck8)
     t0 = time.perf_counter()
     c_lo, c_hi = lut.bootstrap_lut_radix(lo[:CPU_RADIX_LANES].cpu(),
                                          hi[:CPU_RADIX_LANES].cpu(), _radix_f,
@@ -893,6 +924,371 @@ def _lut_phase(g, uint_keys, counters, gpu) -> dict:
               f"kernels [{gpu}]")
         for n, t, c in summ["top"]:
             print(f"    {t:9.2f} ms {c:7d}x  {n}")
+    return launches
+
+
+# -- phase 10: the integer layer on SECURITY_UINT4 -----------------------------
+
+INT_LANES = 256        # the five ops of bench_integer.py, 6-bit operands
+INT_SMALL_LANES = 64   # FheInt and the gates bridge
+CPU_INT_LANES = 4      # lanes of add and lt held bit-equal to the CPU path
+# blind rotations per op at 2 digits (tests/test_torch_integer.py and
+# tests/test_torch_integer_signed.py pin them); K1 = K2 = 410 x these
+INT_ROTATIONS = {"mul": 18, "add": 2, "div": 32, "lt": 2, "eq": 2,
+                 "mul_classic": 24, "int_add": 2, "int_sub": 2, "int_lt": 3,
+                 "int_asr2": 2, "int_asr_enc": 10, "int_abs": 7,
+                 "int_div_rem": 55, "bridge": 7}
+# radix_divmod at SECURITY_UINT4 misses a lane where its reassembly input
+# b0 + 2 b1 + 4 b2 leaves its bin.  Measured with tools/torch_integer_noise.py
+# (1,024 lanes, the port's key and a JAX-made one): 30 and 45 such lanes,
+# the inputs' noise std 0.187 and 0.194 message units.  A fault that raises
+# the noise (a key's alpha, a table's scale) shows above these bounds:
+DIV_MISS_RATE = 45 / 1024     # the highest rate measured
+DIV_MISS_SIGMAS = 4.5         # allowed above it, in binomial std
+DIV_NOISE_STD_MAX = 0.25      # message units; ~1.3x the highest measured
+
+
+def _ripple_adder_plan(bits: int):
+    """A ``bits``-bit ripple-carry adder built with scheduler.Circuit."""
+    from zig_tfhe_tpu_torch.models import scheduler
+
+    c = scheduler.Circuit()
+    a_bits = [c.input() for _ in range(bits)]
+    b_bits = [c.input() for _ in range(bits)]
+    carry = None
+    for i in range(bits):
+        s1 = c.gate("xor", a_bits[i], b_bits[i])
+        gg = c.gate("and", a_bits[i], b_bits[i])
+        if carry is None:
+            c.output(s1)
+            carry = gg
+        else:
+            c.output(c.gate("xor", s1, carry))
+            carry = c.gate("or", gg, c.gate("and", s1, carry))
+    c.output(carry)
+    return c.schedule()
+
+
+def _exact(name: str, got, want) -> None:
+    """Fail unless every lane of ``got`` equals ``want``, naming the first
+    wrong lane and both values."""
+    import numpy as np
+
+    got, want = np.asarray(got).reshape(-1), np.asarray(want).reshape(-1)
+    bad = np.nonzero(got != want)[0]
+    if len(bad):
+        raise RuntimeError(
+            f"chip_smoke: integer {name}: {len(bad)} of {len(got)} lanes "
+            f"wrong; lane {bad[0]}: got {got[bad[0]]}, want {want[bad[0]]}")
+
+
+class _DivmodProbe:
+    """Inside ``with``: records, for every radix_divmod that runs, what
+    passes through the PBS helpers of models/integer.py -- each trial
+    subtraction's quotient bit (the div lane of its last multi-value
+    rotation, which is the bit itself) and the final reassembly rotation's
+    input (b0 + 2 b1 + 4 b2 per quotient digit) and output."""
+
+    def __init__(self, integer):
+        self.integer = integer
+        self.q_bits, self.final = [], []
+
+    def __enter__(self):
+        I = self.integer
+        self._mv, self._rows = I._pbs_mv, I._pbs_rows
+
+        def mv(ct, names, ck):
+            out = self._mv(ct, names, ck)
+            if tuple(names) == ("mod", "div", "div8"):
+                self.q_bits.append(out[1])
+            return out
+
+        def rows(r, names, ck):
+            out = self._rows(r, names, ck)
+            if set(names) == {"mod"}:
+                self.final.append((r, out))
+            return out
+
+        I._pbs_mv, I._pbs_rows = mv, rows
+        return self
+
+    def __exit__(self, *exc):
+        self.integer._pbs_mv, self.integer._pbs_rows = self._mv, self._rows
+
+
+def _reassembly_noise(rows_in, q_true, s):
+    """The phase error of radix_divmod's reassembly inputs rows_in [2, B,
+    n0+1] (b0 + 2 b1 + 4 b2 per quotient digit) against the true digits of
+    q_true [B], in message units (1/32 of the torus; 0.5 is the bin
+    edge): float64 [2, B]."""
+    import numpy as np
+    import torch
+
+    from zig_tfhe_tpu_torch import tlwe
+
+    digits = torch.from_numpy(np.stack([q_true & 7, q_true >> 3])).to(s.device)
+    ph = tlwe.phase(rows_in, s).double() / 2**32 * 32
+    return (ph - digits.double() + 16) % 32 - 16
+
+
+def _check_divmod(name, probe, q_true, s, P, ck_cpu):
+    """The checks of a radix_divmod on 2-digit operands (bb = 3, Dn = 2)
+    that a miss of its quotient can be traced through:
+
+      * every quotient bit the loop produced decrypts to the true bit;
+      * the reassembly rotation's output decrypts, on every lane, to the
+        mod table at its input's modswitched phase (exact);
+      * its wrong digits are exactly those whose input b0 + 2 b1 + 4 b2
+        left the true digit's bin: the sum's noise (the scheme's: the
+        JAX package, bit-equal, computes the same); the first 4 such
+        lanes' reassembly equals the port's CPU path bit for bit;
+      * that noise stays within what was measured: its std at most
+        DIV_NOISE_STD_MAX, and no more crossed lanes than DIV_MISS_RATE
+        gives plus DIV_MISS_SIGMAS binomial std.
+
+    Returns the lanes with a noise-crossed quotient digit (bool [B]) and
+    the reassembly inputs' noise std (message units)."""
+    import numpy as np
+    import torch
+
+    from zig_tfhe_tpu_torch import tlwe
+    from zig_tfhe_tpu_torch.models import integer
+
+    N = P.N
+    bits = torch.stack(probe.q_bits[::-1])          # bit i at row i
+    _check(len(probe.q_bits) == 6 and len(probe.final) == 1,
+           f"{name}: the divmod probe saw {len(probe.q_bits)} quotient bits "
+           f"and {len(probe.final)} reassembly rotations")
+    want_bits = (q_true[None] >> np.arange(6)[:, None]) & 1
+    _exact(f"{name} quotient bits", tlwe.decrypt_message(bits, 16, s).cpu(),
+           want_bits)
+    rows_in, out = probe.final[0]                   # [Dn, B, n0+1]
+    k = _ms_phase(rows_in, s, P)
+    body = torch.from_numpy(integer._luts(P)["mod"].poly[1]).to(s.device)
+    got = tlwe.decrypt_message(out, 16, s).long()
+    _check(torch.equal(got, _decode(_tv_at(body, k, N), 16)),
+           f"{name}: the reassembly rotation's output is not the mod table "
+           f"at its input's modswitched phase")
+    digits = torch.from_numpy(np.stack([q_true & 7, q_true >> 3])).to(s.device)
+    crossed = _bin(k, 16, N) != digits
+    _check(torch.equal(got != digits, crossed),
+           f"{name}: a quotient digit is wrong although its input stayed in "
+           f"its bin")
+    lanes = torch.nonzero(crossed.any(0)).flatten()[:4]
+    if len(lanes):
+        cpu = integer._pbs_rows(rows_in[:, lanes].cpu(), ("mod", "mod"), ck_cpu)
+        _check(torch.equal(cpu, out[:, lanes].cpu()),
+               f"{name}: the reassembly of a noise-crossed lane differs from "
+               f"the port's CPU path")
+    B = len(q_true)
+    most = math.ceil(B * DIV_MISS_RATE + DIV_MISS_SIGMAS * math.sqrt(
+        B * DIV_MISS_RATE * (1 - DIV_MISS_RATE)))
+    n_crossed = int(crossed.any(0).sum())
+    _check(n_crossed <= most,
+           f"{name}: {n_crossed} of {B} quotients noise-crossed, more than "
+           f"the {most} the measured rate allows")
+    std = float(_reassembly_noise(rows_in, q_true, s).std())
+    _check(std <= DIV_NOISE_STD_MAX,
+           f"{name}: reassembly inputs' noise std {std:.3f} message units "
+           f"above {DIV_NOISE_STD_MAX}")
+    return crossed.any(0).cpu().numpy(), std
+
+
+def _integer_phase(g, uint_keys, counters, gpu) -> dict:
+    """Phase 10: the integer layer on SECURITY_UINT4 (see the module
+    docstring).  Returns each op's launch counts by kernel."""
+    import numpy as np
+    import torch
+
+    from zig_tfhe_tpu_torch import key
+    from zig_tfhe_tpu_torch.models import integer, scheduler
+
+    sk4, ck4 = uint_keys["uint4"]
+    P4 = ck4.params
+    s4 = sk4.key_lv0
+    steps = ck4.bsk_ntt.shape[0]
+    alpha = P4.tlwe_lv0.alpha
+    launches, first_s, peak_mb = {}, {}, {}
+    t_phase = time.perf_counter()
+    wall = {"CPU-path checks": 0.0, "classic key": 0.0, "timings": 0.0}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        n = INT_ROTATIONS[name] * steps
+        out, launches[name], first_s[name] = _counted_run(
+            counters, f"integer {name}", fn, {"k1": n, "k2": n, "k3": 0})
+        peak = torch.cuda.max_memory_allocated()
+        peak_mb[name] = (peak / 2**20, (peak - before) / 2**20)
+        return out
+
+    def dec(ct):
+        return integer.decrypt_radix(ct if ct.dim() == 3 else ct[:, None], s4)
+
+    # -- the five ops of bench_integer.py at B = 256 ---------------------------
+    rng = np.random.default_rng(2026)
+    a, b = rng.integers(0, 64, (2, INT_LANES))
+    b_eq = np.where(np.arange(INT_LANES) < INT_LANES // 2, a, b)
+    b_div = rng.integers(1, 64, INT_LANES)
+    ca, cb, ce, cd = (integer.encrypt_radix(g, v, 2, alpha, s4)
+                      for v in (a, b, b_eq, b_div))
+    ops = {
+        "mul": lambda: integer.radix_mul(ca, cb, ck4),
+        "add": lambda: integer.radix_add(ca, cb, ck4)[..., :2, :],
+        "div": lambda: integer.radix_divmod(ca, cd, ck4),
+        "lt": lambda: integer.radix_lt(ca, cb, ck4),
+        "eq": lambda: integer.radix_eq(ca, ce, ck4)}
+    want = {"mul": a * b, "add": (a + b) % 64, "div": (a // b_div, a % b_div),
+            "lt": (a < b).astype(int), "eq": (a == b_eq).astype(int)}
+    ck4_cpu = _on_cpu(ck4)
+    outs, accuracy = {}, {}
+    for name, fn in ops.items():
+        if name == "div":
+            with _DivmodProbe(integer) as probe:
+                outs[name] = out = run(name, fn)
+            t0 = time.perf_counter()
+            crossed, std = _check_divmod(name, probe, want[name][0], s4, P4,
+                                         ck4_cpu)
+            wall["CPU-path checks"] += time.perf_counter() - t0
+            _exact("div remainder", dec(out[1]), want[name][1])
+            _exact("div quotient", dec(out[0])[~crossed], want[name][0][~crossed])
+            accuracy[name] = float(1.0 - crossed.mean())
+            note = (f"remainder exact on every lane, every quotient bit exact, "
+                    f"the reassembly rotation exact against its modswitched "
+                    f"input; {int(crossed.sum())} lanes whose reassembled "
+                    f"quotient digit b0 + 2 b1 + 4 b2 left its bin (the "
+                    f"scheme's noise; CPU path bit-equal on them), the rest "
+                    f"exact: accuracy {accuracy[name]}; the reassembly "
+                    f"inputs' noise std {std:.3f} message units")
+        else:
+            outs[name] = out = run(name, fn)
+            _exact(name, dec(out), want[name])
+            accuracy[name] = 1.0
+            note = "every lane exact"
+        print(f"integer {name} B={INT_LANES} (6-bit operands): {note}; "
+              f"launches {launches[name]} = {steps} x {INT_ROTATIONS[name]} "
+              f"rotations; first call {first_s[name]:.2f} s; peak device "
+              f"memory {peak_mb[name][0]:.1f} MiB, {peak_mb[name][1]:.1f} MiB "
+              f"above what was allocated before the op")
+    t0 = time.perf_counter()
+    n = CPU_INT_LANES
+    for name, fn in (("add", lambda: integer.radix_add(
+                          ca[:n].cpu(), cb[:n].cpu(), ck4_cpu)[..., :2, :]),
+                     ("lt", lambda: integer.radix_lt(ca[:n].cpu(), cb[:n].cpu(),
+                                                     ck4_cpu))):
+        _check(torch.equal(fn(), outs[name][:n].cpu()),
+               f"integer {name}: card lanes differ from the port's CPU path")
+    wall["CPU-path checks"] += time.perf_counter() - t0
+    print(f"integer add, lt: first {n} lanes bit-equal to the CPU path "
+          f"({time.perf_counter() - t0:.1f} s on the host)")
+
+    # -- the classic digit multiplier (no packing key) --------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck_cl = key.CloudKey.generate(g, sk4, P4, packing_key=False)
+    torch.cuda.synchronize()
+    _check(ck_cl.pksk is None, "the packing_key=False key holds a packing key")
+    keygen_s = wall["classic key"] = time.perf_counter() - t0
+    out = run("mul_classic", lambda: integer.radix_mul(ca, cb, ck_cl))
+    _exact("mul_classic", dec(out), a * b)
+    print(f"integer mul, classic digit multiplier B={INT_LANES}: every lane "
+          f"exact; launches {launches['mul_classic']}; keygen "
+          f"{keygen_s:.2f} s; first call {first_s['mul_classic']:.2f} s")
+
+    # -- FheInt at B = 64 ------------------------------------------------------
+    sa = rng.integers(-32, 32, INT_SMALL_LANES)
+    sb = rng.integers(-32, 31, INT_SMALL_LANES)
+    sb = sb + (sb >= 0)                              # nonzero divisors
+    u = rng.integers(0, 8, INT_SMALL_LANES)
+    x = integer.FheInt.encrypt(g, sa, 2, sk4, ck4)
+    y = integer.FheInt.encrypt(g, sb, 2, sk4, ck4)
+    cu = integer.FheUint.encrypt(g, u, 1, sk4, ck4)
+
+    def wrap(v):
+        return (np.asarray(v) + 32) % 64 - 32
+
+    q = np.trunc(sa / sb).astype(np.int64)
+    signed = {"int_add": (lambda: x + y, wrap(sa + sb)),
+              "int_sub": (lambda: x - y, wrap(sa - sb)),
+              "int_lt": (lambda: x < y, (sa < sb).astype(int)),
+              "int_asr2": (lambda: x >> 2, sa >> 2),
+              "int_asr_enc": (lambda: x >> cu, sa >> u),
+              "int_abs": (lambda: x.abs(), wrap(np.abs(sa))),
+              "int_div_rem": (lambda: x.div_rem(y), (wrap(q), sa - q * sb))}
+    for name, (fn, w) in signed.items():
+        if name == "int_div_rem":
+            # |a| divmod |b| inside, then the sign fixes
+            with _DivmodProbe(integer) as probe:
+                qh, rh = run(name, fn)
+            t0 = time.perf_counter()
+            crossed, std = _check_divmod(name, probe, np.abs(sa) // np.abs(sb),
+                                         s4, P4, ck4_cpu)
+            wall["CPU-path checks"] += time.perf_counter() - t0
+            _exact(f"{name} remainder", rh.decrypt(sk4), w[1])
+            _exact(f"{name} quotient", qh.decrypt(sk4)[~crossed], w[0][~crossed])
+            accuracy[name] = float(1.0 - crossed.mean())
+        else:
+            _exact(name, run(name, fn).decrypt(sk4), w)
+            accuracy[name] = 1.0
+    print(f"integer FheInt B={INT_SMALL_LANES} (2-digit signed): "
+          + ", ".join(f"{n[4:]} accuracy {accuracy[n]} "
+                      f"({launches[n]['k2'] // steps} rotations, "
+                      f"{first_s[n]:.2f} s)" for n in signed)
+          + f" (div_rem checked as div is, reassembly noise std {std:.3f}; "
+          f"the other lanes exact)")
+
+    # -- the gates bridge: to_bools, a 3-bit ripple adder, from_bools ----------
+    xb, yb = rng.integers(0, 8, (2, INT_SMALL_LANES))
+    cxy = torch.cat([integer.encrypt_radix(g, v, 1, alpha, s4) for v in (xb, yb)],
+                    dim=-2)                                   # [B, 2, n0+1]
+    plan = _ripple_adder_plan(3)
+
+    def bridge():
+        bits = integer.to_bools(cxy, ck4)                     # [B, 6, n0+1]
+        out = scheduler.evaluate(plan, bits.movedim(-2, 0), ck4)
+        return integer.from_bools(out.movedim(0, -2), ck4)    # [B, 2, n0+1]
+
+    _exact("bridge", dec(run("bridge", bridge)), xb + yb)
+    print(f"integer bridge B={INT_SMALL_LANES}: to_bools, a 3-bit ripple adder "
+          f"({plan.n_levels} levels of scheduler.evaluate), from_bools: every "
+          f"sum exact; launches {launches['bridge']}")
+
+    # -- timings ---------------------------------------------------------------
+    def median_ms(fn):
+        return sorted(_cuda_ms(fn, 1) for _ in range(WARM_ITERS))[WARM_ITERS // 2]
+
+    t0 = time.perf_counter()
+    rates = {}
+    for name, fn in ops.items():
+        ms = median_ms(fn)
+        rates[name] = (INT_LANES / (ms / 1e3), ms)
+    one = (ca[:1], cb[:1])
+    lat = {}
+    for name, fn in (("add", integer.radix_add), ("mul", integer.radix_mul)):
+        fn(*one, ck4)
+        lat[name] = median_ms(lambda fn=fn: fn(*one, ck4))
+    print(f"integer ops/s at B={INT_LANES}: " + ", ".join(
+        f"{n} {r:.1f} ({ms:.1f} ms)" for n, (r, ms) in rates.items())
+        + f"; latency at B=1: add {lat['add']:.1f} ms, mul {lat['mul']:.1f} ms; "
+        f"peak device memory above what was allocated before the op "
+        + ", ".join(f"{n} {peak_mb[n][1]:.1f} MiB" for n in ops) + f" [{gpu}]")
+    summ = _trace_summary(lambda: integer.radix_mul(ca, cb, ck4), top=8)
+    if summ is None:
+        print(f"integer mul B={INT_LANES}: profiler recorded no kernels "
+              "(idle share not measured)")
+    else:
+        print(f"integer mul B={INT_LANES} profile: busy {summ['busy_ms']:.1f} "
+              f"ms of {summ['span_ms']:.1f} ms device span, idle share "
+              f"{summ['idle_share']:.3f}, {summ['kernels']} kernels per op "
+              f"[{gpu}]")
+        for n_, t, c in summ["top"]:
+            print(f"    {t:9.2f} ms {c:7d}x  {n_}")
+    wall["timings"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    print(f"phase 10 wall time {total:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in wall.items())
+        + f", the checked ops {total - sum(wall.values()):.1f} s")
     return launches
 
 
@@ -1182,10 +1578,7 @@ def main() -> int:
         print(f"apply_gates B={B_GATES} {name}: accuracy {accuracy}, "
               f"launches {launches[name]}, first call {first_s:.2f} s")
 
-        ck_cpu = key.CloudKey.from_numpy(
-            {n: t.cpu().numpy() for n, t in ck.named_buffers()}, P,
-            bsk_ntt_drop=ck.bsk_ntt_drop, bsk_group=ck.bsk_group,
-            bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit, device="cpu")
+        ck_cpu = _on_cpu(ck)
         t0 = time.perf_counter()
         res_cpu = gates.apply_gates(ids[:SMALL_LANES].cpu(),
                                     a[:SMALL_LANES].cpu(),
@@ -1262,6 +1655,10 @@ def main() -> int:
     lut_launches = _lut_phase(g, uint_keys, counters, gpu)
     launches.update(lut_launches)
 
+    # -- 10. the integer layer on uint4 ----------------------------------------
+    integer_launches = _integer_phase(g, uint_keys, counters, gpu)
+    launches.update(integer_launches)
+
     print(gpu)
     kernels = []
     for kk, kname, route_src, replaces, main_path in (
@@ -1279,12 +1676,17 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in k_results[kk].values()),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "bound_unit": main["bound_unit"], "library_ms": None,
+            "bound_unit": main["bound_unit"],
+            # K3: torch._int_mm on the circulants built beforehand (phase
+            # 6); no single PyTorch call computes K1 or K2
+            "library_ms": main.get("int_mm_prebuilt_ms"),
             "by_path": {p: {"launches": launches[p][kk], **k_results[kk][p]}
                         for p in k_results[kk]},
             "circuit_launches": {p: n[kk] for p, n in
                                  circuit_launches.items()},
-            "lut_launches": {p: n[kk] for p, n in lut_launches.items()}})
+            "lut_launches": {p: n[kk] for p, n in lut_launches.items()},
+            "integer_launches": {p: n[kk] for p, n in
+                                 integer_launches.items()}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -11,7 +11,9 @@ paths on the card (the NTT engine's and the Toeplitz engine's) are held
 bit-equal to the port's CPU path, which the other tests/test_torch_*.py
 files hold bit-equal to the JAX package; so are scheduled circuits (the
 full adder and the w = 8 Bristol multiplier), and so are the LUT paths
-of models/lut.py on a TEST_TINY_UINT key (bootstrap_lut, tree_pbs).
+of models/lut.py on a TEST_TINY_UINT key (bootstrap_lut, tree_pbs) and the
+integer layer of models/integer.py (radix_add, the tree-PBS radix_mul,
+radix_eq; a FheUint operator chain exact).
 """
 
 import numpy as np
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from zig_tfhe_tpu_torch import key, params, tlwe, trgsw
-from zig_tfhe_tpu_torch.models import gates, lut, netlists, scheduler
+from zig_tfhe_tpu_torch.models import gates, integer, lut, netlists, scheduler
 from zig_tfhe_tpu_torch.ops import ntt
 from zig_tfhe_tpu_torch.ops.cuda import extprod as K3
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K
@@ -467,3 +469,74 @@ def test_tiny_uint_luts_on_card_equal_cpu_path(dev):
             assert torch.equal(t.cpu(), w)
         assert torch.equal(lut.decrypt_radix_message(want, m, sk.key_lv0).long(),
                            (3 * x + 1) % m)
+
+
+def _tiny_uint_keys(dev, seed):
+    """TEST_TINY_UINT keys made on the CPU (packing key by default), and
+    copies of both on the card."""
+    P = params.TEST_TINY_UINT
+    g = torch.Generator().manual_seed(seed)
+    sk = key.SecretKey.generate(g, P)
+    ck = key.CloudKey.generate(g, sk, P)
+    sk_dev = key.SecretKey.from_numpy(sk.key_lv0.numpy(), sk.key_lv1.numpy(),
+                                      device=dev)
+    ck_dev = key.CloudKey.from_numpy(
+        {n: t.numpy() for n, t in ck.named_buffers()}, P,
+        bsk_ntt_drop=ck.bsk_ntt_drop, bsk_group=ck.bsk_group,
+        bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit,
+        pksk_gadget=ck.pksk_gadget, device=dev)
+    return g, (sk, sk_dev), ck, ck_dev
+
+
+# op -> (function, blind rotations at 2 digits)
+_INTEGER_OPS = {"add": (integer.radix_add, 2), "mul": (integer.radix_mul, 18),
+                "eq": (integer.radix_eq, 2)}
+
+
+@pytest.mark.parametrize("op", sorted(_INTEGER_OPS))
+def test_tiny_uint_integer_ops_on_card_equal_cpu_path(dev, op):
+    """radix_add, the tree-PBS radix_mul and radix_eq on 2-digit operands,
+    6 lanes: bit-equal to the CPU path, exact, and K2 = K1 = steps x the
+    op's blind rotations."""
+    g, (sk, _), ck, ck_dev = _tiny_uint_keys(dev, 41)
+    fn, rotations = _INTEGER_OPS[op]
+    x, y = np.array([45, 5, 63, 0, 17, 17]), np.array([19, 7, 63, 1, 40, 17])
+    a = integer.encrypt_radix(g, x, 2, 0.0, sk.key_lv0)
+    b = integer.encrypt_radix(g, y, 2, 0.0, sk.key_lv0)
+    cpu = fn(a, b, ck)
+    steps = ck.bsk_ntt.shape[0]
+    before = (K2.ntt_step_fused.launches, K.ntt_inverse_to_crt_acc.launches,
+              K3.extprod_matmul.launches)
+    out = fn(a.to(dev), b.to(dev), ck_dev)
+    torch.cuda.synchronize()
+    assert (K2.ntt_step_fused.launches - before[0],
+            K.ntt_inverse_to_crt_acc.launches - before[1],
+            K3.extprod_matmul.launches - before[2]) == (
+        steps * rotations, steps * rotations, 0)
+    assert torch.equal(out.cpu(), cpu)
+    want = {"add": x + y, "mul": x * y, "eq": (x == y).astype(int)}[op]
+    got = integer.decrypt_radix(cpu if cpu.dim() == 3 else cpu[:, None], sk.key_lv0)
+    assert np.array_equal(got, want)
+
+
+def test_tiny_uint_fheuint_chain_on_card(dev):
+    """A FheUint operator chain on the card (add, plain and encrypted mul,
+    sub, compare, select, divmod by a power of two and by an encrypted
+    divisor, bitwise, shifts), exact against plain integers."""
+    _, (_, sk), _, ck_dev = _tiny_uint_keys(dev, 43)
+    gd = torch.Generator(device=dev).manual_seed(44)
+    x, y = np.array([45, 5, 63, 12]), np.array([19, 7, 2, 12])
+    a = integer.FheUint.encrypt(gd, x, 2, sk, ck_dev, alpha=0.0)
+    b = integer.FheUint.encrypt(gd, y, 2, sk, ck_dev, alpha=0.0)
+    assert a.digits.device == ck_dev.ksk1.device
+    s = (a + b) * 3 - 5                                  # 3 digits, wraps
+    assert np.array_equal(s.decrypt(sk), ((x + y) * 3 - 5) % 512)
+    assert np.array_equal((a * b).decrypt(sk), x * y)
+    assert np.array_equal((a < b).select(a, b).decrypt(sk), np.minimum(x, y))
+    assert np.array_equal((a == b).decrypt(sk), (x == y).astype(int))
+    q, r = divmod(a, b)
+    assert np.array_equal(q.decrypt(sk), x // y)
+    assert np.array_equal(r.decrypt(sk), x % y)
+    assert np.array_equal((a // 4).decrypt(sk), x // 4)
+    assert np.array_equal(((a ^ b) >> 1).decrypt(sk), (x ^ y) >> 1)
+    assert np.array_equal((a << 2).decrypt(sk), x << 2)

@@ -166,7 +166,8 @@ sys.modules["jax"] = None       # any `import jax` now raises ImportError
 import torch
 import zig_tfhe_tpu_torch
 from zig_tfhe_tpu_torch import params, key, tlwe
-from zig_tfhe_tpu_torch.models import circuits, gates, lut, netlists, scheduler
+from zig_tfhe_tpu_torch.models import (circuits, gates, integer, lut, netlists,
+                                       scheduler)
 from zig_tfhe_tpu_torch.ops import packing_keyswitch
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse
 from zig_tfhe_tpu_torch.utils import serialization
@@ -208,6 +209,10 @@ ctu = lut.encrypt_message(g, [3, 14], 16, 0.0, sku.key_lv0)
 tab = lut.Generator.new(16, U).generate_lookup_table(lambda x: (7 * x + 3) % 16)
 outu = lut.bootstrap_lut(ctu, tab, cku)
 assert lut.decrypt_message(outu, 16, sku.key_lv0).tolist() == [8, 5]
+ia = integer.encrypt_radix(g, [45, 63], 2, 0.0, sku.key_lv0)
+ib = integer.encrypt_radix(g, [19, 1], 2, 0.0, sku.key_lv0)
+isum = integer.radix_add(ia, ib, cku)
+assert integer.decrypt_radix(isum, sku.key_lv0).tolist() == [64, 64]
 print("ok")
 """
 

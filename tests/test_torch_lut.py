@@ -225,6 +225,22 @@ def test_bootstrap_multi_lut_matches_jax(keys):
         assert np.array_equal(_dec(want[k], m, sk), [f(x) for x in msgs])
 
 
+def test_multi_value_base_is_copied_to_the_device_once(keys):
+    """The multi-value rounds share one cached T0 per (m, N, width,
+    device): a later round copies no table, and no round mutates it."""
+    sk, ck, tck = keys
+    m = 16
+    luts = [TL.Generator.new(m, TPAR).generate_lookup_table(lambda x: x % 8)]
+    tct = _t(_encrypt(np.random.default_rng(6), np.arange(4), m, sk.key_lv0))
+    first = TL.bootstrap_multi_lut(tct, luts, m, tck)
+    misses = TL._multi_lut_base_on.cache_info().misses
+    again = TL.bootstrap_multi_lut(tct, luts, m, tck)
+    assert TL._multi_lut_base_on.cache_info().misses == misses
+    assert torch.equal(first, again)
+    base = TL._multi_lut_base_on(m, TPAR.N, 32, tct.device)
+    assert np.array_equal(base.numpy(), TL.multi_lut_base(m, TPAR.N))
+
+
 # m = 32: m_hi = 2, 2 * 2 * 64 <= N = 256, the interleaved select (one lane
 # for both families); m = 64: m_hi = 4, the per-family select (two lanes)
 @pytest.mark.parametrize("m", [32, 64])

@@ -13,7 +13,9 @@ scheduler, built with g++ at first use, and an evaluator that runs each
 level as one batched bootstrap).  Programmable bootstrapping runs on the
 uint sets' keys: models/lut.py (lookup tables, multi-value and radix tree
 PBS, bivariate LUTs) on the packing key switch of
-ops/packing_keyswitch.py.  utils/serialization.py saves and loads keys
+ops/packing_keyswitch.py, and models/integer.py builds encrypted integers
+on those LUTs (FheUint and FheInt: radix arithmetic, comparisons, shifts,
+mul, divmod, the bridge to the boolean gates).  utils/serialization.py saves and loads keys
 and ciphertexts in the JAX package's file format.  The JAX package
 ``zig_tfhe_tpu`` is the reference: on equal keys and ciphertexts both
 return the same bits.  This package imports torch and numpy only.

@@ -257,6 +257,15 @@ def multi_lut_base(message_modulus: int, N: int, width: int = 32) -> np.ndarray:
     return tv
 
 
+@functools.lru_cache(maxsize=None)
+def _multi_lut_base_on(message_modulus: int, N: int, width: int,
+                       device: torch.device) -> torch.Tensor:
+    """multi_lut_base on ``device``, copied there once per (m, N, width,
+    device): a multi-value round copies no table from the host.  Callers
+    must not mutate it."""
+    return torch.from_numpy(multi_lut_base(message_modulus, N, width)).to(device)
+
+
 def factor_lut(lut, message_modulus: int):
     """Factor a Generator-built LUT: returns (offsets, coeffs, norm1).
 
@@ -511,7 +520,7 @@ def tree_pbs(ct_in: torch.Tensor, ct_sel: torch.Tensor, tvs, n_blocks: int,
 
     factored = _factored_tables([tvs[fam, h] for fam in range(F)
                                  for h in range(H)], 16, ck)
-    base = torch.from_numpy(multi_lut_base(16, N, params.torus_bits)).to(dev)
+    base = _multi_lut_base_on(16, N, params.torus_bits, dev)
     acc = blind_rotate(ct_in, base, ck, params)               # [B, 2, N]
     outs = torch.stack([apply_factored(acc, o, c) for o, c, _ in factored],
                        dim=1)                                 # [B, F*H, 2, N]
@@ -571,8 +580,8 @@ def bootstrap_multi_lut(ct_batch: torch.Tensor, luts, message_modulus: int,
     params = ck.params
     factored = _factored_tables(luts, message_modulus, ck)
     K, B, N = len(luts), ct_batch.shape[0], params.N
-    base = torch.from_numpy(multi_lut_base(message_modulus, N,
-                                           params.torus_bits)).to(ct_batch.device)
+    base = _multi_lut_base_on(message_modulus, N, params.torus_bits,
+                              ct_batch.device)
     acc = blind_rotate(ct_batch, base, ck, params)            # [B, 2, N]
     outs = torch.stack([apply_factored(acc, o, c) for o, c, _ in factored])
     lv1 = _trlwe.sample_extract(outs.reshape(K * B, 2, N), 0)

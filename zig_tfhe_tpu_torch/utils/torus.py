@@ -19,10 +19,11 @@ _TWO32 = float(1 << 32)
 
 
 def require_width(bits: int) -> None:
-    """The port runs the 32-bit torus only; width 64 is a later slice."""
+    """The port runs the 32-bit torus only; width 64 is slice 4."""
     if bits != 32:
         raise NotImplementedError(
-            f"the PyTorch port supports the 32-bit torus only (got {bits})")
+            f"the PyTorch port supports the 32-bit torus only (got {bits}); "
+            f"the 64-bit torus comes with slice 4")
 
 
 def f64_to_torus(d) -> np.ndarray:
