@@ -60,7 +60,10 @@ negacyclic circulants of the key step's rows, 4 key limbs).  Phases:
      circulants built beforehand, the build not timed), and one step split
      into its stages;
   7. per path, a torch.profiler trace of one warm batch at B = 2048 and at
-     B = 1: device busy time, idle share and the costliest kernels;
+     B = 1: device busy time, idle share and the costliest kernels (every
+     profile in the script is held complete only when it kept one record
+     of each hand kernel for every launch counted in the call; else it is
+     reported as incomplete and its idle share not measured);
   8. the circuit path (models/netlists.py, models/scheduler.py,
      models/circuits.py) on the g3 key: the Bristol 64x64 -> 128-bit
      multiplier (26,931 gates in 43 levels of the native level scheduler),
@@ -134,11 +137,37 @@ negacyclic circulants of the key step's rows, 4 key limbs).  Phases:
      warm calls): ops/s at B = 256 per op, B = 1 latency of add and mul,
      peak device memory per op; one warm mul traced (busy time, idle
      share, kernels per op, the costliest kernels); the phase's wall time,
-     split into the CPU-path checks, the timings and the rest.
+     split into the CPU-path checks, the timings and the rest;
+ 11. the 64-bit torus: one SECURITY_128_BIT_T64 key generated on the card
+     (N = 2048, n0 = 768, int64 carriers; its defaults: group 2, Bg_e 2^8
+     with (3, 2) levels, drop 32, the four-prime plan on N/2 = 1024, the
+     packing key at (8, 3)), its arrays' shapes and bytes and the keygen
+     time.  The split-ring scan runs on the int32 hi planes and finishes
+     every step with K1 on views of the split residues ([P, 2B, 2, 1024],
+     drop 32 - 32 = 0); the rest of the step is plain PyTorch
+     (ops/split_ring.py).  K1 at those views, on the residues of one real
+     step (the hi-plane decompose, forward NTT, pointwise against the
+     key's first group and combine on a rotated test vector), bit-equal to
+     its plain version and to the plain hi-plane finish at B = 2048, 200
+     and 1, timed beside its bound; apply_gates on 512 lanes cycling the 10
+     gates, the launch counts set to 0 just before and read just after (K1
+     384, K2 and K3 0), accuracy 1.0, the first 4 lanes bit-equal to the
+     port's CPU path; gates/s at B = 2048 (one batch, warm from the B =
+     512 run), B = 1 latency, one step split into its stages, and profiles
+     at B = 2048 and B = 1 read from the profiler's kernel records (busy
+     time, idle share, the costliest kernels); bootstrap_lut at m = 16 on B = 256
+     (every lane equal to the table at its modswitched phase), the m = 64
+     radix LUT through the tree PBS on B = 64 (every mid table on its
+     dedicated rotation lane; in-bin lanes exact, accuracy >= 0.95),
+     FheUint 2-digit add, lt and mul and an FheInt add on B = 64, exact
+     against numpy, each with its launch counts (K1 = 384 x the op's
+     rotations, T64_ROTATIONS); the split cloud key and a 64-bit ciphertext
+     saved and loaded (gate_pair bit-equal after the load); the phase's
+     wall time, split.
 
-The next-to-last stdout line is {"kernels": [...]}, before it the card's
-nvidia-smi name and power limit; the last line is {"ok": true, "device":
-{...}}.  Any failed phase raises (exit code != 0, no result line).
+The script prints its total wall time; the next-to-last stdout line is
+{"kernels": [...]}, before it the card's nvidia-smi name and power limit;
+the last line is {"ok": true, "device": {...}}.  Any failed phase raises (exit code != 0, no result line).
 Without a CUDA device it exits 2 before printing anything.
 """
 
@@ -246,27 +275,55 @@ def _kernel_vs_plain(kernel, plain, iters: int = KERNEL_ITERS):
     return sum(times[kernel]) / 2, sum(times[plain]) / 2
 
 
-def _trace_summary(fn, top: int = 6):
-    """Profile one call of ``fn``: device busy ms, device span ms, idle
-    share over the span, kernel count, and the costliest kernels."""
+# each hand kernel's wrapper, by its counter key, and its symbol in a trace
+_HAND_KERNELS = {"k1": ("ntt_inverse", "ntt_inverse_to_crt_acc",
+                        "ntt_inverse_crt_acc_kernel"),
+                 "k2": ("ntt_step", "ntt_step_fused", "ntt_step_fused_kernel"),
+                 "k3": ("extprod", "extprod_matmul", "extprod_matmul_kernel")}
+
+
+def _profile(label: str, fn, gpu: str, top: int = 6, steps: int = 0):
+    """Profile one call of ``fn`` (CUDA activity only) and print the device
+    busy ms (the union of the kernels' spans), the device span, the idle
+    share over the span, the kernel count and the costliest kernels.  The
+    profiler's kernel records are read directly, without a trace file, so a
+    run of ~10^5 kernels (a 64-bit bootstrap) takes seconds to summarize.
+    The profiler can lose records: every profiled call launches hand
+    kernels, so the profile counts as complete only when it kept one record
+    of each kernel for every launch its wrapper counted in the call;
+    otherwise it is reported as incomplete and nothing else is printed."""
+    import importlib
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    wrappers = {k: getattr(importlib.import_module(
+        f"zig_tfhe_tpu_torch.ops.cuda.{mod}"), fn_name)
+        for k, (mod, fn_name, _) in _HAND_KERNELS.items()}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    before = {k: w.launches for k, w in wrappers.items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    if not kernels:
-        return None
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                   for e in kernels)
-    busy, cur_s, cur_e = 0.0, *spans[0]
+    launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+    spans, by_name = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != torch.autograd.DeviceType.CUDA
+                or e.name().startswith(("Memcpy", "Memset"))):
+            continue
+        s, d = e.start_ns(), e.duration_ns()
+        spans.append((s, s + d))
+        t, c = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (t + d, c + 1)
+    kept = {k: sum(c for nm, (_, c) in by_name.items() if sym in nm)
+            for k, (_, _, sym) in _HAND_KERNELS.items()}
+    if not sum(launched.values()) or kept != launched:
+        print(f"{label}: the profiler kept {kept} hand-kernel records of the "
+              f"launches {launched} counted in the call (records lost; "
+              f"profile incomplete, idle share not measured)")
+        return
+    spans.sort()
+    busy, (cur_s, cur_e) = 0, spans[0]
     for s, e in spans[1:]:
         if s > cur_e:
             busy += cur_e - cur_s
@@ -274,16 +331,13 @@ def _trace_summary(fn, top: int = 6):
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    span = spans[-1][1] - spans[0][0]
-    by_name = {}
-    for e in kernels:
-        n = e["name"]
-        t, c = by_name.get(n, (0.0, 0))
-        by_name[n] = (t + float(e["dur"]), c + 1)
-    tops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"busy_ms": busy / 1e3, "span_ms": span / 1e3,
-            "idle_share": 1.0 - busy / span, "kernels": len(kernels),
-            "top": [(n[:70], t / 1e3, c) for n, (t, c) in tops]}
+    span = max(e for _, e in spans) - spans[0][0]
+    per_step = f" ({len(spans) / steps:.0f} a step)" if steps else ""
+    print(f"{label} profile: busy {busy / 1e6:.1f} ms of {span / 1e6:.1f} ms "
+          f"device span, idle share {1.0 - busy / span:.3f}, {len(spans)} "
+          f"kernels{per_step}, hand-kernel records {kept} complete [{gpu}]")
+    for nm, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"    {t / 1e6:9.2f} ms {c:7d}x  {nm[:70]}")
 
 
 def _bound(t_bytes: float, t_tensor: float, t_cuda: float):
@@ -610,16 +664,8 @@ def _circuit_phase(P, g, sk, ck, ck_toep, counters, gpu) -> dict:
               f"{plan.n_gates * B / (ms / 1e3):.1f} circuit gates/s "
               f"({sum(boot) * B / (ms / 1e3):.1f} bootstrapped gates/s), "
               f"{ms / plan.n_levels:.1f} ms per level [{gpu}]")
-    summ = _trace_summary(lambda: scheduler.evaluate(plan, ct1, ck))
-    if summ is None:
-        print("circuit 64x64 B=1: profiler recorded no kernels (idle share "
-              "not measured)")
-    else:
-        print(f"circuit 64x64 B=1 profile: busy {summ['busy_ms']:.1f} ms of "
-              f"{summ['span_ms']:.1f} ms device span, idle share "
-              f"{summ['idle_share']:.3f}, {summ['kernels']} kernels [{gpu}]")
-        for n, t, c in summ["top"]:
-            print(f"    {t:9.2f} ms {c:7d}x  {n}")
+    _profile("circuit 64x64 B=1", lambda: scheduler.evaluate(plan, ct1, ck),
+             gpu)
 
     # the small adders of models/circuits.py
     x = circuits.encrypt_bits(g, 402, 16, sk, P)
@@ -727,12 +773,16 @@ def _tv_at(body, k, N: int):
     return torch.where(k < N, v, -v)
 
 
-def _decode(value, m: int):
+def _decode(value, m: int, width: int = 32):
     """The message a noiseless torus value decrypts to (tlwe.decrypt_message's
     rounding)."""
     import torch
 
-    f = (value.long() & 0xFFFFFFFF).double() / float(1 << 32)
+    if width == 64:
+        f = value.double()
+        f = torch.where(value < 0, f + 2.0 ** 64, f) / 2.0 ** 64
+    else:
+        f = (value.long() & 0xFFFFFFFF).double() / float(1 << 32)
     return torch.floor(f * (2 * m) + 0.5).long() % m
 
 
@@ -913,17 +963,8 @@ def _lut_phase(g, uint_keys, counters, gpu) -> dict:
         f"{name} {t * 1e3:.1f} us" for name, t in split.items())
         + f" (sum {sum(split.values()) * 1e3:.1f} us) [{gpu}]")
     for lanes in (LUT_LANES, 1):
-        summ = _trace_summary(lambda n=lanes: lut.bootstrap_lut(ct[:n], table, ck4))
-        if summ is None:
-            print(f"uint4 bootstrap_lut B={lanes}: profiler recorded no "
-                  "kernels (idle share not measured)")
-            continue
-        print(f"uint4 bootstrap_lut B={lanes} profile: busy "
-              f"{summ['busy_ms']:.1f} ms of {summ['span_ms']:.1f} ms device "
-              f"span, idle share {summ['idle_share']:.3f}, {summ['kernels']} "
-              f"kernels [{gpu}]")
-        for n, t, c in summ["top"]:
-            print(f"    {t:9.2f} ms {c:7d}x  {n}")
+        _profile(f"uint4 bootstrap_lut B={lanes}",
+                 lambda n=lanes: lut.bootstrap_lut(ct[:n], table, ck4), gpu)
     return launches
 
 
@@ -1273,17 +1314,8 @@ def _integer_phase(g, uint_keys, counters, gpu) -> dict:
         + f"; latency at B=1: add {lat['add']:.1f} ms, mul {lat['mul']:.1f} ms; "
         f"peak device memory above what was allocated before the op "
         + ", ".join(f"{n} {peak_mb[n][1]:.1f} MiB" for n in ops) + f" [{gpu}]")
-    summ = _trace_summary(lambda: integer.radix_mul(ca, cb, ck4), top=8)
-    if summ is None:
-        print(f"integer mul B={INT_LANES}: profiler recorded no kernels "
-              "(idle share not measured)")
-    else:
-        print(f"integer mul B={INT_LANES} profile: busy {summ['busy_ms']:.1f} "
-              f"ms of {summ['span_ms']:.1f} ms device span, idle share "
-              f"{summ['idle_share']:.3f}, {summ['kernels']} kernels per op "
-              f"[{gpu}]")
-        for n_, t, c in summ["top"]:
-            print(f"    {t:9.2f} ms {c:7d}x  {n_}")
+    _profile(f"integer mul B={INT_LANES}",
+             lambda: integer.radix_mul(ca, cb, ck4), gpu, top=8)
     wall["timings"] = time.perf_counter() - t0
     total = time.perf_counter() - t_phase
     print(f"phase 10 wall time {total:.1f} s: " + ", ".join(
@@ -1292,12 +1324,299 @@ def _integer_phase(g, uint_keys, counters, gpu) -> dict:
     return launches
 
 
+# -- phase 11: the 64-bit torus, SECURITY_128_BIT_T64 ---------------------------
+
+T64_STEPS = 384            # ceil(768 / 2): the split scan at group 2
+T64_GATE_LANES = 512
+T64_CPU_LANES = 4
+T64_LUT_LANES = 256
+T64_SMALL_LANES = 64       # the radix LUT and the integer ops
+# blind rotations per op on this key (counted on the CPU path at the key's
+# ||q||_1 budget, 5.31: every multi-value round of these ops holds a table
+# over it, so it runs one rotation lane per table; the radix LUT's mid
+# tables all take dedicated lanes)
+T64_ROTATIONS = {"lut": 1, "radix": 2, "add": 4, "lt": 4, "mul": 34,
+                 "int_add": 4}
+
+
+def _radix64_f(x):
+    return (5 * x + 1) % 64
+
+
+def _t64_phase(g, counters, gpu):
+    """Phase 11: the 64-bit torus (see the module docstring).  Returns
+    each run's launch counts by kernel and K1's results at the split
+    shapes."""
+    import numpy as np
+    import torch
+
+    from zig_tfhe_tpu_torch import key, params, tlwe
+    from zig_tfhe_tpu_torch.models import gates, integer, lut
+    from zig_tfhe_tpu_torch.ops import ntt, split_ring
+    from zig_tfhe_tpu_torch.ops.blind_rotate import modswitch
+    from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
+    from zig_tfhe_tpu_torch.ops.poly import negacyclic_rotate
+    from zig_tfhe_tpu_torch.utils import serialization
+
+    P = params.SECURITY_128_BIT_T64
+    dev = g.device
+    N, n0, alpha = P.N, P.n0, P.tlwe_lv0.alpha
+    t_phase = time.perf_counter()
+    wall = {"keygen": 0.0, "CPU-path checks": 0.0, "timings": 0.0,
+            "files": 0.0}
+    launches = {}
+
+    def expect(rotations):
+        return {"k1": rotations * T64_STEPS, "k2": 0, "k3": 0}
+
+    # -- the key: group 2, Bg_e 2^8 (3, 2), drop 32, 4 primes on N/2 ----------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sk = key.SecretKey.generate(g, P)
+    ck = key.CloudKey.generate(g, sk, P)
+    torch.cuda.synchronize()
+    wall["keygen"] = time.perf_counter() - t0
+    s = sk.key_lv0
+    cfg = (ck.bsk_group, ck.bsk_bgbit, ck.bsk_levels, ck.bsk_ntt_drop)
+    plan = ntt.plan_for_params(P, 32, 2, (3, 2), bgbit=8, pseudorandom_key=True)
+    want_shapes = {"testvec": ((2, N), torch.int64),
+                   "ksk1": ((N * P.iks_t, n0 + 1), torch.int64),
+                   "bsk_ntt": ((T64_STEPS, 3, 4, 10, 4, N // 2), torch.int16),
+                   "pksk": ((N * 3, 2, N), torch.int64)}
+    got_shapes = {n: (tuple(t.shape), t.dtype) for n, t in ck.named_buffers()}
+    _check(cfg == (2, 8, (3, 2), 32) and got_shapes == want_shapes
+           and ck.pksk_gadget == (8, 3) and plan.N == N // 2
+           and plan.primes == (18433, 40961, 59393, 61441)
+           and split_ring._hi32_viable(P, 32, 8, (3, 2)),
+           f"{P.name} key {cfg}, arrays {got_shapes}, packing gadget "
+           f"{ck.pksk_gadget}, plan {plan.primes}")
+    print(f"keygen {P.name} (N = {N}, n0 = {n0}, 64-bit torus; group 2, Bg_e "
+          f"2^8 (3, 2), drop 32, 4 primes on the N/2 = {plan.N} plan; hi-plane "
+          f"scan): {wall['keygen']:.2f} s; " + ", ".join(
+              f"{n} {shape} {str(dt)[6:]} ({t.numel() * t.element_size() / 1e6:.1f} MB)"
+              for (n, (shape, dt)), t in zip(got_shapes.items(),
+                                             ck.buffers()))
+          + f"; packing key at {ck.pksk_gadget}")
+
+    # -- K1 at the split shapes, on the residues of one real step -------------
+    B, Nh = B_GATES, plan.N
+    x = torch.randint(0, 2, (B,), generator=g, device=dev).bool()
+    y = torch.randint(0, 2, (B,), generator=g, device=dev).bool()
+    ids = torch.arange(B, device=dev) % len(gates.GATE_NAMES)
+    a = tlwe.encrypt_bool(g, x, P.ksk_alpha, s, width=64)
+    b = tlwe.encrypt_bool(g, y, P.ksk_alpha, s, width=64)
+    b_t = 2 * N - modswitch(a[:, n0], P)
+    tv_hi = (ck.testvec >> 32).to(torch.int32).expand(B, 2, N)
+    acc = split_ring.split(negacyclic_rotate(tv_hi, b_t)).contiguous()
+    ts = modswitch(a[:, :2].T.contiguous(), P)                    # [2, B]
+    bsk0 = ck.bsk_ntt[0]
+    stage_fns = {
+        "decompose": lambda: split_ring._rows_hi32(acc, P, 8, (3, 2)),
+        "forward NTT": lambda: split_ring._forward(rows, plan),
+        "3 x pointwise": lambda: [split_ring._pointwise(d_hat, bsk0[m], plan)
+                                  for m in range(3)],
+        "combine": lambda: split_ring.rotate_combine_multi_split(
+            us, [ts[0], ts[1]], plan)}
+    rows = stage_fns["decompose"]()
+    d_hat = stage_fns["forward NTT"]()
+    us = stage_fns["3 x pointwise"]()
+    v = stage_fns["combine"]()                                    # [P, B, 2, 2, Nh]
+    finish = acc + ntt.ntt_inverse_to_crt(list(v), plan, 32)     # plain hi-plane finish
+    _check(int(v.abs().max()) <= 32639, "split residues outside the limb range")
+
+    def views(n):
+        return (v[:, :n].reshape(plan.n_primes, 2 * n, 2, Nh),
+                acc[:n].reshape(2 * n, 2, Nh))
+
+    v8 = k1.split_limbs(v)                    # [P, B, 2, 2, 2, Nh] limb planes
+    errs = []
+    for lanes in (B, RAGGED_LANES, 1):
+        vv, aa = views(lanes)
+        out = k1.ntt_inverse_to_crt_acc(vv, aa, plan, 0)
+        out8 = k1.ntt_inverse_to_crt_acc(
+            v8[:, :lanes].reshape(plan.n_primes, 2 * lanes, 2, 2, Nh), aa,
+            plan, 0)
+        ref = k1.ntt_inverse_to_crt_acc_reference(vv, aa, plan, 0)
+        torch.cuda.synchronize()
+        errs.append(int((out.long() - ref.long()).abs().max()))
+        _check(errs[-1] == 0 and torch.equal(out8, out)
+               and torch.equal(out.reshape(lanes, 2, 2, Nh), finish[:lanes]),
+               f"K1 at the split views differs from its plain version or the "
+               f"plain hi-plane finish at B={lanes} (max |diff| {errs[-1]})")
+    vv, aa = views(B)
+    vv8 = v8.reshape(plan.n_primes, 2 * B, 2, 2, Nh)
+    v1, a1 = v8[:, :1].reshape(plan.n_primes, 2, 2, 2, Nh), acc[:1].reshape(2, 2, Nh)
+    ms1, plain1 = _kernel_vs_plain(
+        lambda: k1.ntt_inverse_to_crt_acc(vv8, aa, plan, 0),
+        lambda: k1.ntt_inverse_to_crt_acc_reference(vv8, aa, plan, 0))
+    one1 = _cuda_ms(lambda: k1.ntt_inverse_to_crt_acc(v1, a1, plan, 0),
+                    KERNEL_ITERS)
+    dev1 = _graph_ms(lambda: k1.ntt_inverse_to_crt_acc(v1, a1, plan, 0),
+                     KERNEL_ITERS)
+    bound1, by1, unit1, l2_1, cc1 = _k1_bound_ms(plan.n_primes, 2 * B, Nh)
+    k1_result = dict(max_abs_err=max(errs), ms=ms1, plain_ms=plain1,
+                     bound_ms=bound1, bound_by=by1, bound_unit=unit1,
+                     b1_eager_ms=one1, b1_device_ms=dev1)
+    print(f"t64: K1 == plain == the plain hi-plane finish at the split views "
+          f"[P=4, 2B, 2, {Nh}] of one real step's residues (hi-plane "
+          f"decompose, forward NTT, 3 x pointwise against the key's first "
+          f"group, combine), as int32 (split by the wrapper, as the scan "
+          f"hands them over) and as int8 limb planes, drop 32 - 32 = 0, for B "
+          f"= {B}, {RAGGED_LANES}, 1; B={B}: K1 {ms1 * 1e3:.1f} us/call on "
+          f"the limb planes (plain {plain1 * 1e3:.1f} us, bound "
+          f"{bound1 * 1e3:.1f} us by {unit1}, cuda cores {cc1 * 1e3:.1f} us, "
+          f"L2->SM of the widest tiling {l2_1 / 1e6:.0f} MB/call); B=1 "
+          f"{dev1 * 1e3:.1f} us/call on the device ({one1 * 1e3:.1f} us "
+          f"eager) [{gpu}]")
+
+    # -- gates: B = 512 lanes cycling the 10 gates -----------------------------
+    nG = T64_GATE_LANES
+    want = np.array([_TRUTH[gates.GATE_NAMES[i]](bool(p), bool(q)) for i, p, q
+                     in zip(ids.tolist(), x.tolist(), y.tolist())])
+    res, launches["t64"], first_s = _counted_run(
+        counters, "t64 gates",
+        lambda: gates.apply_gates(ids[:nG], a[:nG], b[:nG], ck), expect(1))
+    _check(res.dtype == torch.int64 and tuple(res.shape) == (nG, n0 + 1),
+           f"t64 gate output {res.dtype} {tuple(res.shape)}")
+    got = tlwe.decrypt_bool(res, s).cpu().numpy()
+    accuracy = float((got == want[:nG]).mean())
+    _check(accuracy == 1.0, f"t64 gate accuracy {accuracy} != 1.0")
+    t0 = time.perf_counter()
+    ck_cpu = _on_cpu(ck)
+    n = T64_CPU_LANES
+    res_cpu = gates.apply_gates(ids[:n].cpu(), a[:n].cpu(), b[:n].cpu(), ck_cpu)
+    _check(torch.equal(res_cpu, res[:n].cpu()),
+           "t64: CUDA gate outputs differ from the port's CPU path")
+    wall["CPU-path checks"] += time.perf_counter() - t0
+    print(f"apply_gates t64 B={nG}: accuracy {accuracy}, launches "
+          f"{launches['t64']} (one K1 per step of the {T64_STEPS}-step "
+          f"hi-plane scan), first call {first_s:.2f} s; first {n} lanes "
+          f"bit-equal to the CPU path ({time.perf_counter() - t0:.1f} s on "
+          f"the host)")
+
+    # -- timings ---------------------------------------------------------------
+    t0 = time.perf_counter()        # the B = 512 run warmed every stage
+    gate_ms = _cuda_ms(lambda: gates.apply_gates(ids, a, b, ck), 1)
+    one = (ids[:1], a[:1], b[:1])
+    gates.apply_gates(*one, ck)
+    lat = sorted(_cuda_ms(lambda: gates.apply_gates(*one, ck), 1)
+                 for _ in range(WARM_ITERS))
+    lat_ms = lat[WARM_ITERS // 2]
+    print(f"t64: gates/s at B={B}: {B / (gate_ms / 1e3):.1f} (one warm "
+          f"batch, {gate_ms:.1f} ms); latency at B=1: {lat_ms:.1f} ms (median "
+          f"of "
+          + ", ".join(f"{t:.1f}" for t in lat) + f" ms) [{gpu}]")
+    stage_fns["limb split + K1"] = lambda: k1.ntt_inverse_to_crt_acc(
+        vv, aa, plan, 0)
+    split_us = {st: _cuda_ms(fn, 5) * 1e3 for st, fn in stage_fns.items()}
+    print(f"t64: one step at B={B}: " + ", ".join(
+        f"{st} {t:.1f} us" for st, t in split_us.items())
+        + f" (sum {sum(split_us.values()):.1f} us) [{gpu}]")
+    for lanes in (B, 1):
+        _profile(f"t64 B={lanes}",
+                 lambda n=lanes: gates.apply_gates(ids[:n], a[:n], b[:n], ck),
+                 gpu, steps=T64_STEPS)
+    wall["timings"] = time.perf_counter() - t0
+
+    # -- a LUT and the integer layer at width 64 -------------------------------
+    rng = np.random.default_rng(64)
+    msgs = torch.arange(T64_LUT_LANES, device=dev) % 16
+    ct = tlwe.encrypt_message(g, msgs, 16, alpha, s, width=64)
+    table = lut.Generator.new(16, P).generate_lookup_table(_lut_f)
+    out, launches["t64 lut"], first_s = _counted_run(
+        counters, "t64 bootstrap_lut",
+        lambda: lut.bootstrap_lut(ct, table, ck), expect(T64_ROTATIONS["lut"]))
+    k = _ms_phase(ct, s, P)
+    got = tlwe.decrypt_message(out, 16, s, 64).long()
+    _check(torch.equal(got, _decode(_tv_at(torch.from_numpy(table.poly[1])
+                                           .to(dev), k, N), 16, 64)),
+           "t64 bootstrap_lut: lanes do not decrypt to the table at their "
+           "modswitched input phase")
+    lut_acc = float((got == (7 * msgs + 3) % 16).double().mean())
+    print(f"t64 bootstrap_lut B={T64_LUT_LANES}, m = 16: every lane equals "
+          f"the table at its modswitched input phase; accuracy {lut_acc}; "
+          f"launches {launches['t64 lut']}; first call {first_s:.2f} s")
+
+    vals = torch.from_numpy(rng.integers(0, 64, T64_SMALL_LANES)).to(dev)
+    lo, hi = lut.encrypt_radix_message(g, vals, 64, alpha, s, width=64)
+    (r_lo, r_hi), launches["t64 radix"], first_s = _counted_run(
+        counters, "t64 radix", lambda: lut.bootstrap_lut_radix(
+            lo, hi, _radix64_f, 64, ck, ck.pksk),
+        expect(T64_ROTATIONS["radix"]))
+    got = lut.decrypt_radix_message((r_lo, r_hi), 64, s, 64).long()
+    want_r = _radix64_f(vals)
+    in_bins = ((_bin(_ms_phase(lo, s, P), 16, N) == vals % 16)
+               & (_bin(_ms_phase(hi, s, P), 4, N) == vals // 16))
+    radix_acc = float((got == want_r).double().mean())
+    _check(bool((got == want_r)[in_bins].all()) and radix_acc >= 0.95,
+           f"t64 radix m = 64: accuracy {radix_acc}, in-bin lanes wrong "
+           f"{int((got != want_r)[in_bins].sum())}")
+    print(f"t64 bootstrap_lut_radix B={T64_SMALL_LANES}, m = 64 (tree PBS, "
+          f"every mid table on its dedicated lane): accuracy {radix_acc}, "
+          f"{int(in_bins.sum())} lanes with both digits in their bins, all "
+          f"exact; launches {launches['t64 radix']}; first call "
+          f"{first_s:.2f} s")
+
+    ua, ub = rng.integers(0, 64, (2, T64_SMALL_LANES))
+    ca, cb = (integer.encrypt_radix(g, v, 2, alpha, s, width=64) for v in (ua, ub))
+    sa = rng.integers(-32, 32, T64_SMALL_LANES)
+    sb = rng.integers(-32, 32, T64_SMALL_LANES)
+    xa, xb = (integer.FheInt.encrypt(g, v, 2, sk, ck) for v in (sa, sb))
+    int_ops = {
+        "add": (lambda: integer.radix_add(ca, cb, ck)[..., :2, :], (ua + ub) % 64),
+        "lt": (lambda: integer.radix_lt(ca, cb, ck)[..., None, :],
+               (ua < ub).astype(int)),
+        "mul": (lambda: integer.radix_mul(ca, cb, ck), ua * ub),
+        "int_add": (lambda: (xa + xb).digits, (sa + sb + 32) % 64 - 32)}
+    int_first = {}
+    for name, (fn, want_i) in int_ops.items():
+        out, launches[f"t64 {name}"], int_first[name] = _counted_run(
+            counters, f"t64 integer {name}", fn, expect(T64_ROTATIONS[name]))
+        got = (integer.FheInt(out, ck).decrypt(sk) if name == "int_add"
+               else integer.decrypt_radix(out, s))
+        _exact(f"t64 {name}", got, want_i)
+    print(f"t64 integer B={T64_SMALL_LANES} (2-digit operands): add, lt, mul "
+          f"(tree PBS) and FheInt add exact on every lane; rotations "
+          + ", ".join(f"{n} {T64_ROTATIONS[n]} ({int_first[n]:.2f} s)"
+                      for n in int_ops))
+
+    # -- files: the split cloud key and a 64-bit ciphertext --------------------
+    t0 = time.perf_counter()
+    pair = (("and", "xor"), (a[:4], a[4:8]), (b[:4], b[4:8]))
+    before = gates.gate_pair(*pair, ck)
+    with tempfile.TemporaryDirectory() as d:
+        serialization.save_cloud_key(os.path.join(d, "ck"), ck)
+        serialization.save_ciphertext(os.path.join(d, "ct"), a[:8], P)
+        size = os.path.getsize(os.path.join(d, "ck.npz"))
+        ck2 = serialization.load_cloud_key(os.path.join(d, "ck.npz"), device=dev)
+        ct2, p2 = serialization.load_ciphertext(os.path.join(d, "ct.npz"),
+                                                device=dev)
+    _check(p2 == P and torch.equal(ct2, a[:8])
+           and all(torch.equal(t, t2) for t, t2 in zip(ck.buffers(),
+                                                       ck2.buffers())),
+           "t64 files: the loaded key or ciphertext differs")
+    after = gates.gate_pair(("and", "xor"), (ct2[:4], ct2[4:8]),
+                            (b[:4], b[4:8]), ck2)
+    _check(torch.equal(before, after),
+           "t64 files: gate_pair outputs differ after the load")
+    wall["files"] = time.perf_counter() - t0
+    print(f"t64 files: cloud key ({size / 1e6:.0f} MB) and ciphertext saved "
+          f"and loaded, arrays equal, gate_pair outputs bit-equal "
+          f"({wall['files']:.1f} s)")
+    total = time.perf_counter() - t_phase
+    print(f"phase 11 wall time {total:.1f} s: " + ", ".join(
+        f"{k_} {v_:.1f} s" for k_, v_ in wall.items())
+        + f", the checked runs {total - sum(wall.values()):.1f} s")
+    return launches, k1_result
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import numpy as np
 
     from zig_tfhe_tpu_torch import key, params, tlwe
@@ -1634,31 +1953,36 @@ def main() -> int:
     # -- 7. device busy time and idle share ------------------------------------
     for name, ck in cks.items():
         for lanes in (B_GATES, 1):
-            summ = _trace_summary(
-                lambda ck=ck, n=lanes: gates.apply_gates(ids[:n], a[:n], b[:n], ck))
-            if summ is None:
-                print(f"{name} B={lanes}: profiler recorded no kernels "
-                      "(idle share not measured)")
-                continue
-            print(f"{name} B={lanes} profile: busy {summ['busy_ms']:.1f} ms of "
-                  f"{summ['span_ms']:.1f} ms device span, idle share "
-                  f"{summ['idle_share']:.3f}, {summ['kernels']} kernels [{gpu}]")
-            for n, t, c in summ["top"]:
-                print(f"    {t:9.2f} ms {c:7d}x  {n}")
+            _profile(f"{name} B={lanes}", lambda ck=ck, n=lanes:
+                     gates.apply_gates(ids[:n], a[:n], b[:n], ck), gpu)
 
+    phase_s = {"1-7": time.perf_counter() - t_start}
     # -- 8. the circuit path -------------------------------------------------
     circuit_launches = _circuit_phase(P, g, sk, cks["g3"], ck_toep, counters,
                                       gpu)
     launches.update(circuit_launches)
+    t_mark = time.perf_counter()
+    phase_s["8"] = t_mark - t_start - phase_s["1-7"]
 
     # -- 9. the LUT path on the uint sets --------------------------------------
     lut_launches = _lut_phase(g, uint_keys, counters, gpu)
     launches.update(lut_launches)
+    phase_s["9"] = time.perf_counter() - t_mark
+    t_mark = time.perf_counter()
 
     # -- 10. the integer layer on uint4 ----------------------------------------
     integer_launches = _integer_phase(g, uint_keys, counters, gpu)
     launches.update(integer_launches)
+    phase_s["10"] = time.perf_counter() - t_mark
+    t_mark = time.perf_counter()
 
+    # -- 11. the 64-bit torus ---------------------------------------------------
+    t64_launches, k_results["k1"]["t64"] = _t64_phase(g, counters, gpu)
+    launches.update(t64_launches)
+    phase_s["11"] = time.perf_counter() - t_mark
+
+    print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s: "
+          + ", ".join(f"phases {k} {v:.1f} s" for k, v in phase_s.items()))
     print(gpu)
     kernels = []
     for kk, kname, route_src, replaces, main_path in (
@@ -1686,7 +2010,8 @@ def main() -> int:
                                  circuit_launches.items()},
             "lut_launches": {p: n[kk] for p, n in lut_launches.items()},
             "integer_launches": {p: n[kk] for p, n in
-                                 integer_launches.items()}})
+                                 integer_launches.items()},
+            "t64_launches": {p: n[kk] for p, n in t64_launches.items()}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,7 +13,10 @@ files hold bit-equal to the JAX package; so are scheduled circuits (the
 full adder and the w = 8 Bristol multiplier), and so are the LUT paths
 of models/lut.py on a TEST_TINY_UINT key (bootstrap_lut, tree_pbs) and the
 integer layer of models/integer.py (radix_add, the tree-PBS radix_mul,
-radix_eq; a FheUint operator chain exact).
+radix_eq; a FheUint operator chain exact).  The 64-bit torus: K1 at the
+split-ring step's views, a SECURITY_128_BIT_T64 gate batch (one K1 per
+step of the 384-step hi-plane scan), and the int64 finish, which has no
+kernel and raises on the card.
 """
 
 import numpy as np
@@ -22,7 +25,7 @@ import torch
 
 from zig_tfhe_tpu_torch import key, params, tlwe, trgsw
 from zig_tfhe_tpu_torch.models import gates, integer, lut, netlists, scheduler
-from zig_tfhe_tpu_torch.ops import ntt
+from zig_tfhe_tpu_torch.ops import ntt, split_ring
 from zig_tfhe_tpu_torch.ops.cuda import extprod as K3
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K
 from zig_tfhe_tpu_torch.ops.cuda import ntt_step as K2
@@ -540,3 +543,70 @@ def test_tiny_uint_fheuint_chain_on_card(dev):
     assert np.array_equal((a // 4).decrypt(sk), x // 4)
     assert np.array_equal(((a ^ b) >> 1).decrypt(sk), (x ^ y) >> 1)
     assert np.array_equal((a << 2).decrypt(sk), x << 2)
+
+
+@pytest.mark.parametrize("B", [1, 200, 2048])
+def test_kernel_split_views_match_plain_and_exact(dev, B):
+    """K1 at the split-ring step's shapes (SECURITY_128_BIT_T64: 4 primes,
+    N/2 = 1024, drop 32 - 32 = 0): the residues [P, B, 2, 2, 1024] and the
+    hi planes [B, 2, 2, 1024] as [P, 2B, 2, 1024] and [2B, 2, 1024]."""
+    plan = ntt.plan_for_params(params.SECURITY_128_BIT_T64, 32, 2, (3, 2),
+                               bgbit=8, pseudorandom_key=True)
+    assert plan.n_primes == 4 and plan.N == 1024
+    rng = np.random.default_rng(B + 64)
+    c, acc = (torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, 2, plan.N))
+                               .astype(np.int32)).to(dev) for _ in range(2))
+    v = torch.stack(ntt.ntt_forward(c, plan, digit_limbs=4, digit_bound=128))
+    vv, aa = v.reshape(4, 2 * B, 2, plan.N), acc.reshape(2 * B, 2, plan.N)
+    before = K.ntt_inverse_to_crt_acc.launches
+    out = K.ntt_inverse_to_crt_acc(vv, aa, plan, 0)
+    torch.cuda.synchronize()
+    assert K.ntt_inverse_to_crt_acc.launches == before + 1
+    assert torch.equal(out, K.ntt_inverse_to_crt_acc_reference(vv, aa, plan, 0))
+    assert torch.equal(out.reshape(B, 2, 2, plan.N), acc + c)
+
+
+def test_128bit_t64_gates_on_card(dev):
+    """Keygen on the card at SECURITY_128_BIT_T64's defaults, 64 lanes:
+    exact, 384 K1 launches and no K2 or K3, the first 4 lanes equal to the
+    CPU path."""
+    P = params.SECURITY_128_BIT_T64
+    g = torch.Generator(device=dev).manual_seed(64)
+    sk = key.SecretKey.generate(g, P)
+    ck = key.CloudKey.generate(g, sk, P, packing_key=False)
+    ids, x, y, want = _lanes(64, 4)
+    a = tlwe.encrypt_bool(g, x.to(dev), P.ksk_alpha, sk.key_lv0, width=64)
+    b = tlwe.encrypt_bool(g, y.to(dev), P.ksk_alpha, sk.key_lv0, width=64)
+    before = (K.ntt_inverse_to_crt_acc.launches, K2.ntt_step_fused.launches,
+              K3.extprod_matmul.launches)
+    out = gates.apply_gates(ids.to(dev), a, b, ck)
+    torch.cuda.synchronize()
+    assert (K.ntt_inverse_to_crt_acc.launches - before[0],
+            K2.ntt_step_fused.launches - before[1],
+            K3.extprod_matmul.launches - before[2]) == (384, 0, 0)
+    assert out.dtype == torch.int64
+    assert np.array_equal(tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy(), want)
+    ck_cpu = key.CloudKey.from_numpy(
+        {n: t.cpu().numpy() for n, t in ck.named_buffers()}, P,
+        bsk_ntt_drop=ck.bsk_ntt_drop, bsk_group=ck.bsk_group,
+        bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit, device="cpu")
+    cpu = gates.apply_gates(ids[:4], a[:4].cpu(), b[:4].cpu(), ck_cpu)
+    assert torch.equal(out[:4].cpu(), cpu)
+
+
+def test_int64_finish_raises_on_card(dev):
+    """K1's int64 variant has no kernel: the direct 64-bit engine
+    (TEST_TINY64) raises on the card instead of running on the CPU."""
+    P = params.TEST_TINY64
+    g = torch.Generator().manual_seed(3)
+    sk = key.SecretKey.generate(g, P)
+    ck = key.CloudKey.generate(g, sk, P, packing_key=False).to(dev)
+    a = tlwe.encrypt_bool(g, torch.tensor([True, False]), 0.0, sk.key_lv0,
+                          width=64).to(dev)
+    with pytest.raises(NotImplementedError, match="int64"):
+        gates.apply_gates(torch.tensor([0, 1], device=dev), a, a, ck)
+    with pytest.raises(NotImplementedError, match="int64"):
+        split_ring.finish_int64([torch.zeros((1, 2, 64), dtype=torch.int32,
+                                             device=dev)] * 6,
+                                torch.zeros((1, 2, 64), dtype=torch.int64,
+                                            device=dev), None, 0)

@@ -19,11 +19,11 @@ shifts at 1 digit.  The codec is held across packages at the decrypt level
 (the RNGs differ).  The port alone: the blind rotations each op makes at 2
 digits (the counts the chip script expects), inputs left untouched, the
 FheUint operators and the bridge through a scheduled circuit at the decrypt
-level, and the refusals.  Tolerance: exact equality.
+level, the refusals, and the int64 carriers of the 64-bit torus and the
+over-budget demotion of a multi-value round (bit-equal to JAX).  Tolerance: exact equality.
 """
 
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -429,24 +429,41 @@ def test_refusals(keys, cts, monkeypatch):
     sk, jcks, tcks = keys
     ck = tcks["tree"]
     s = _t(np.asarray(sk.key_lv0))
-    # width 64: the int64 carriers and the 64-bit sets
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TI.encrypt_radix(torch.Generator(), 5, 2, 0.0, s, width=64)
-    wide = torch.zeros((2, 3, TPAR.n0 + 1), dtype=torch.int64)
-    for fn in (lambda: TI.decrypt_radix(wide, s),
-               lambda: TI._trivial_digit(1, wide[:, 0]),
-               lambda: TI._trivial_radix(5, 2, wide),
-               lambda: TI._luts(TP.TEST_TINY64),
-               lambda: TI._digit_mul_tvs(TP.TEST_TINY64),
-               lambda: TI.from_bools(_t(cts["a"]),
-                                     types.SimpleNamespace(params=TP.TEST_TINY64))):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            fn()
-    # an over-budget factored table (only a 64-bit key has a finite budget)
+    # width 64 (once refused): the int64 carriers equal the JAX package's
+    g = torch.Generator().manual_seed(3)
+    wide = TI.encrypt_radix(g, np.array([5, 63]), 2, 0.0, s, width=64)
+    assert wide.dtype == torch.int64 and wide.shape == (2, 2, TPAR.n0 + 1)
+    assert np.array_equal(TI.decrypt_radix(wide, s), [5, 63])
+    assert np.array_equal(JI.decrypt_radix(jnp.asarray(wide.numpy()),
+                                           sk.key_lv0), [5, 63])
+    jwide = jnp.asarray(wide.numpy())
+    assert np.array_equal(TI._trivial_digit(1, wide[:, 0]).numpy(),
+                          np.asarray(JI._trivial_digit(1, jwide[:, 0])))
+    assert np.array_equal(TI._trivial_radix(5, 2, wide).numpy(),
+                          np.asarray(JI._trivial_radix(5, 2, jwide)))
+    for name, table in TI._luts(TP.TEST_TINY64).items():
+        want = JI._luts(JP.TEST_TINY64)[name].poly
+        assert table.poly.dtype == want.dtype == np.int64
+        assert np.array_equal(table.poly, want), name
+    assert np.array_equal(TI._digit_mul_tvs(TP.TEST_TINY64),
+                          JI._digit_mul_tvs(JP.TEST_TINY64))
+    p64 = TP.TEST_TINY64
+    sk64 = TK.SecretKey.generate(g, p64)
+    ck64 = TK.CloudKey.generate(g, sk64, p64)
+    bits = TT.encrypt_bool(g, torch.tensor([[1, 0, 1, 1]], dtype=torch.bool),
+                           0.0, sk64.key_lv0, width=64)
+    assert np.array_equal(TI.decrypt_radix(TI.from_bools(bits, ck64),
+                                           sk64.key_lv0), [13])
+    # an over-budget factored table (a 64-bit key's budget is finite):
+    # the call is demoted to one rotation lane per table, as in JAX
     monkeypatch.setattr(TL, "mid_norm1_budget", lambda ck: 1.0)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TI._pbs_mv_groups(_t(cts["a"]).movedim(-2, 0), (("pp0lo", "pp0hi"),) * 2,
-                          tcks["classic"])
+    monkeypatch.setattr(JI.L, "mid_norm1_budget", lambda ck: 1.0)
+    groups = (("pp0lo", "pp0hi"),) * 2
+    got = TI._pbs_mv_groups(_t(cts["a"]).movedim(-2, 0), groups,
+                            tcks["classic"])
+    want = JI._pbs_mv_groups(jnp.moveaxis(jnp.asarray(cts["a"]), -2, 0),
+                             groups, jcks["classic"])
+    assert np.array_equal(got.numpy(), np.asarray(want))
     monkeypatch.undo()
     # the packing key's gadget contract and its row count
     x, y = _t(cts["a"][:, 0]), _t(cts["b"][:, 0])

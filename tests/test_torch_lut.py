@@ -371,8 +371,11 @@ def test_refusals():
     with pytest.raises(ValueError, match="32..256"):
         TL.encrypt_radix_message(torch.Generator(), [1], 512, 0.0,
                                  torch.zeros(8, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="32-bit"):
-        TL.Encoder.new(16, width=64)
+    # width 64 (once refused): the codec equals the JAX package's
+    enc, jenc = TL.Encoder.new(16, width=64), JL.Encoder.new(16, width=64)
+    for x in range(16):
+        assert enc.encode(x) == jenc.encode(x) == x << 59
+        assert enc.decode(enc.encode(x) + (1 << 57)) == x
     with pytest.raises(ValueError, match="power of two"):
         TL.tree_pbs(None, None, np.zeros((1, 2, 2, 256), np.int32), 3,
                     types.SimpleNamespace(params=TPAR), None)

@@ -61,8 +61,11 @@ def test_host_codecs():
             jtorus.to_i32(jtorus.torus_constant(d)))
     x = np.linspace(-3, 3, 101)
     assert np.array_equal(ttorus.f64_to_torus(x), jtorus.f64_to_torus(x))
-    with pytest.raises(NotImplementedError):
-        ttorus.to_carrier(1, 64)
+    # width 64 (the 64-bit torus, Python-int codecs on both sides)
+    for v in (1, -1, 2**63, 2**64 - 1, -(2**63), 3 * 2**62):
+        assert ttorus.to_carrier(v, 64) == int(jtorus.to_carrier(v, 64))
+    for d in (0.125, -0.125, 0.3, 1 / 3, 0.999999):
+        assert ttorus.torus_constant_w(d, 64) == jtorus.torus_constant_w(d, 64)
 
 
 @pytest.mark.parametrize("levels,bgbit,center", [

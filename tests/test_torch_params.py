@@ -37,8 +37,7 @@ def test_param_tuples_and_default():
         JP.SECURITY_128_BIT)
 
 
-@pytest.mark.parametrize("name", sorted(n for n, p in JP.PARAMS_BY_NAME.items()
-                                        if not p.split_ring))
+@pytest.mark.parametrize("name", sorted(JP.PARAMS_BY_NAME))
 def test_engine_defaults_equal(name):
     j, t = JP.PARAMS_BY_NAME[name], TP.PARAMS_BY_NAME[name]
     assert jntt.default_group(j) == tntt.default_group(t)
@@ -76,5 +75,16 @@ def test_plan_tables_equal(name, drop, group, levels, bgbit):
 
 
 def test_split_ring_raises():
-    with pytest.raises(NotImplementedError):
-        tntt.plan_for_params(TP.TEST_TINY_SPLIT, 32, 2)
+    """The split-ring sets' plans (once refused) equal the JAX package's:
+    the N/2 = 1024 transform at the key defaults (group 2, Bg_e 2^8, drop
+    32), four primes, with the 64-bit CRT constants."""
+    kw = dict(bgbit=8, pseudorandom_key=True)
+    for name, levels in (("tiny_split", (2, 2)), ("128bit_t64", (3, 2))):
+        j = jntt.plan_for_params(JP.PARAMS_BY_NAME[name], 32, 2, levels, **kw)
+        t = tntt.plan_for_params(TP.PARAMS_BY_NAME[name], 32, 2, levels, **kw)
+        assert t.N == 1024
+        assert t.primes == j.primes == (18433, 40961, 59393, 61441)
+        for field in ("fwd_lo", "inv_cat_lo", "rot", "crt_e", "crt_e64"):
+            for a, b in zip(getattr(j, field), getattr(t, field), strict=True):
+                assert a.dtype == b.dtype and np.array_equal(a, b), field
+        assert (j.p_mod, j.p_mod64) == (t.p_mod, t.p_mod64)

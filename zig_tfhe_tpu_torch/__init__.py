@@ -1,7 +1,8 @@
 """zig_tfhe_tpu_torch — the PyTorch/CUDA port of zig_tfhe_tpu.
 
-TFHE boolean gates with exact mod-2^32 arithmetic: int8-limb matrix
-products for the NTT and the key switch, and hand-written Hopper kernels
+TFHE boolean gates with exact mod-2^32 (and, on the 64-bit torus sets,
+mod-2^64) arithmetic: int8-limb matrix products for the NTT and the key
+switch, and hand-written Hopper kernels
 for the blind-rotation step (ops/cuda/ntt_step.py: forward NTT, pointwise
 products, subset combine; ops/cuda/ntt_inverse.py: inverse NTT + CRT
 lift; ops/cuda/extprod.py: the Toeplitz engine's external product, for
@@ -15,8 +16,10 @@ uint sets' keys: models/lut.py (lookup tables, multi-value and radix tree
 PBS, bivariate LUTs) on the packing key switch of
 ops/packing_keyswitch.py, and models/integer.py builds encrypted integers
 on those LUTs (FheUint and FheInt: radix arithmetic, comparisons, shifts,
-mul, divmod, the bridge to the boolean gates).  utils/serialization.py saves and loads keys
-and ciphertexts in the JAX package's file format.  The JAX package
+mul, divmod, the bridge to the boolean gates).  The N = 2048 sets of the
+64-bit torus run the even/odd split-ring engine of ops/split_ring.py.
+utils/serialization.py saves and loads keys and ciphertexts in the JAX
+package's file format.  The JAX package
 ``zig_tfhe_tpu`` is the reference: on equal keys and ciphertexts both
 return the same bits.  This package imports torch and numpy only.
 

@@ -60,7 +60,7 @@ def bootstrap_to_lv1(tlwe_batch: torch.Tensor, ck: CloudKey) -> torch.Tensor:
 def bootstrap_with_testvec(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
                            ck: CloudKey) -> torch.Tensor:
     """Programmable bootstrap core: a caller's test vector, full pipeline.
-    testvec: int32 [2, N] shared or [B, 2, N] one per lane."""
+    testvec: carrier [2, N] shared or [B, 2, N] one per lane."""
     tr = blind_rotate(tlwe_batch, testvec, ck, ck.params)
     return identity_key_switch(_trlwe.sample_extract(tr, 0), ck.ksk1,
                                ck.params)

@@ -9,7 +9,10 @@ package, in CRT residue form) and the Toeplitz engine's (a per-bit TRGSW
 at the parameter-set gadget, in ext-limb form), and for the uint sets the
 TLWE -> TRLWE packing key that the tree PBS of models/lut.py runs on.  Its
 layouts equal the JAX package's, so a JAX-made key carries over with
-``CloudKey.from_numpy`` or utils/serialization.py:load_cloud_key.
+``CloudKey.from_numpy`` or utils/serialization.py:load_cloud_key.  On the
+64-bit torus the torus arrays (testvec, ksk1, pksk) are int64 and a
+split-ring set's (N > 1024) NTT key is the folded split form of
+ops/split_ring.py.
 """
 
 from __future__ import annotations
@@ -24,10 +27,11 @@ from zig_tfhe_tpu_torch.ops import ntt as _ntt
 from zig_tfhe_tpu_torch.ops.keyswitch import ks_plaintexts
 from zig_tfhe_tpu_torch.ops.packing_keyswitch import (default_packing_gadget,
                                                       gen_packing_ksk)
+from zig_tfhe_tpu_torch.ops.split_ring import gen_bootstrapping_key_ntt_split
 from zig_tfhe_tpu_torch.params import SecurityParams
 from zig_tfhe_tpu_torch.utils import rng as _rng
-from zig_tfhe_tpu_torch.utils.torus import (require_width, to_carrier,
-                                            torus_constant_w)
+from zig_tfhe_tpu_torch.utils.torus import (carrier_dtype, require_width,
+                                            to_carrier, torus_constant_w)
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -58,20 +62,23 @@ class SecretKey(nn.Module):
 class CloudKey(nn.Module):
     """Evaluation key (key.zig:61-77):
 
-    testvec: int32 [2, N]           (a = 0, b = 1/8; key.zig:134-145)
-    ksk1:    int32 [N*t, n0+1]      (signed-digit key-switching key)
+    testvec: carrier [2, N]         (a = 0, b = 1/8; key.zig:134-145)
+    ksk1:    carrier [N*t, n0+1]    (signed-digit key-switching key)
     bsk_ntt: int16 [ceil(n0/g), 2^g - 1, P, la+lb, 2, N] (group g > 1) or
              [n0, P, la+lb, 2, N] (group 1): TRGSW rows of the secret-bit
              subset products in NTT residue form, rounded by bsk_ntt_drop
-             bits, at the engine gadget (bsk_bgbit, bsk_levels); or None.
+             bits, at the engine gadget (bsk_bgbit, bsk_levels); on a
+             split-ring set [.., P, 2(la+lb), 4, N/2] (the folded split
+             form, ops/split_ring.py:fold_key_split); or None.
     bsk_ext_limbs: int8 [n0, n_klimbs, 2L, 2, 2N]: TRGSW(s0[i]) in ext-limb
              form, the Toeplitz engine's key (trgsw.py:to_ext_limbs); or
              None.
-    pksk:    int32 [n1*t, 2, N]: the TLWE -> TRLWE packing key-switch key
+    pksk:    carrier [n1*t, 2, N]: the TLWE -> TRLWE packing key-switch key
              (ops/packing_keyswitch.py:gen_packing_ksk), or None.
     bsk_group, bsk_levels and bsk_bgbit describe bsk_ntt (1, None and None
     when the key has none, as in the JAX package); pksk_gadget is the
-    (basebit, t) the packing key was built at (None without one).
+    (basebit, t) the packing key was built at (None without one).  The
+    carrier is int32 on the 32-bit torus and int64 on the 64-bit one.
     """
 
     def __init__(self, testvec: torch.Tensor, ksk1: torch.Tensor,
@@ -113,15 +120,18 @@ class CloudKey(nn.Module):
         default_group, default_engine_gadget, default_drop_bits): with
         neither ``decomp_levels`` nor ``engine_bgbit``, the engine default
         (group 3, Bg_e = 2^7 with (2, 2) levels and drop 5 at
-        SECURITY_128_BIT); ``decomp_levels`` alone keeps the parameter base
-        (the approximate gadget on the reference's Bg: ``group=2,
-        decomp_levels=(3, 2)`` at 128-bit is Bg_e = 2^6, (3, 2), drop 7);
+        SECURITY_128_BIT; group 2, Bg_e = 2^8 with (3, 2) levels and drop
+        32 at SECURITY_128_BIT_T64); ``decomp_levels`` alone keeps the
+        parameter base (the approximate gadget on the reference's Bg:
+        ``group=2, decomp_levels=(3, 2)`` at 128-bit is Bg_e = 2^6, (3, 2),
+        drop 7);
         ``engine_bgbit`` alone takes every level at that base.  group > 1
         publishes TRGSWs of secret-bit subset products (BMMP16-style); see
         the JAX package's CloudKey.generate for the security note.  The
         Toeplitz key is the reference's per-bit BSK.  ``packing_key``
-        (default: ``default_packing_key(params)``, True for the uint sets)
-        adds the packing key at the set's (basebit, iks_t), drawn last."""
+        (default: ``default_packing_key(params)``, True for the uint sets
+        and the 64-bit sets) adds the packing key at
+        ``default_packing_gadget(params)``, drawn last."""
         if params.torus_bits != 32 and "toeplitz" in engines:
             raise ValueError(
                 "the Toeplitz engine is 32-bit-only (ext-limb key form); "
@@ -161,40 +171,45 @@ class CloudKey(nn.Module):
                    pksk_gadget=None, device="cuda") -> "CloudKey":
         """Build from a JAX key's arrays (numpy ``testvec``, ``ksk1``, at
         least one of ``bsk_ntt``, ``bsk_ext_limbs``, and ``pksk`` where the
-        key has one) and its static fields."""
+        key has one) and its static fields.  The torus arrays keep the
+        set's carrier (int64 on the 64-bit torus)."""
         bsk_ntt, bsk_ext = arrays.get("bsk_ntt"), arrays.get("bsk_ext_limbs")
         pksk = arrays.get("pksk")
-        return cls(_tensor(arrays["testvec"], np.int32, device),
-                   _tensor(arrays["ksk1"], np.int32, device),
+        cdt = np.int32 if params.torus_bits == 32 else np.int64
+        return cls(_tensor(arrays["testvec"], cdt, device),
+                   _tensor(arrays["ksk1"], cdt, device),
                    None if bsk_ntt is None
                    else _tensor(bsk_ntt, np.int16, device), params,
                    bsk_ntt_drop=bsk_ntt_drop, bsk_group=bsk_group,
                    bsk_levels=bsk_levels, bsk_bgbit=bsk_bgbit,
                    bsk_ext_limbs=None if bsk_ext is None
                    else _tensor(bsk_ext, np.int8, device),
-                   pksk=None if pksk is None else _tensor(pksk, np.int32, device),
+                   pksk=None if pksk is None else _tensor(pksk, cdt, device),
                    pksk_gadget=pksk_gadget)
 
 
 def default_packing_key(params: SecurityParams) -> bool:
-    """Whether CloudKey.generate builds the packing key by default: for the
-    multi-bit message sets (uint1-8 and tiny_uint), whose radix and
-    bivariate LUTs run the tree PBS on it (the JAX package's rule, less its
-    64-bit sets, which the port does not run yet)."""
-    return params.name.startswith("uint") or params.name == "tiny_uint"
+    """Whether CloudKey.generate builds the packing key by default (the JAX
+    package's rule): for the multi-bit message sets (uint1-8 and
+    tiny_uint), whose radix and bivariate LUTs run the tree PBS on it, and
+    for the 64-bit sets, where the radix tree PBS is the only exact route
+    to m >= 64 LUTs and the integer layer's digit multiplier rides it."""
+    return (params.name.startswith("uint") or params.name == "tiny_uint"
+            or params.torus_bits == 64)
 
 
 def gen_testvec(params: SecurityParams, device="cuda") -> torch.Tensor:
-    """Trivial TRLWE with b == 1/8 everywhere (key.zig:134-145)."""
+    """Trivial TRLWE with b == 1/8 everywhere (key.zig:134-145), at the
+    set's carrier (int64 b == 2^61 on the 64-bit torus)."""
     w = params.torus_bits
-    tv = torch.zeros((2, params.N), dtype=torch.int32, device=device)
+    tv = torch.zeros((2, params.N), dtype=carrier_dtype(w), device=device)
     tv[1] = to_carrier(torus_constant_w(0.125, w), w)
     return tv
 
 
 def gen_key_switching_key(gen: torch.Generator, secret_key: SecretKey,
                           params: SecurityParams) -> torch.Tensor:
-    """KSK1[i*t+j] = TLWE_lv0(s1[i] * 2^(32-(j+1)*basebit)), noise ksk_alpha:
+    """KSK1[i*t+j] = TLWE_lv0(s1[i] * 2^(w-(j+1)*basebit)), noise ksk_alpha:
     one batched TLWE encrypt (ops/keyswitch.py:ks_plaintexts rows)."""
     mu = ks_plaintexts(secret_key.key_lv1, params.basebit, params.iks_t,
                        params.torus_bits)
@@ -223,9 +238,9 @@ def gen_bootstrapping_key_ntt(gen: torch.Generator, secret_key: SecretKey,
     nonempty subset of its g secret bits (mask bit i <-> coefficient i,
     the order ops/ntt.py:rotate_combine_multi expects) -> int16
     [G, 2^g - 1, P, la+lb, 2, N], G = ceil(n0/g); ragged n0 is padded with
-    zero key bits (TRGSW(0) is a CMux no-op)."""
-    if params.split_ring:
-        raise NotImplementedError("split-ring keys are not ported yet")
+    zero key bits (TRGSW(0) is a CMux no-op).  A split-ring set gets the
+    folded split form instead (ops/split_ring.py:
+    gen_bootstrapping_key_ntt_split): [G, 2^g - 1, P, 2(la+lb), 4, N/2]."""
     s = secret_key.key_lv0
     if group == 1:
         values = s
@@ -241,13 +256,17 @@ def gen_bootstrapping_key_ntt(gen: torch.Generator, secret_key: SecretKey,
                     v = bits[i] if v is None else v * bits[i]
             subset_vals.append(v)
         values = torch.stack(subset_vals, dim=1).reshape(-1)     # [G*(2^g-1)]
+    if params.split_ring:
+        return gen_bootstrapping_key_ntt_split(
+            gen, values, secret_key.key_lv1, params, drop, group, levels, bgbit)
     la, lb = levels
     plan = _ntt.plan_for_params(params, drop, group, levels, bgbit=bgbit,
                                 pseudorandom_key=True)
     trgsw_ct = _trgsw.encrypt_gadget_rows(
         gen, values, params.bsk_alpha, secret_key.key_lv1, params, bgbit,
         la, lb)
-    res = _ntt.to_ntt_form(trgsw_ct, plan, drop).movedim(0, 1).contiguous()
+    res = _ntt.to_ntt_form(trgsw_ct, plan, drop,
+                           width=params.torus_bits).movedim(0, 1).contiguous()
     if group > 1:
         res = res.reshape(-1, (1 << group) - 1, plan.n_primes, la + lb, 2,
                           params.N)

@@ -26,8 +26,8 @@ import torch
 from zig_tfhe_tpu_torch import bootstrap as _bootstrap
 from zig_tfhe_tpu_torch.key import CloudKey
 from zig_tfhe_tpu_torch.ops.keyswitch import identity_key_switch
-from zig_tfhe_tpu_torch.utils.torus import (f64_to_torus, to_carrier,
-                                            torus_constant_w)
+from zig_tfhe_tpu_torch.utils.torus import (carrier_dtype, f64_to_torus,
+                                            to_carrier, torus_constant_w)
 
 # gate id -> (coeff_a, coeff_b, bias_fraction)
 GATE_DEFS = {
@@ -53,6 +53,15 @@ _BIAS = np.array([int(np.uint32(f64_to_torus(GATE_DEFS[g][2])))
                   for g in GATE_NAMES], np.uint32).astype(np.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _bias_table(width: int) -> np.ndarray:
+    """Gate bias constants at the carrier width (== _BIAS at width 32)."""
+    if width == 32:
+        return _BIAS
+    return np.array([to_carrier(torus_constant_w(GATE_DEFS[g][2], width),
+                                width) for g in GATE_NAMES], np.int64)
+
+
 def _bootstrap_batch(combo: torch.Tensor, ck: CloudKey,
                      to_lv1: bool = False) -> torch.Tensor:
     """Bootstrap a linear combo of any batch shape [..., n0+1]."""
@@ -70,7 +79,7 @@ def _linear_combo(ca: int, cb: int, bias: int, a: torch.Tensor,
 
 def gate(name: str, a: torch.Tensor, b: torch.Tensor,
          ck: CloudKey) -> torch.Tensor:
-    """Evaluate one gate type over a batch: a, b int32 [..., n0+1]."""
+    """Evaluate one gate type over a batch: a, b carriers [..., n0+1]."""
     ca, cb, frac = GATE_DEFS[name]
     w = ck.params.torus_bits
     combo = _linear_combo(ca, cb, to_carrier(torus_constant_w(frac, w), w),
@@ -82,7 +91,7 @@ def apply_gates(gate_ids, a: torch.Tensor, b: torch.Tensor,
                 ck: CloudKey) -> torch.Tensor:
     """Heterogeneous gate batch: lane i evaluates GATE_NAMES[gate_ids[i]].
 
-    gate_ids: int [B]; a, b: int32 [B, n0+1].  One shared bootstrap.
+    gate_ids: int [B]; a, b: carriers [B, n0+1].  One shared bootstrap.
     Extra trailing batch dims on a/b broadcast against gate_ids from the
     left (ids [W] with a [W, B, n0+1] applies id w to every lane of row w).
     """
@@ -94,7 +103,8 @@ def apply_gates(gate_ids, a: torch.Tensor, b: torch.Tensor,
 
     ca = table(_COEFF_A).reshape(*gate_ids.shape, *(1,) * (extra + 1))
     cb = table(_COEFF_B).reshape(*gate_ids.shape, *(1,) * (extra + 1))
-    bias = table(_BIAS).reshape(*gate_ids.shape, *(1,) * extra)
+    bias = table(_bias_table(ck.params.torus_bits)).reshape(
+        *gate_ids.shape, *(1,) * extra)
     combo = ca * a + cb * b
     combo[..., ck.params.n0] += bias
     return _bootstrap_batch(combo, ck)
@@ -129,7 +139,8 @@ def constant(value: bool, params, batch=(), device="cuda") -> torch.Tensor:
     w = params.torus_bits
     mu = torus_constant_w(0.125, w)
     val = mu if value else (1 - mu) % (1 << w)
-    ct = torch.zeros((*batch, params.n0 + 1), dtype=torch.int32, device=device)
+    ct = torch.zeros((*batch, params.n0 + 1), dtype=carrier_dtype(w),
+                     device=device)
     ct[..., params.n0] = to_carrier(val, w)
     return ct
 
@@ -146,7 +157,7 @@ def gate_pair(names, lhs_pair, rhs_pair, ck: CloudKey) -> torch.Tensor:
     """Two (possibly different) gate types in one shared bootstrap.
 
     names: 2 gate names; lhs_pair, rhs_pair: 2 tensors [B, ..., n0+1] each.
-    Returns int32 [2, B, ..., n0+1]."""
+    Returns carrier [2, B, ..., n0+1]."""
     B = lhs_pair[0].shape[0]
     ids = torch.tensor([GATE_IDS[names[0]], GATE_IDS[names[1]]],
                        device=lhs_pair[0].device).repeat_interleave(B)

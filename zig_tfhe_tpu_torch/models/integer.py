@@ -25,10 +25,11 @@ Not ported: the JAX package's ``_bucket`` / ``_pad_to_bucket`` padding and
 the knee chunking of ``_bootstrap_lut_bucketed`` (TPU compile-cache and
 knee workarounds; lanes are independent, so any batching gives the same
 bits), and the ``ZTFHE_NO_MULTIVALUE`` switch (multi-value is always on).
-The port runs the 32-bit torus only: an int64 carrier raises through
-``utils/torus.py:require_width``, and the per-lane demotion of an
-over-budget factored table (reachable only at width 64) raises
-``NotImplementedError``.
+Both torus widths run: the carriers follow the ciphertexts (int64 on the
+64-bit sets, radix base 8 / M = 16 at both widths).  A multi-value round
+whose factored table exceeds the key's ||q||_1 budget (finite only on the
+64-bit sets) is demoted to one blind-rotation lane per table, as the JAX
+package's ``_pbs_mv_groups`` does.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ from zig_tfhe_tpu_torch.ops.blind_rotate import blind_rotate
 from zig_tfhe_tpu_torch.ops.keyswitch import identity_key_switch
 from zig_tfhe_tpu_torch.ops.packing_keyswitch import default_packing_gadget
 from zig_tfhe_tpu_torch.params import SecurityParams
-from zig_tfhe_tpu_torch.utils.torus import require_width, torus_constant_w
+from zig_tfhe_tpu_torch.utils.torus import (carrier_dtype, carrier_width,
+                                            torus_constant_w)
 
 BASE = 8          # radix of the encrypted integers (32-bit sets)
 M = 16            # PBS message modulus per digit (headroom factor 2)
@@ -65,17 +67,9 @@ def _spec_params(params: SecurityParams) -> tuple[int, int, int]:
     return radix_spec(params.torus_bits)
 
 
-def _width(x: torch.Tensor) -> int:
-    """The torus width of a ciphertext's carrier; raises for int64 (the
-    64-bit torus is slice 4 of the port)."""
-    w = 64 if x.dtype == torch.int64 else 32
-    require_width(w)
-    return w
-
-
 def _spec_like(x: torch.Tensor) -> tuple[int, int, int]:
     """Spec from a ciphertext's carrier dtype."""
-    return radix_spec(_width(x))
+    return radix_spec(carrier_width(x))
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +83,6 @@ def _luts(params: SecurityParams) -> dict:
     spec (58 tables at base 8).  Names keep the JAX package's base-8
     spellings ("eq8", "x8", "div8", "sign7", "bit{k}"...): the digits 8/7
     in a name mean "the base" / "base - 1"."""
-    require_width(params.torus_bits)
     bb, base, m = _spec_params(params)
     sbit = bb - 1                 # sign-bit index within a digit
     gen = L.Generator.new(m, params)
@@ -166,7 +159,7 @@ def _luts(params: SecurityParams) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _bank(params: SecurityParams, device: torch.device):
-    """The LUT bank on ``device``: ({name: row}, int32 [T, 2, N]), built
+    """The LUT bank on ``device``: ({name: row}, carrier [T, 2, N]), built
     once per (parameter set, device)."""
     bank = _luts(params)
     rows = {n: i for i, n in enumerate(bank)}
@@ -176,7 +169,7 @@ def _bank(params: SecurityParams, device: torch.device):
 
 def _lane_tables(table_names, repeat: int, ck: CloudKey,
                  device: torch.device) -> torch.Tensor:
-    """Per-lane test vectors int32 [len(table_names) * repeat, 2, N]: lane
+    """Per-lane test vectors carrier [len(table_names) * repeat, 2, N]: lane
     l * repeat + b takes table_names[l], gathered from the device bank."""
     rows, tables = _bank(ck.params, device)
     idx = torch.tensor([rows[n] for n in table_names], device=device)
@@ -232,17 +225,13 @@ def _pbs_mv_groups(rows, name_groups, ck: CloudKey):
     K = len(name_groups[0])
     assert all(len(g) == K for g in name_groups), name_groups
     params = ck.params
-    # a table over the key's ||q||_1 budget needs a dedicated rotation
-    # (the JAX package demotes the call to per-lane bootstraps); the
-    # budget is infinite at width 32
+    # a table over the key's ||q||_1 budget (finite on the 64-bit sets)
+    # demotes the whole call to one rotation lane per table
     budget = L.mid_norm1_budget(ck)
-    over = [n for g in name_groups for n in g
-            if _factored(params, n)[2] > budget]
-    if over:
-        raise NotImplementedError(
-            f"tables {over} exceed the key's factoring budget {budget:.1f}: "
-            f"their dedicated blind rotations come with slice 4 (the 64-bit "
-            f"torus)")
+    if any(_factored(params, n)[2] > budget for g in name_groups for n in g):
+        out = _pbs_rows(rows.repeat_interleave(K, dim=0),
+                        [n for g in name_groups for n in g], ck)
+        return out.reshape((G, K) + rows.shape[1:])
     batch, n1 = rows.shape[1:-1], rows.shape[-1]
     B = math.prod(batch)
     N = params.N
@@ -269,10 +258,9 @@ def encrypt_radix(gen: torch.Generator, value, n_digits: int, alpha: float,
     """Encrypt value(s) as n_digits little-endian radix digits (base 8,
     M = 16) on the generator's device.
 
-    value: Python int or int array [...].  Returns int32 [..., n_digits,
-    n0+1].  Digits are extracted in host int64, so values beyond 2^31
-    encode correctly."""
-    require_width(width)
+    value: Python int or int array [...].  Returns the width's carrier
+    [..., n_digits, n0+1].  Digits are extracted in host int64, so values
+    beyond 2^31 encode correctly."""
     bb, base, m = radix_spec(width)
     v = np.asarray(value, np.int64)
     shifts = bb * np.arange(n_digits, dtype=np.int64)
@@ -282,7 +270,7 @@ def encrypt_radix(gen: torch.Generator, value, n_digits: int, alpha: float,
 
 def decrypt_radix(ct_digits: torch.Tensor, sk: torch.Tensor):
     """[..., D, n0+1] -> int or int64 array [...]."""
-    w = _width(ct_digits)
+    w = carrier_width(ct_digits)
     bb, base, m = radix_spec(w)
     msgs = _tlwe.decrypt_message(ct_digits, m, sk, w).cpu().numpy() % base
     D = msgs.shape[-1]
@@ -298,7 +286,7 @@ def _zeros_like_digit(d):
 def _trivial_digit(value: int, like: torch.Tensor) -> torch.Tensor:
     """Noiseless (a = 0) ciphertext of ``value`` at the PBS codec scale
     1/(2M), shaped like the digit ciphertext ``like`` [..., n0+1]."""
-    w = _width(like)
+    w = carrier_width(like)
     m = radix_spec(w)[2]
     assert 0 <= value < m, value
     z = torch.zeros_like(like)
@@ -310,7 +298,7 @@ def _trivial_radix(value: int, D: int, like_digits: torch.Tensor):
     """Noiseless D-digit radix encoding of a non-negative Python int,
     batch-shaped like ``like_digits`` [..., Dl, n0+1].  Digits are
     extracted with Python ints, so constants of any width work."""
-    w = _width(like_digits)
+    w = carrier_width(like_digits)
     bb, base, m = radix_spec(w)
     enc = [((1 << w) // (2 * m)) * ((value >> (bb * i)) & (base - 1))
            for i in range(D)]                                 # PBS codec
@@ -400,7 +388,7 @@ def _and_reduce_bits(bits, ck: CloudKey):
         rows = []
         for i in range(0, K, cap):
             c = bits[i:i + cap]
-            # dtype= keeps the int32 carrier (torch sums int32 to int64)
+            # dtype= keeps the carrier (torch sums int32 to int64)
             rows.append(_trivial_digit(c.shape[0], c[0])
                         - c.sum(dim=0, dtype=c.dtype))
         bits = _pbs_rows(torch.stack(rows), ("iszero",) * len(rows), ck)
@@ -555,13 +543,13 @@ def radix_shr(a_digits, s: int, ck: CloudKey):
 
 @functools.lru_cache(maxsize=None)
 def _digit_mul_tvs(params: SecurityParams) -> np.ndarray:
-    """Tree-PBS tables of the bivariate digit multiplier: int32 [2, B, 2,
+    """Tree-PBS tables of the bivariate digit multiplier: carrier [2, B, 2,
     N]; [fam, h] is (x*h) mod B (fam 0) / (x*h) div B (fam 1) over the
     modulus-M input grid."""
-    require_width(params.torus_bits)
     bb, base, m = _spec_params(params)
     gen = L.Generator.new(m, params)
-    tvs = np.zeros((2, base, 2, params.N), np.int32)
+    tvs = np.zeros((2, base, 2, params.N),
+                   np.int32 if params.torus_bits == 32 else np.int64)
     for h in range(base):
         tvs[0, h] = gen.generate_lookup_table(
             lambda x, h=h: ((x % base) * h) % base).poly
@@ -749,7 +737,6 @@ def from_bools(bits, ck: CloudKey):
     the exact sum of its <= bb disjoint bits."""
     bb, _, m = _spec_params(ck.params)
     w = ck.params.torus_bits
-    require_width(w)
     nb = bits.shape[-2]
     D = -(-nb // bb)
     rows = bits.movedim(-2, 0)                             # [nb, ..., n1]
@@ -757,8 +744,8 @@ def from_bools(bits, ck: CloudKey):
     B = math.prod(batch)
     flat = rows.reshape(nb * B, n1)
     offs = torch.tensor([((1 << w) // (4 * m)) << (i % bb) for i in range(nb)],
-                        dtype=torch.int32, device=bits.device)
-    tv = torch.zeros((nb * B, 2, ck.params.N), dtype=torch.int32,
+                        dtype=carrier_dtype(w), device=bits.device)
+    tv = torch.zeros((nb * B, 2, ck.params.N), dtype=carrier_dtype(w),
                      device=bits.device)
     tv[:, 1, :] = offs.repeat_interleave(B)[:, None]       # lane i*B+b
     out = L.bootstrap_lut(flat, tv, ck).reshape((nb,) + batch + (n1,))
@@ -974,7 +961,7 @@ class _FheOpsMixin:
 class FheUint(_FheOpsMixin):
     """Operator-overloaded encrypted unsigned integer.
 
-    An immutable handle over the radix machinery: ``digits`` is the int32
+    An immutable handle over the radix machinery: ``digits`` is the carrier
     [..., D, n0+1] little-endian base-8 ciphertext tensor and ``ck`` the
     evaluation key.  ``+ - * // % & | ^ << >>`` and the six comparisons
     work homomorphically: add/mul widen to the exact result, sub wraps mod

@@ -4,19 +4,22 @@ multi-value and tree PBS.
 Counterpart of zig_tfhe_tpu/models/lut.py (the reference's lut/ package,
 encoder.zig, generator.zig, lookup_table.zig, plus the batched
 ``bootstrap_lut`` the reference documents but does not ship, lut.zig:42),
-on the 32-bit torus.  Test vectors are built on the host with numpy
-(key-independent, cached where the JAX package caches them); evaluation is
-the batched blind rotation of ops/blind_rotate.py, which on a uint key runs
-K2 and K1 at every step.  A batch can evaluate a different function per
-lane (per-lane test vectors [B, 2, N]).
+on the 32-bit and the 64-bit torus (int64 tables and codec on the 64-bit
+sets).  Test vectors are built on the host with numpy (key-independent,
+cached where the JAX package caches them); evaluation is the batched blind
+rotation of ops/blind_rotate.py, which on a uint key runs K2 and K1 at
+every step, and on a split-ring key the hi-plane scan with K1.  A batch
+can evaluate a different function per lane (per-lane test vectors
+[B, 2, N]).
 
-Not ported: the JAX package's ``ZTFHE_NO_INTERLEAVE`` and ``ZTFHE_MID``
-switches (the port runs its defaults: interleaved select packing where the
-margin guard allows it, the formula's budget), and the dedicated-lane
-route of ``tree_pbs`` and ``bootstrap_multi_lut`` with its TPU knee
-(``_rotation_knee``, ``_chunked_blind_rotate``): at width 32 the budget is
-infinite and every table rides the shared factored rotation; a finite
-budget (the 64-bit torus) raises ``NotImplementedError``.
+Where a factored (CIM17) table's ||q||_1 exceeds the key's budget
+(``mid_norm1_budget``: infinite at width 32, finite on the 64-bit sets'
+coarser engine gadget), ``tree_pbs`` and ``bootstrap_multi_lut`` give it a
+dedicated blind-rotation lane, as the JAX package does.  Not ported: the
+JAX package's ``ZTFHE_NO_INTERLEAVE`` and ``ZTFHE_MID`` switches (the port
+runs its defaults) and the TPU knee chunking of the dedicated lanes
+(``_rotation_knee``, ``_chunked_blind_rotate``): lanes are independent, so
+one rotation over all of them gives the same bits.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from zig_tfhe_tpu_torch.ops.keyswitch import identity_key_switch
 from zig_tfhe_tpu_torch.ops.packing_keyswitch import pack_tlwes_blocks
 from zig_tfhe_tpu_torch.ops.poly import negacyclic_rotate
 from zig_tfhe_tpu_torch.params import SecurityParams
-from zig_tfhe_tpu_torch.utils.torus import require_width, torus_constant_w
+from zig_tfhe_tpu_torch.utils.torus import (carrier_dtype, require_width,
+                                            torus_constant_w)
 
 
 def div_round(a: int, b: int) -> int:
@@ -49,7 +53,7 @@ def div_round(a: int, b: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class Encoder:
     """Message <-> torus codec with scale 1/(2m) (encoder.zig:29-116);
-    encodings are unsigned Python ints mod 2^32."""
+    encodings are unsigned Python ints mod 2^width."""
 
     message_modulus: int
     scale: float
@@ -72,7 +76,7 @@ class Encoder:
         return (1 << self.width) - 1
 
     def encode(self, message: int) -> int:
-        """Torus encoding (unsigned Python int mod 2^32)."""
+        """Torus encoding (unsigned Python int mod 2^width)."""
         m = message % self.message_modulus
         return torus_constant_w(m * self.scale, self.width) & self._mask
 
@@ -92,23 +96,24 @@ class Encoder:
 @dataclasses.dataclass
 class LookupTable:
     """A trivial TRLWE (a = 0) whose body encodes the function
-    (lookup_table.zig:16-77).  ``poly``: numpy int32 [2, N]."""
+    (lookup_table.zig:16-77).  ``poly``: numpy int32 [2, N] (int64 on the
+    64-bit torus)."""
 
     poly: np.ndarray
 
     @classmethod
     def new(cls, N: int, width: int = 32) -> "LookupTable":
         require_width(width)
-        return cls(np.zeros((2, N), np.int32))
+        return cls(np.zeros((2, N), np.int32 if width == 32 else np.int64))
 
     @classmethod
     def from_poly(cls, poly) -> "LookupTable":
         """Wrap an existing TRLWE [2, N] as a LUT (lookup_table.zig:33-36);
-        it may be a real (a != 0) TRLWE, e.g. a bootstrap's output."""
+        it may be a real (a != 0) TRLWE, e.g. a bootstrap's output.  The
+        carrier follows the input (int64 kept, anything else int32)."""
         arr = _host(poly)
-        if arr.dtype == np.int64:
-            require_width(64)
-        arr = np.array(arr, np.int32, copy=True)
+        arr = np.array(arr, np.int64 if arr.dtype == np.int64 else np.int32,
+                       copy=True)
         if arr.ndim != 2 or arr.shape[0] != 2:
             raise ValueError(f"LUT poly must be [2, N], got {arr.shape}")
         return cls(arr)
@@ -165,16 +170,18 @@ class Generator:
         negate the wrapped tail, store as trivial TRLWE body."""
         n = self.lookup_table_size
         m = self.encoder.message_modulus
-        raw = np.zeros(n, np.uint32)
+        w = self.encoder.width
+        udt, sdt = (np.uint32, np.int32) if w == 32 else (np.uint64, np.int64)
+        raw = np.zeros(n, udt)
         for x in range(m):
             start = div_round(x * n, m)
             end = div_round((x + 1) * n, m)
-            raw[start:end] = np.uint32(encoded[x])
+            raw[start:end] = udt(encoded[x])
         offset = div_round(n, 2 * m)
         rotated = np.roll(raw, -offset)  # rotated[i] = raw[(i+offset) % n]
-        rotated[n - offset:] = (~rotated[n - offset:] + np.uint32(1))
-        lut = LookupTable.new(self.poly_degree, self.encoder.width)
-        lut.poly[1, :] = rotated.astype(np.int32)
+        rotated[n - offset:] = (~rotated[n - offset:] + udt(1))
+        lut = LookupTable.new(self.poly_degree, w)
+        lut.poly[1, :] = rotated.astype(sdt)
         return lut
 
     def generate_lookup_table(self, f: Callable[[int], int]) -> LookupTable:
@@ -222,13 +229,14 @@ def decrypt_message(ct, message_modulus: int, sk, width: int = 32):
 def bootstrap_lut(ct_batch: torch.Tensor, lut, ck: CloudKey) -> torch.Tensor:
     """Programmable bootstrap: apply a LUT to a batch of ciphertexts.
 
-    ct_batch: int32 [B, n0+1] encrypted with the PBS message codec.  lut: a
-    LookupTable (shared), an int32 [2, N] table, or [B, 2, N] per-lane test
-    vectors.  Returns refreshed int32 [B, n0+1] encrypting f(message):
+    ct_batch: carrier [B, n0+1] encrypted with the PBS message codec.  lut:
+    a LookupTable (shared), a [2, N] table, or [B, 2, N] per-lane test
+    vectors.  Returns refreshed carrier [B, n0+1] encrypting f(message):
     blindRotateWithTestvec (trgsw.zig:336-400) -> sampleExtractIndex
     (trlwe.zig:146) -> identityKeySwitching (trgsw.zig:471)."""
     tv = (lut.as_torch(ct_batch.device) if isinstance(lut, LookupTable)
-          else torch.as_tensor(lut, dtype=torch.int32, device=ct_batch.device))
+          else torch.as_tensor(lut, dtype=carrier_dtype(ck.params.torus_bits),
+                               device=ct_batch.device))
     return _bootstrap.bootstrap_with_testvec(ct_batch, tv, ck)
 
 
@@ -237,8 +245,8 @@ def bootstrap_lut(ct_batch: torch.Tensor, lut, ck: CloudKey) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 #
 # A Generator-built testvec tv over a power-of-two modulus m factors as
-# tv = T0 * q in Z_2^32[X]/(X^N + 1), with T0 = s (1 + X + ... + X^(N-1)),
-# s = 2^32 / (4m), and q = tv (1 - X) / (2s) sparse (nonzero only at the
+# tv = T0 * q in Z_2^w[X]/(X^N + 1), with T0 = s (1 + X + ... + X^(N-1)),
+# s = 2^w / (4m), and q = tv (1 - X) / (2s) sparse (nonzero only at the
 # ~m bin edges): T0 (1 - X) = s (1 - X^N) = 2s.  So K LUTs of one input
 # cost one blind rotation with T0 and, per LUT, a few static negacyclic
 # rotations of the rotated accumulator.  The factored route multiplies the
@@ -247,13 +255,14 @@ def bootstrap_lut(ct_batch: torch.Tensor, lut, ck: CloudKey) -> torch.Tensor:
 
 
 def multi_lut_base(message_modulus: int, N: int, width: int = 32) -> np.ndarray:
-    """The shared testvec T0 (trivial TRLWE int32 [2, N]) for modulus m."""
+    """The shared testvec T0 (trivial TRLWE [2, N], int32 at width 32,
+    int64 at 64) for modulus m."""
     require_width(width)
     m = message_modulus
     if m & (m - 1) or not 1 <= m <= (1 << 30):
         raise ValueError(f"multi-value LUT needs power-of-two modulus, got {m}")
-    tv = np.zeros((2, N), np.int32)
-    tv[1, :] = (1 << 32) // (4 * m)
+    tv = np.zeros((2, N), np.int32 if width == 32 else np.int64)
+    tv[1, :] = (1 << width) // (4 * m)      # < 2^(width-2): fits the carrier
     return tv
 
 
@@ -271,9 +280,9 @@ def factor_lut(lut, message_modulus: int):
 
     offsets: ascending int tuple; coeffs: centred ints (|c| < m); the
     identity tv == T0 * sum_j c_j X^(o_j) is verified exactly (host
-    schoolbook, mod 2^32) before returning.  Raises ValueError for tables
-    that do not factor (non-trivial a-part, non-power-of-two modulus,
-    coefficients off the encode grid)."""
+    schoolbook, mod 2^width: int64 tables are 64-bit) before returning.
+    Raises ValueError for tables that do not factor (non-trivial a-part,
+    non-power-of-two modulus, coefficients off the encode grid)."""
     m = message_modulus
     tv = _host(lut)
     if tv.ndim != 2 or tv.shape[0] != 2:
@@ -282,35 +291,51 @@ def factor_lut(lut, message_modulus: int):
         raise ValueError("multi-value factoring needs a trivial (a=0) LUT")
     if m & (m - 1) or not 1 <= m <= (1 << 30):
         raise ValueError(f"multi-value LUT needs power-of-two modulus, got {m}")
-    if tv.dtype == np.int64:
-        require_width(64)
-    tv = np.ascontiguousarray(tv, np.int32)
-    return _factor_lut_cached(tv[1].tobytes(), tv.shape[1], m)
+    width = 64 if tv.dtype == np.int64 else 32
+    tv = np.ascontiguousarray(tv, np.int32 if width == 32 else np.int64)
+    return _factor_lut_cached(tv[1].tobytes(), tv.shape[1], m, width)
 
 
 @functools.lru_cache(maxsize=1024)
-def _factor_lut_cached(b_bytes: bytes, N: int, m: int):
+def _factor_lut_cached(b_bytes: bytes, N: int, m: int, width: int = 32):
     """factor_lut's host factorization and O(nnz N) exactness check, cached
     on the table bytes.  Two constructions, both verified: (1) centred
     mod-2m quotients of the first difference (smallest ||q||_1, ambiguous
     where a jump reaches m); (2) the true differences of the canonical grid
     lifts g = tv / delta in [0, 2m), wrap term c_0 = g_0 + g_{N-1}, used
-    only when (1)'s check fails (the JAX package's docstring proves it)."""
-    b = np.frombuffer(b_bytes, np.int32).astype(np.int64) & 0xFFFFFFFF
-    # d = (1-X)*tv (negacyclic): d_0 = tv_0 + tv_{N-1}, d_j = tv_j - tv_{j-1}
-    d = np.empty(N, np.int64)
-    d[0] = b[0] + b[N - 1]
-    d[1:] = b[1:] - b[:-1]
-    d &= 0xFFFFFFFF
-    delta = (1 << 32) // (2 * m)                 # = 2s
+    only when (1)'s check fails (the JAX package's docstring proves it).
+    Width 64 runs the same algebra on numpy uint64, which wraps mod 2^64."""
+    if width == 64:
+        b = np.frombuffer(b_bytes, np.int64).view(np.uint64)
+        d = np.empty(N, np.uint64)
+        # a wrap-exact scalar add (numpy warns on uint64 scalar overflow)
+        d[0] = np.uint64((int(b[0]) + int(b[N - 1])) & ((1 << 64) - 1))
+        d[1:] = b[1:] - b[:-1]
+        delta = np.uint64((1 << 64) // (2 * m))
+        ones = np.full(N, np.uint64(int(delta) // 2), np.uint64)
+    else:
+        b = np.frombuffer(b_bytes, np.int32).astype(np.int64) & 0xFFFFFFFF
+        # d = (1-X)*tv (negacyclic): d_0 = tv_0 + tv_{N-1}, d_j = tv_j - tv_{j-1}
+        d = np.empty(N, np.int64)
+        d[0] = b[0] + b[N - 1]
+        d[1:] = b[1:] - b[:-1]
+        d &= 0xFFFFFFFF
+        delta = (1 << 32) // (2 * m)             # = 2s
+        ones = np.full(N, delta // 2, np.int64)
     if np.any(d % delta):
         raise ValueError(
             "LUT values are not on the 1/(2m) encode grid; only "
             "generate_lookup_table outputs (power-of-two m) factor")
-    ones = np.full(N, delta // 2, np.int64)
 
     def _verify(offsets, coeffs):
-        # exact check: T0 * q == tv (schoolbook negacyclic, mod 2^32)
+        # exact check: T0 * q == tv (schoolbook negacyclic, mod 2^width)
+        if width == 64:
+            recon = np.zeros(N, np.uint64)
+            for j, cj in zip(offsets, coeffs):
+                rot = (np.concatenate([np.uint64(0) - ones[N - j:],
+                                       ones[:N - j]]) if j else ones)
+                recon += np.uint64(cj % (1 << 64)) * rot
+            return not np.any(recon - b)
         recon = np.zeros(N, np.int64)
         for j, cj in zip(offsets, coeffs):
             rot = np.concatenate([-ones[N - j:], ones[:N - j]]) if j else ones
@@ -336,9 +361,9 @@ def _factor_lut_cached(b_bytes: bytes, N: int, m: int):
 
 
 def apply_factored(acc: torch.Tensor, offsets, coeffs) -> torch.Tensor:
-    """Multiply a rotated accumulator TRLWE batch int32 [..., 2, N] by the
-    factored q = sum_j c_j X^(o_j): static negacyclic rotations and int32
-    wrapping multiply-adds (exact mod 2^32)."""
+    """Multiply a rotated accumulator TRLWE batch [..., 2, N] by the
+    factored q = sum_j c_j X^(o_j): static negacyclic rotations and
+    wrapping multiply-adds on the carrier (exact mod 2^w)."""
     out = None
     for j, c in zip(offsets, coeffs):
         term = negacyclic_rotate(acc, j) if j else acc
@@ -368,7 +393,7 @@ def encrypt_radix_message(gen: torch.Generator, message, message_modulus: int,
                           alpha: float, sk: torch.Tensor, width: int = 32):
     """Encrypt messages of modulus m in 32..256 as (lo, hi) digit
     ciphertexts: lo = message mod 16 at modulus 16, hi = message // 16 at
-    modulus m/16, each int32 [B, n0+1] (a scalar gets a batch of one); the
+    modulus m/16, each carrier [B, n0+1] (a scalar gets a batch of one); the
     hi digits draw after the lo ones."""
     m = message_modulus
     if m & (m - 1) or not 32 <= m <= 256:
@@ -394,15 +419,15 @@ def decrypt_radix_message(cts, message_modulus: int, sk, width: int = 32):
 @functools.lru_cache(maxsize=256)
 def radix_lut_testvecs(f: Callable[[int], int], message_modulus: int,
                        params: SecurityParams) -> np.ndarray:
-    """The mid layer's 2 * m_hi test vectors: int32 [2, m_hi, 2, N]; [0, h]
+    """The mid layer's 2 * m_hi test vectors: carrier [2, m_hi, 2, N]; [0, h]
     is g_h_lo (f's low output digit, modulus-16 encoding), [1, h] is g_h_hi
     (high digit, modulus-m_hi encoding).  Cached per (f, m, params): pass a
     stable function object to hit the cache."""
-    require_width(params.torus_bits)
     m = message_modulus
     m_hi = m // 16
     gen = Generator.new(16, params)
-    tvs = np.zeros((2, m_hi, 2, params.N), np.int32)
+    tvs = np.zeros((2, m_hi, 2, params.N),
+                   np.int32 if params.torus_bits == 32 else np.int64)
     for h in range(m_hi):
         lo = gen.generate_lookup_table(lambda xl, h=h: f(16 * h + xl) % 16)
         hi = gen.generate_lookup_table_custom(
@@ -419,7 +444,7 @@ def bootstrap_lut_radix(ct_lo: torch.Tensor, ct_hi: torch.Tensor,
                         pksk_basebit: int | None = None,
                         pksk_t: int | None = None):
     """Evaluate f: [0, m) -> [0, m) on radix-encoded inputs (m a power of
-    two in 32..256).  ct_lo/ct_hi: int32 [B, n0+1] from
+    two in 32..256).  ct_lo/ct_hi: carriers [B, n0+1] from
     encrypt_radix_message; pksk: the packing key (gen_packing_ksk, or the
     cloud key's ``pksk``), built at (pksk_basebit, pksk_t) (None: the set's
     defaults).  Returns (out_lo, out_hi) in the same radix encoding, so
@@ -439,7 +464,8 @@ def mid_norm1_budget(ck) -> float:
     needs a dedicated blind rotation: the factored route multiplies the
     mid rotation's amplitude error by ||q||_1, which lands on the packed
     value that the select rotation decodes against the modulus-16 half-bin
-    (2^-6).  The JAX package's docstring derives it:
+    (2^-6).  Past the budget a table takes a dedicated blind rotation.  The
+    JAX package's docstring derives it:
 
         sigma_b = 2^-(e*lb+1) sqrt(steps),  sigma_a = 2^-(e*la+1)
                   sqrt(N/6) sqrt(steps),  calibrated x 4 (MID_SIGMA_CAL);
@@ -472,18 +498,35 @@ def mid_norm1_budget(ck) -> float:
     return math.sqrt(avail_sq) / sigma_b
 
 
-def _factored_tables(tables, message_modulus: int, ck: CloudKey) -> list:
-    """Each table's (offsets, coeffs, norm1); raises if one exceeds the
-    key's budget, whose dedicated-lane route the port does not run."""
+def _route_tables(ct: torch.Tensor, tables, message_modulus: int,
+                  ck: CloudKey) -> torch.Tensor:
+    """Rotated accumulators [B, K, 2, N] of K tables of the same inputs ct
+    [B, n0+1]: one shared rotation against the all-ones base T0 and a
+    factored multiplication per table within the key's ||q||_1 budget
+    (``mid_norm1_budget``), one dedicated rotation lane per table over it
+    (all of them one blind rotation over D * B lanes, lane d * B + b)."""
+    params = ck.params
+    N, B = params.N, ct.shape[0]
+    tables = [_host(t) for t in tables]
     factored = [factor_lut(t, message_modulus) for t in tables]
     budget = mid_norm1_budget(ck)
-    over = [n1 for _, _, n1 in factored if n1 > budget]
-    if over:
-        raise NotImplementedError(
-            f"tables with ||q||_1 {over} exceed the key's factoring budget "
-            f"{budget:.1f}: their dedicated blind rotations come with slice "
-            f"4 (the 64-bit torus)")
-    return factored
+    use_fact = [n1 <= budget for _, _, n1 in factored]
+    acc = None
+    if any(use_fact):
+        base = _multi_lut_base_on(message_modulus, N, params.torus_bits,
+                                  ct.device)
+        acc = blind_rotate(ct, base, ck, params)              # [B, 2, N]
+    ded = [i for i, u in enumerate(use_fact) if not u]
+    ded_out = None
+    if ded:
+        tv = torch.from_numpy(np.stack([tables[i] for i in ded])).to(ct.device)
+        ded_out = blind_rotate(
+            ct.repeat(len(ded), 1), tv.repeat_interleave(B, dim=0), ck,
+            params).reshape(len(ded), B, 2, N)
+    pos = {i: k for k, i in enumerate(ded)}
+    return torch.stack([apply_factored(acc, *factored[i][:2]) if use_fact[i]
+                        else ded_out[pos[i]] for i in range(len(tables))],
+                       dim=1)
 
 
 def tree_pbs(ct_in: torch.Tensor, ct_sel: torch.Tensor, tvs, n_blocks: int,
@@ -491,15 +534,16 @@ def tree_pbs(ct_in: torch.Tensor, ct_sel: torch.Tensor, tvs, n_blocks: int,
              pksk_t: int | None = None) -> torch.Tensor:
     """Two-layer tree PBS: F output families, H hypotheses.
 
-    tvs: int32 [F, H, 2, N], Generator-built (modulus-16 grid) test
+    tvs: carrier [F, H, 2, N], Generator-built (modulus-16 grid) test
     vectors; table [fam, h] is the family's LUT of ct_in under hypothesis h
-    of the selector.  ct_in: int32 [B, n0+1] at the modulus-16 codec;
-    ct_sel: int32 [B, n0+1] at modulus n_blocks (a power of two, 2..16; H
-    <= n_blocks, unused blocks packed as zero samples).  Returns int32
+    of the selector.  ct_in: carrier [B, n0+1] at the modulus-16 codec;
+    ct_sel: carrier [B, n0+1] at modulus n_blocks (a power of two, 2..16; H
+    <= n_blocks, unused blocks packed as zero samples).  Returns carrier
     [B, F, n0+1].
 
     Mid layer: one blind rotation of ct_in against the all-ones base, then
-    one factored multiplication per table.  Pack layer: each family's
+    one factored multiplication per table (a table over the key's ||q||_1
+    budget gets a dedicated rotation lane instead, ``_route_tables``).  Pack layer: each family's
     candidates land on the selector's coefficient blocks.  Select layer:
     interleaved when F == 2 and 2 * n_blocks * 64 <= N (both families in
     one testvec, family fam's hypothesis h on the block centred at
@@ -515,15 +559,10 @@ def tree_pbs(ct_in: torch.Tensor, ct_sel: torch.Tensor, tvs, n_blocks: int,
     if H > n_blocks:
         raise ValueError(f"{H} hypotheses exceed {n_blocks} selector blocks")
     B = ct_in.shape[0]
-    dev = ct_in.device
     interleave = F == 2 and 2 * n_blocks * 64 <= N
 
-    factored = _factored_tables([tvs[fam, h] for fam in range(F)
-                                 for h in range(H)], 16, ck)
-    base = _multi_lut_base_on(16, N, params.torus_bits, dev)
-    acc = blind_rotate(ct_in, base, ck, params)               # [B, 2, N]
-    outs = torch.stack([apply_factored(acc, o, c) for o, c, _ in factored],
-                       dim=1)                                 # [B, F*H, 2, N]
+    outs = _route_tables(ct_in, [tvs[fam, h] for fam in range(F)
+                                 for h in range(H)], 16, ck)  # [B, F*H, 2, N]
     lv1 = _trlwe.sample_extract(outs.reshape(B * F * H, 2, N), 0)
     lv1 = lv1.reshape(B, F, H, N + 1)
     if H < n_blocks:                                          # pad blocks
@@ -555,13 +594,14 @@ def bootstrap_lut_bivariate(ct_x: torch.Tensor, ct_y: torch.Tensor,
     """Bivariate PBS: out = f2(x, y) mod out_modulus for two
     modulus-16-encoded inputs (ct_y at y_modulus, a power of two 2..16): the
     tree PBS with x as its input and y as its selector, one hypothesis
-    table per y value (2 blind-rotation lanes per input).  Returns int32
+    table per y value (2 blind-rotation lanes per input).  Returns carrier
     [B, n0+1] at the modulus-16 codec."""
     if out_modulus > 16:
         raise ValueError(f"bivariate output modulus <= 16, got {out_modulus}")
     params = ck.params
     gen = Generator.new(16, params)
-    tvs = np.zeros((1, y_modulus, 2, params.N), np.int32)
+    tvs = np.zeros((1, y_modulus, 2, params.N),
+                   np.int32 if params.torus_bits == 32 else np.int64)
     for h in range(y_modulus):
         tvs[0, h] = gen.generate_lookup_table(
             lambda x, h=h: f2(x, h) % out_modulus).poly
@@ -572,17 +612,14 @@ def bootstrap_multi_lut(ct_batch: torch.Tensor, luts, message_modulus: int,
                         ck: CloudKey) -> torch.Tensor:
     """K LUTs of the same inputs for one blind rotation.
 
-    ct_batch: int32 [B, n0+1] (PBS codec, modulus m); luts: K
+    ct_batch: carrier [B, n0+1] (PBS codec, modulus m); luts: K
     LookupTables or [2, N] tables (Generator-built, power-of-two m).
-    Returns int32 [K, B, n0+1], row k encrypting f_k(message):
+    Returns carrier [K, B, n0+1], row k encrypting f_k(message):
     decrypt-equivalent to K bootstrap_lut calls (exactly so at alpha = 0)
-    at ~1/K the blind-rotation cost."""
+    at ~1/K the blind-rotation cost; a table over the key's ||q||_1 budget
+    takes its own rotation lane (``_route_tables``)."""
     params = ck.params
-    factored = _factored_tables(luts, message_modulus, ck)
     K, B, N = len(luts), ct_batch.shape[0], params.N
-    base = _multi_lut_base_on(message_modulus, N, params.torus_bits,
-                              ct_batch.device)
-    acc = blind_rotate(ct_batch, base, ck, params)            # [B, 2, N]
-    outs = torch.stack([apply_factored(acc, o, c) for o, c, _ in factored])
+    outs = _route_tables(ct_batch, luts, message_modulus, ck).transpose(0, 1)
     lv1 = _trlwe.sample_extract(outs.reshape(K * B, 2, N), 0)
     return identity_key_switch(lv1, ck.ksk1, params).reshape(K, B, -1)

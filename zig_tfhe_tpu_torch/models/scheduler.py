@@ -4,7 +4,7 @@ Counterpart of zig_tfhe_tpu/models/scheduler.py.  The native C++ scheduler
 (native/circuit/scheduler.cc, backend-neutral and shared with the JAX
 package) levels a boolean circuit DAG and allocates wire slots; this module
 compiles it with g++ into zig_tfhe_tpu_torch/_build/, binds it through
-ctypes, and evaluates the resulting plan over an int32 ciphertext arena
+ctypes, and evaluates the resulting plan over a ciphertext arena
 [n_slots + 1, B, n0 + 1]: each level's two-input gates run as one
 heterogeneous ``gates.apply_gates`` bootstrap, its MUX lanes as one
 ``gates.mux``, and NOT/COPY/CONST as tensor ops.
@@ -40,6 +40,7 @@ import torch
 
 from zig_tfhe_tpu_torch.key import CloudKey
 from zig_tfhe_tpu_torch.models import gates as G
+from zig_tfhe_tpu_torch.utils.torus import carrier_dtype
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG.parent / "native" / "circuit" / "scheduler.cc"
@@ -294,27 +295,28 @@ def evaluate(plan: Plan, input_cts: torch.Tensor,
              ck: CloudKey) -> torch.Tensor:
     """Evaluate a scheduled circuit over encrypted inputs.
 
-    input_cts: int32 [n_inputs, n0+1] in plan input order, or
-    [n_inputs, B, n0+1] to run the same plan over B client input sets (the
-    serving mode: each level's gates of all clients share one bootstrap).
-    Returns int32 [n_outputs, n0+1] (or [n_outputs, B, n0+1]) on the
-    inputs' device.
+    input_cts: carrier [n_inputs, n0+1] (int32, int64 on the 64-bit
+    torus) in plan input order, or [n_inputs, B, n0+1] to run the same plan
+    over B client input sets (the serving mode: each level's gates of all
+    clients share one bootstrap).  Returns carrier [n_outputs, n0+1] (or
+    [n_outputs, B, n0+1]) on the inputs' device.
     """
     n0 = ck.params.n0
+    dtype = carrier_dtype(ck.params.torus_bits)
     batched = input_cts.dim() == 3
     if not batched:
         input_cts = input_cts[:, None]
-    if (input_cts.dim() != 3 or input_cts.dtype != torch.int32
+    if (input_cts.dim() != 3 or input_cts.dtype != dtype
             or input_cts.shape[0] != len(plan.input_slots)
             or input_cts.shape[2] != n0 + 1):
         raise ValueError(
-            f"inputs must be int32 [{len(plan.input_slots)}, (B,) {n0 + 1}], "
-            f"not {input_cts.dtype} {tuple(input_cts.shape)}")
+            f"inputs must be {dtype} [{len(plan.input_slots)}, (B,) "
+            f"{n0 + 1}], not {input_cts.dtype} {tuple(input_cts.shape)}")
     dev = input_cts.device
     # the last row is the JAX package's trash row (padded lanes write it);
     # nothing writes it here, and the arena keeps the same shape
     arena = torch.zeros((plan.n_slots + 1, input_cts.shape[1], n0 + 1),
-                        dtype=torch.int32, device=dev)
+                        dtype=dtype, device=dev)
     arena[torch.from_numpy(plan.input_slots.astype(np.int64)).to(dev)] = input_cts
     for lvl in plan.levels:
         _run_level(arena, lvl, ck)

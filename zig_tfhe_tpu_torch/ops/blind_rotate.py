@@ -23,7 +23,7 @@ from zig_tfhe_tpu_torch.ops.decomposition import gadget_decompose
 from zig_tfhe_tpu_torch.ops.ntt import norm_levels
 from zig_tfhe_tpu_torch.ops.poly import negacyclic_rotate
 from zig_tfhe_tpu_torch.params import SecurityParams
-from zig_tfhe_tpu_torch.utils.torus import (i32_to_i8_limbs,
+from zig_tfhe_tpu_torch.utils.torus import (carrier_dtype, i32_to_i8_limbs,
                                             shift_right_logical, to_carrier)
 
 
@@ -44,11 +44,11 @@ def _decompose_to_rows(ct: torch.Tensor, params: SecurityParams, levels=None,
 
 
 def modswitch(x: torch.Tensor, params: SecurityParams) -> torch.Tensor:
-    """Torus carrier -> [0, 2N] rotation amount, int32 (trgsw.zig:297,312):
-    (x + 2^(w-nbit-2)) >>u (w-nbit-1)."""
+    """Torus carrier -> [0, 2N] rotation amount, int32 at every width
+    (trgsw.zig:297,312): (x + 2^(w-nbit-2)) >>u (w-nbit-1)."""
     w = params.torus_bits
     rounded = x + to_carrier(1 << (w - params.nbit - 2), w)
-    return shift_right_logical(rounded, w - params.nbit - 1)
+    return shift_right_logical(rounded, w - params.nbit - 1).to(torch.int32)
 
 
 def _digit_limbs(ct: torch.Tensor, params: SecurityParams) -> torch.Tensor:
@@ -87,16 +87,19 @@ def blind_rotate(tlwe_batch: torch.Tensor, testvec: torch.Tensor, ck,
                  params: SecurityParams) -> torch.Tensor:
     """Blind rotation of a batch of TLWE lv0 ciphertexts.
 
-    tlwe_batch: int32 [B, n0+1]; testvec: int32 [2, N] (shared) or
-    [B, 2, N] (per lane); ck: CloudKey.  Returns int32 [B, 2, N].  The
-    NTT engine runs when the key holds ``bsk_ntt``, else the Toeplitz
-    engine."""
+    tlwe_batch: carrier [B, n0+1] (int32, int64 on the 64-bit torus);
+    testvec: carrier [2, N] (shared) or [B, 2, N] (per lane); ck: CloudKey.
+    Returns carrier [B, 2, N].  The NTT engine runs when the key holds
+    ``bsk_ntt``, else the Toeplitz engine."""
     from zig_tfhe_tpu_torch.ops.blind_rotate_ntt import blind_rotate_ntt
 
-    if tlwe_batch.dtype != torch.int32:
+    want = carrier_dtype(params.torus_bits)
+    if tlwe_batch.dtype != want:
+        # a width-mismatched ciphertext would modswitch garbage silently
         raise TypeError(
-            f"ciphertext dtype {tlwe_batch.dtype} does not match the 32-bit "
-            "torus carrier torch.int32")
+            f"ciphertext dtype {tlwe_batch.dtype} does not match the "
+            f"{params.torus_bits}-bit torus carrier {want}: encrypt with "
+            f"width={params.torus_bits}")
     if ck.bsk_ntt is not None:
         return blind_rotate_ntt(tlwe_batch, testvec, ck.bsk_ntt, params,
                                 ck.bsk_ntt_drop, group=ck.bsk_group,

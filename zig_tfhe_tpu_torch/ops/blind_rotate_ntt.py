@@ -25,6 +25,12 @@ groups above 3 and group 3 with multi-limb digits run the plain ops of
 the JAX package's XLA step (the pointwise/rotate barrett fold for
 one-limb digits) and then K1.  The path is chosen from the key's
 configuration before any launch.
+
+The 64-bit torus: a split-ring set (N > 1024) runs
+ops/split_ring.py:blind_rotate_split, whose hi-plane step finishes on
+K1.  The direct engine at width 64 (TEST_TINY64, N = 64) runs the plain
+ops at every group and finishes with K1's int64 variant
+(split_ring.py:finish_int64), which has no kernel: CPU tensors only.
 """
 
 from __future__ import annotations
@@ -36,29 +42,36 @@ from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows, modswitch
 from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import ntt_inverse_to_crt_acc
 from zig_tfhe_tpu_torch.ops.cuda.ntt_step import (digit_planes,
                                                   ntt_step_fused, supports)
+from zig_tfhe_tpu_torch.ops.split_ring import blind_rotate_split, finish_int64
 from zig_tfhe_tpu_torch.params import SecurityParams
-from zig_tfhe_tpu_torch.utils.torus import require_width
 
 
 def rotate_via_ntt(polys: torch.Tensor, t: torch.Tensor,
-                   plan: _ntt.NTTPlan) -> torch.Tensor:
-    """Exact negacyclic X^t rotation of full-torus int32 polys through the
-    NTT.  polys: [B or 1, ..., N] (batch axis leading); t: int32 [B]."""
-    p_hat = _ntt.ntt_forward(polys, plan, digit_limbs=4, digit_bound=128)
+                   plan: _ntt.NTTPlan, width: int = 32) -> torch.Tensor:
+    """Exact negacyclic X^t rotation of full-torus polys (carriers at
+    ``width``) through the NTT.  polys: [B or 1, ..., N] (batch axis
+    leading); t: int32 [B]."""
+    p_hat = _ntt.ntt_forward(polys, plan, digit_limbs=width // 8,
+                             digit_bound=128)
     r_hat = _ntt.rotate_diag(p_hat, t, plan, minus_one=False)
-    return _ntt.ntt_inverse_to_crt(r_hat, plan)
+    return _ntt.ntt_inverse_to_crt(r_hat, plan, width)
 
 
 def blind_rotate_ntt(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
                      bsk_ntt: torch.Tensor, params: SecurityParams,
                      drop_bits: int, group: int = 1, levels=None,
                      bgbit: int | None = None) -> torch.Tensor:
-    """tlwe_batch int32 [B, n0+1]; testvec int32 [2, N] or [B, 2, N];
+    """tlwe_batch carrier [B, n0+1]; testvec carrier [2, N] or [B, 2, N];
     bsk_ntt int16 [n0, P, la+lb, 2, N] (group 1) or
-    [G, 2^g-1, P, la+lb, 2, N] (multi-bit, G = ceil(n0/g)).
-    Returns int32 [B, 2, N].  (bgbit, levels) is the key's engine gadget
-    (None: the parameter base / levels read off the key's row axis)."""
-    require_width(params.torus_bits)
+    [G, 2^g-1, P, la+lb, 2, N] (multi-bit, G = ceil(n0/g)), or the split
+    key's [.., P, 2R, 4, N/2] on a split-ring set.  Returns carrier
+    [B, 2, N].  (bgbit, levels) is the key's engine gadget (None: the
+    parameter base / levels read off the key's row axis)."""
+    if params.split_ring:
+        return blind_rotate_split(tlwe_batch, testvec, bsk_ntt, params,
+                                  drop_bits, group=group, levels=levels,
+                                  bgbit=bgbit)
+    w = params.torus_bits
     e = params.bgbit if bgbit is None else bgbit
     row_axis = 2 if group == 1 else 3
     if levels is None:
@@ -83,7 +96,7 @@ def blind_rotate_ntt(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
     b_tilda = 2 * N - modswitch(tlwe_batch[:, n0], params)
     if testvec.dim() == 2:
         testvec = testvec[None]          # [1, 2, N] broadcasts against [B]
-    acc = rotate_via_ntt(testvec, b_tilda, plan)
+    acc = rotate_via_ntt(testvec, b_tilda, plan, w)
     if acc.shape[0] != B:
         acc = acc.expand(B, 2, N).contiguous()
     a_cols = tlwe_batch[:, :n0].T        # [n0, B]
@@ -93,6 +106,8 @@ def blind_rotate_ntt(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
         return _ntt.ntt_forward(rows, plan, e_limbs, dbound)
 
     def finish(acc, v_hat):
+        if w == 64:
+            return finish_int64(v_hat, acc, plan, drop_bits)
         return ntt_inverse_to_crt_acc(torch.stack(v_hat), acc, plan, drop_bits)
 
     if group == 1:
@@ -107,7 +122,7 @@ def blind_rotate_ntt(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
     if n0 < group * G:                   # ragged n0: pad a = 0 (no rotation)
         a_cols = torch.cat([a_cols, a_cols.new_zeros(group * G - n0, B)])
     a_groups = a_cols.reshape(G, group, B)
-    if supports(group, e_limbs):
+    if w == 32 and supports(group, e_limbs):
         ts = modswitch(a_groups, params)     # every step's rotations at once
         for s in range(G):
             digits = _decompose_to_rows(acc, params, levels, bgbit=e)

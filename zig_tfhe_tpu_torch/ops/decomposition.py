@@ -1,10 +1,13 @@
-"""Gadget and key-switch digit decomposition as vectorized int32 ops.
+"""Gadget and key-switch digit decomposition as vectorized carrier ops.
 
 Counterpart of zig_tfhe_tpu/ops/decomposition.py (trgsw.zig:193-219 and
 the signed key-switch digits of the one-matmul key switch):
 
     tmp    = x + offset                       (wrapping)
-    dig_i  = ((tmp >>u (32-(i+1)*bgbit)) & (Bg-1)) - Bg/2   in [-Bg/2, Bg/2)
+    dig_i  = ((tmp >>u (w-(i+1)*bgbit)) & (Bg-1)) - Bg/2   in [-Bg/2, Bg/2)
+
+on int32 (w = 32) or int64 (w = 64) carriers; the digits are int32 at
+either width.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ def gadget_decompose(x: torch.Tensor, params: SecurityParams,
                      level_axis: int = -1, levels: int | None = None,
                      bgbit: int | None = None,
                      center: bool = False) -> torch.Tensor:
-    """Signed gadget digits of int32 torus values, stacked on
+    """Signed gadget digits (int32) of torus carriers, stacked on
     ``level_axis`` (-1: [..., L]; -2: [..., L, last]).
 
     levels < L selects the approximate decomposition (top digits only);
@@ -54,15 +57,16 @@ def gadget_decompose(x: torch.Tensor, params: SecurityParams,
     mask = (1 << bgbit) - 1
     half = 1 << (bgbit - 1)
     tmp = x + to_carrier(offset, w)
-    digs = [(shift_right_logical(tmp, w - (i + 1) * bgbit) & mask) - half
-            for i in range(levels)]
+    digs = [((shift_right_logical(tmp, w - (i + 1) * bgbit) & mask)
+             - half).to(torch.int32) for i in range(levels)]
     return torch.stack(digs, dim=level_axis)
 
 
 def ks_decompose(a: torch.Tensor, basebit: int, t: int,
                  width: int = 32) -> torch.Tensor:
-    """Signed key-switch digits: int32 [..., t] in [-B/2, B/2), with
-    sum_j d_j * 2^(32-(j+1)*basebit) == a rounded to basebit*t bits."""
+    """Signed key-switch digits of carriers at ``width``: int32 [..., t] in
+    [-B/2, B/2), with sum_j d_j * 2^(w-(j+1)*basebit) == a rounded to
+    basebit*t bits."""
     require_width(width)
     mask = (1 << basebit) - 1
     half = 1 << (basebit - 1)
@@ -71,6 +75,6 @@ def ks_decompose(a: torch.Tensor, basebit: int, t: int,
     for j in range(t):
         balance += (1 << (basebit - 1)) * (1 << (width - (j + 1) * basebit))
     a_bar = a + to_carrier((prec + balance) % (1 << width), width)
-    digs = [(shift_right_logical(a_bar, width - (j + 1) * basebit) & mask)
-            - half for j in range(t)]
+    digs = [((shift_right_logical(a_bar, width - (j + 1) * basebit) & mask)
+             - half).to(torch.int32) for j in range(t)]
     return torch.stack(digs, dim=-1)

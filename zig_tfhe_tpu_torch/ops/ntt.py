@@ -32,7 +32,7 @@ import torch
 
 from zig_tfhe_tpu_torch.ops.poly import matmul_i8
 from zig_tfhe_tpu_torch.params import SecurityParams
-from zig_tfhe_tpu_torch.utils.torus import i32_to_i8_limbs, require_width
+from zig_tfhe_tpu_torch.utils.torus import carrier_dtype, i32_to_i8_limbs
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +108,8 @@ class NTTPlan:
       crt_e[i]:         int32   e_p mod 2^32 (CRT idempotent)
       crt_theta[i]:     float32 e_p / P
       p_mod:            int32   P mod 2^32
+      crt_e64, p_mod64: the same mod 2^64 as int64 bit patterns (the
+                        64-bit torus's lift)
     """
 
     N: int
@@ -121,6 +123,8 @@ class NTTPlan:
     crt_e: tuple
     crt_theta: tuple
     p_mod: int
+    crt_e64: tuple = ()
+    p_mod64: int = 0
 
     def __hash__(self):
         return hash((self.N, self.primes))
@@ -161,7 +165,7 @@ def make_plan(N: int, bound_bits: int) -> NTTPlan:
             f"envelope (N={N}, bound 2^{bound_bits})")
 
     fwd_lo, fwd_hi, inv_cat_lo, inv_cat_hi, rot = [], [], [], [], []
-    crt_e, crt_theta = [], []
+    crt_e, crt_e64, crt_theta = [], [], []
     P = 1
     for p in primes:
         P *= p
@@ -192,6 +196,7 @@ def make_plan(N: int, bound_bits: int) -> NTTPlan:
         pp = P // p
         e = pp * pow(pp, p - 2, p)  # e ≡ 1 mod p, ≡ 0 mod others
         crt_e.append(np.int32(np.uint32(e % (1 << 32)).view(np.int32)))
+        crt_e64.append(np.int64(np.uint64(e % (1 << 64)).view(np.int64)))
         crt_theta.append(np.float32(e / P))
 
     return NTTPlan(
@@ -201,6 +206,8 @@ def make_plan(N: int, bound_bits: int) -> NTTPlan:
         rot=tuple(rot), rot_merged=np.concatenate(rot, axis=1),
         crt_e=tuple(crt_e), crt_theta=tuple(crt_theta),
         p_mod=int(np.uint32(P % (1 << 32)).view(np.int32)),
+        crt_e64=tuple(crt_e64),
+        p_mod64=int(np.uint64(P % (1 << 64)).view(np.int64)),
     )
 
 
@@ -210,10 +217,10 @@ def plan_for_params(params: SecurityParams, drop_bits: int = 0,
                     pseudorandom_key: bool = False) -> NTTPlan:
     """Plan covering one external product + NTT-domain rotation (the JAX
     package's bound: worst case, or the Hoeffding tail bound for
-    pseudorandom keys and engine gadgets — ops/ntt.py:plan_for_params)."""
-    if params.split_ring:
-        raise NotImplementedError(
-            "split-ring (N > 1024) sets are not ported to PyTorch yet")
+    pseudorandom keys and engine gadgets — ops/ntt.py:plan_for_params).
+    Split-ring sets (N > 1024) transform on the N/2 plan under the same
+    bound: each output coefficient of a half-product pair still sums N
+    true products (ops/split_ring.py)."""
     e = params.bgbit if bgbit is None else bgbit
     la, lb = norm_levels(params, levels, bgbit=e)
     digit_bound = 1 << (e - 1)
@@ -226,7 +233,7 @@ def plan_for_params(params: SecurityParams, drop_bits: int = 0,
                          * mult * (la + lb) * params.N)
                * digit_bound * key_bound)
         bits = min(bits, math.ceil(math.log2(tau)))
-    return make_plan(params.N, bits)
+    return make_plan(params.N // 2 if params.split_ring else params.N, bits)
 
 
 def norm_levels(params: SecurityParams, levels,
@@ -278,7 +285,8 @@ def default_decomp_levels(params: SecurityParams) -> tuple[int, int]:
 def default_drop_bits(params: SecurityParams, group: int = 1,
                       bgbit: int | None = None) -> int:
     """BSK rounding bits for the NTT engine (ops/ntt.py:default_drop_bits;
-    5 for the 128-bit default group 3 at Bg_e = 2^7, 0 for N < 1024)."""
+    5 for the 128-bit default group 3 at Bg_e = 2^7, 0 for N < 1024, 32
+    on the split-ring sets, whose scan then runs on int32 hi planes)."""
     if params.N < 1024:
         return 0
     if params.split_ring:
@@ -386,12 +394,12 @@ def residue_limbs(v: torch.Tensor):
 
 
 def ntt_inverse_to_crt(res_list, plan: NTTPlan, width: int = 32) -> torch.Tensor:
-    """Inverse NTT per prime + exact CRT lift to int32 mod 2^32.
+    """Inverse NTT per prime + exact CRT lift mod 2^width.
 
     res_list: per prime, int16/int32 [..., N] centered residues
-    (|.| <= 0.55p).  Returns int32 [..., N] == the centered-exact
-    convolution mod 2^32, provided its true magnitude is < P/4."""
-    require_width(width)
+    (|.| <= 0.55p).  Returns the carrier (int32, int64 at width 64) [..., N]
+    == the centered-exact convolution mod 2^width, provided its true
+    magnitude is < P/4."""
     return crt_combine(ntt_inverse_residues(res_list, plan), plan, width)
 
 
@@ -413,14 +421,16 @@ def ntt_inverse_residues(res_list, plan: NTTPlan) -> list:
 
 
 def crt_combine(xs, plan: NTTPlan, width: int = 32) -> torch.Tensor:
-    """Centered-exact CRT: x mod 2^32 from centered residues.
+    """Centered-exact CRT: x mod 2^width from centered residues.
 
     m = round(sum x_p * e_p / P) with the f32 terms added in prime order;
     valid because |x| < P/4 and the f32 error is < 2^-6."""
-    require_width(width)
     frac = sum(x.to(torch.float32) * float(t)
                for x, t in zip(xs, plan.crt_theta))
     m = torch.round(frac).to(torch.int32)
+    if carrier_dtype(width) == torch.int64:
+        out = sum(x.to(torch.int64) * int(e) for x, e in zip(xs, plan.crt_e64))
+        return out - m.to(torch.int64) * plan.p_mod64
     out = sum(x * int(e) for x, e in zip(xs, plan.crt_e))
     return out - m * plan.p_mod
 
@@ -432,15 +442,15 @@ def crt_combine(xs, plan: NTTPlan, width: int = 32) -> torch.Tensor:
 
 def to_ntt_form(polys: torch.Tensor, plan: NTTPlan, drop_bits: int = 0,
                 width: int = 32) -> torch.Tensor:
-    """Torus polys int32 [..., N] -> int16 [n_primes, ..., N] residues.
+    """Torus polys [..., N] (carriers at ``width``) -> int16 [n_primes,
+    ..., N] residues.
 
-    drop_bits > 0 rounds the polys to their top (32 - drop_bits) bits
+    drop_bits > 0 rounds the polys to their top (width - drop_bits) bits
     first; callers scale the convolution back by 2^drop_bits."""
-    require_width(width)
-    x = polys.to(torch.int32)
+    x = polys.to(carrier_dtype(width))
     if drop_bits:
         x = (x + (1 << (drop_bits - 1))) >> drop_bits
-    res = ntt_forward(x, plan, digit_limbs=4, digit_bound=128)
+    res = ntt_forward(x, plan, digit_limbs=width // 8, digit_bound=128)
     out = []
     for r, p in zip(res, plan.primes):
         # final centered reduce to |.| <= p/2 so int16 storage is canonical

@@ -1,9 +1,10 @@
 """Exact polynomial and matrix arithmetic in signed int8 limbs.
 
-Counterpart of zig_tfhe_tpu/ops/poly.py.  Products mod 2^32 run as
-int8 x int8 -> int32 matrix products (``torch._int_mm``) over signed 8-bit
-limb recodings (utils/torus.py:i32_to_i8_limbs); limb pairs whose combined
-shift is >= 32 vanish mod 2^32 and are skipped.  CUDA has no int32
+Counterpart of zig_tfhe_tpu/ops/poly.py.  Products mod 2^32 (or 2^64 on
+int64 carriers) run as int8 x int8 -> int32 matrix products
+(``torch._int_mm``) over signed 8-bit limb recodings
+(utils/torus.py:i32_to_i8_limbs); limb pairs whose combined shift is >= the
+width vanish and are skipped.  CUDA has no int32
 ``matmul``, so every integer contraction in the port goes through
 ``matmul_i8``.
 
@@ -23,7 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from zig_tfhe_tpu_torch.utils.torus import i32_to_i8_limbs, i8_limbs_combine
+from zig_tfhe_tpu_torch.utils.torus import (carrier_width, i32_to_i8_limbs,
+                                            i8_limbs_combine)
 
 
 def matmul_i8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -61,12 +63,13 @@ def _limb_count_for_bound(bound: int) -> int:
 
 def small_matmul_torus(small: torch.Tensor, torus_mat: torch.Tensor,
                        small_bound: int, width: int = 32) -> torch.Tensor:
-    """Exact ``small @ torus_mat`` mod 2^32 via int8 limb matmuls.
+    """Exact ``small @ torus_mat`` mod 2^width via int8 limb matmuls.
 
-    small: int32 [..., K] with |values| <= small_bound; torus_mat: int32
-    [K, M] full-range torus values.  Each int8 x int8 partial accumulates
-    in int32, so K * min(small_bound, 127) * 127 must stay < 2^31 (true for
-    every key-switch shape: K = N*iks_t <= 12288)."""
+    small: int32/int64 [..., K] with |values| <= small_bound; torus_mat:
+    carrier [K, M] full-range torus values at ``width`` (8 key limbs at
+    width 64).  Each int8 x int8 partial accumulates in int32, so K *
+    min(small_bound, 127) * 127 must stay < 2^31 (true for every key-switch
+    shape: K = N*iks_t <= 24576)."""
     n_dl = _limb_count_for_bound(small_bound)
     n_kl = width // 8
     d_limbs = i32_to_i8_limbs(small, n_dl)      # [..., K, n_dl]
@@ -114,7 +117,7 @@ def negacyclic_rotate(p: torch.Tensor, k) -> torch.Tensor:
     out[..., n] = ext(p)[..., (n - k) mod 2N], the polyMulWithXK of
     trgsw.zig:442-466 for every k in [0, 2N].
 
-    p: int32 [..., N]; k: an int, or an int32 tensor that is a scalar or
+    p: int32/int64 [..., N]; k: an int, or an int32 tensor that is a scalar or
     matches p's leading batch dims (one amount per batch element)."""
     N = p.shape[-1]
     ext = negacyclic_extend(p)
@@ -128,16 +131,18 @@ def negacyclic_rotate(p: torch.Tensor, k) -> torch.Tensor:
 
 def negacyclic_polymul_binary(a_torus: torch.Tensor,
                               s_binary: torch.Tensor) -> torch.Tensor:
-    """Exact a * s mod 2^32 for int32 ``a`` [..., N] and binary s [N].
+    """Exact a * s mod 2^w for ``a`` [..., N] (int32: w = 32, int64: w =
+    64) and binary s [N].
 
-    ``a`` is split into 4 int8 limbs, each contracted against the
+    ``a`` is split into w/8 int8 limbs, each contracted against the
     {0, 1, -1} int8 Toeplitz of s in int32 (|partial| <= 128*N < 2^31)
-    and combined mod 2^32 — the JAX package's int64-carrier form, which is
+    and combined mod 2^w — the JAX package's int64-carrier form, which is
     the only exact integer product CUDA offers."""
+    w = carrier_width(a_torus)
     T8 = toeplitz(s_binary.to(torch.int8))          # {0, 1, -1}
-    a_limbs = i32_to_i8_limbs(a_torus, 4)           # [..., N, 4]
-    parts = [matmul_i8(a_limbs[..., l], T8) for l in range(4)]
-    return i8_limbs_combine(parts, [0, 8, 16, 24])
+    a_limbs = i32_to_i8_limbs(a_torus, w // 8)      # [..., N, w/8]
+    parts = [matmul_i8(a_limbs[..., l], T8) for l in range(w // 8)]
+    return i8_limbs_combine(parts, [8 * l for l in range(w // 8)], w)
 
 
 def negacyclic_polymul_naive(a, b) -> np.ndarray:

@@ -8,7 +8,7 @@ The reference (params.zig) pins one parameter set at comptime
 (params.zig:386-416) so every ciphertext array length is a compile-time
 constant and switching security levels requires recompiling.  Here parameter
 sets are frozen dataclasses: all shapes are static Python values, so all
-sets coexist at runtime.  The PyTorch port runs the 32-bit torus only.
+sets coexist at runtime.  The PyTorch port runs both torus widths.
 
 Parameter values mirror params.zig:70-378 exactly (80/110/128-bit and
 Uint1..Uint8).  A 12th, cryptographically meaningless ``TEST_TINY`` set is
@@ -57,8 +57,8 @@ class SecurityParams:
     runtime parameter: 32 (the default, int32 carriers — every stock set)
     or 64 (int64 carriers — the N=2048 door: secure lv1 noise at N=2048
     is ~2^-50 of the torus, which underflows u32; see docs/TORUS64.md).
-    The PyTorch port implements width 32 only (width 64 raises
-    NotImplementedError at its entry points).
+    The PyTorch port runs both widths (int64 carriers at 64; the N > 1024
+    sets on the split-ring engine, ops/split_ring.py).
     """
 
     security_bits: int

@@ -1,9 +1,10 @@
 """TLWE ciphertexts, batch-first.
 
-Counterpart of zig_tfhe_tpu/tlwe.py.  A TLWE ciphertext is int32
-``[..., n+1]``: the mask ``a`` in the first n slots and the body ``b`` last
-(tlwe.zig:11-14).  Boolean encoding is +-1/8 (tlwe.zig:52-55); the PBS
-message codec puts message x of modulus m at x/(2m) (tlwe.zig:74-117).
+Counterpart of zig_tfhe_tpu/tlwe.py.  A TLWE ciphertext is a carrier
+``[..., n+1]`` (int32 on the 32-bit torus, int64 on the 64-bit one): the
+mask ``a`` in the first n slots and the body ``b`` last (tlwe.zig:11-14).
+Boolean encoding is +-1/8 (tlwe.zig:52-55); the PBS message codec puts
+message x of modulus m at x/(2m) (tlwe.zig:74-117).
 """
 
 from __future__ import annotations
@@ -12,24 +13,27 @@ import numpy as np
 import torch
 
 from zig_tfhe_tpu_torch.utils import rng as _rng
-from zig_tfhe_tpu_torch.utils.torus import (f64_to_torus, require_width,
-                                            to_carrier, torus_constant_w)
+from zig_tfhe_tpu_torch.utils.torus import (carrier_dtype, carrier_width,
+                                            f64_to_torus, to_carrier,
+                                            torus_constant_w)
 
 BOOL_MU = 0.125  # tlwe.zig:53
 
 
 def _inner_product_binary(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """<a, s> mod 2^32 for binary s.  ``torch.sum`` of int32 returns int64;
-    the cast back keeps the low 32 bits, which is the wrap."""
-    return (a * s.to(a.dtype)).sum(-1).to(torch.int32)
+    """<a, s> mod 2^w for binary s.  ``torch.sum`` of int32 returns int64;
+    the cast back keeps the low 32 bits, which is the wrap (int64 sums wrap
+    mod 2^64 themselves)."""
+    return (a * s.to(a.dtype)).sum(-1).to(a.dtype)
 
 
 def encrypt_torus(gen: torch.Generator, mu: torch.Tensor, alpha: float,
                   sk: torch.Tensor, width: int = 32) -> torch.Tensor:
-    """Encrypt int32 torus plaintexts ``mu`` [...] under binary key ``sk``:
-    b = <a, s> + gaussian(alpha) + mu, a uniform (tlwe.zig:34-49).
-    Returns int32 [..., n+1] on the generator's device."""
-    mu = torch.as_tensor(mu, dtype=torch.int32, device=gen.device)
+    """Encrypt torus plaintexts ``mu`` [...] (carriers at ``width``) under
+    binary key ``sk``: b = <a, s> + gaussian(alpha) + mu, a uniform
+    (tlwe.zig:34-49).  Returns carrier [..., n+1] on the generator's
+    device."""
+    mu = torch.as_tensor(mu, dtype=carrier_dtype(width), device=gen.device)
     n = sk.shape[-1]
     a = _rng.uniform_torus(gen, (*mu.shape, n), width)
     noise = _rng.gaussian_torus(gen, mu.shape, alpha, width)
@@ -43,11 +47,11 @@ def encrypt_bool(gen: torch.Generator, bits, alpha: float, sk: torch.Tensor,
     bits = torch.as_tensor(bits, dtype=torch.bool, device=gen.device)
     mu = torch.where(bits, to_carrier(torus_constant_w(BOOL_MU, width), width),
                      to_carrier(torus_constant_w(-BOOL_MU, width), width))
-    return encrypt_torus(gen, mu.to(torch.int32), alpha, sk, width)
+    return encrypt_torus(gen, mu, alpha, sk, width)
 
 
 def phase(ct: torch.Tensor, sk: torch.Tensor) -> torch.Tensor:
-    """b - <a, s> (the noisy plaintext), int32 [...]."""
+    """b - <a, s> (the noisy plaintext), carrier [...]."""
     n = sk.shape[-1]
     return ct[..., n] - _inner_product_binary(ct[..., :n], sk)
 
@@ -61,27 +65,28 @@ def encrypt_message(gen: torch.Generator, message, message_modulus: int,
                     alpha: float, sk: torch.Tensor,
                     width: int = 32) -> torch.Tensor:
     """PBS codec encrypt: msg * 1/(2m) on the torus (tlwe.zig:74-88).
-    Returns int32 [..., n+1] on the generator's device."""
-    require_width(width)
+    Returns carrier [..., n+1] on the generator's device."""
     message = torch.as_tensor(message, device=gen.device).long() % message_modulus
     mu = torch.from_numpy(_encode_message_table(message_modulus, width))
     return encrypt_torus(gen, mu.to(gen.device)[message], alpha, sk, width)
 
 
 def _encode_message_table(message_modulus: int, width: int = 32) -> np.ndarray:
-    """Torus encodings of all messages in [0, m): trunc(x/(2m) * 2^32)."""
-    require_width(width)
-    return f64_to_torus(np.arange(message_modulus) * (1.0 / (2.0 * message_modulus)))
+    """Torus encodings of all messages in [0, m): trunc(x/(2m) * 2^w)."""
+    return f64_to_torus(np.arange(message_modulus)
+                        * (1.0 / (2.0 * message_modulus)), width)
 
 
 def decrypt_message(ct: torch.Tensor, message_modulus: int, sk: torch.Tensor,
                     width: int = 32) -> torch.Tensor:
     """PBS codec decrypt with +0.5 rounding (tlwe.zig:100-117), in float32
-    as the JAX package computes it: int32 [...] in [0, m)."""
-    require_width(width)
+    at width 32 and float64 at width 64, as the JAX package computes it:
+    int32 [...] in [0, m)."""
     ph = phase(ct, sk)
-    f = ph.to(torch.float32)
-    f = torch.where(ph < 0, f + float(1 << 32), f) / float(1 << 32)
+    fdt = torch.float32 if carrier_dtype(width) == torch.int32 else torch.float64
+    two_w = float(1 << width)
+    f = ph.to(fdt)
+    f = torch.where(ph < 0, f + two_w, f) / two_w
     m = torch.floor(f * (2.0 * message_modulus) + 0.5).to(torch.int32)
     return m % message_modulus
 
@@ -111,5 +116,5 @@ def sub_mul(x, y, multiplier: int):
 def add_to_b(ct: torch.Tensor, const_torus: int, n: int) -> torch.Tensor:
     """ct with ``const_torus`` added to the body only (gate bias)."""
     out = ct.clone()
-    out[..., n] += to_carrier(const_torus, 32)
+    out[..., n] += to_carrier(const_torus, carrier_width(ct))
     return out

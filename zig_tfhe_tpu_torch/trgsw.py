@@ -17,21 +17,21 @@ import torch
 from zig_tfhe_tpu_torch import trlwe as _trlwe
 from zig_tfhe_tpu_torch.ops.poly import negacyclic_extend, toeplitz_from_ext
 from zig_tfhe_tpu_torch.params import SecurityParams
-from zig_tfhe_tpu_torch.utils.torus import (i32_to_i8_limbs, require_width,
+from zig_tfhe_tpu_torch.utils.torus import (carrier_dtype, i32_to_i8_limbs,
                                             to_carrier)
 
 N_KLIMBS = 4  # full 32-bit torus => 4 signed 8-bit limbs
 
 
 def gadget_scales(bgbit: int, count: int, width: int = 32) -> np.ndarray:
-    """h_i = torus(Bg^-(i+1)) = 2^(width-(i+1)*bgbit), int32 [count]."""
-    require_width(width)
+    """h_i = torus(Bg^-(i+1)) = 2^(width-(i+1)*bgbit), int32 (int64 at
+    width 64) [count]."""
     return np.array(
         [to_carrier(1 << (width - (i + 1) * bgbit), width)
          if (i + 1) * bgbit < width
          else 1 if (i + 1) * bgbit == width else 0
          for i in range(count)],
-        dtype=np.int32,
+        dtype=np.int32 if carrier_dtype(width) == torch.int32 else np.int64,
     )
 
 
@@ -47,9 +47,11 @@ def encrypt_gadget_rows(gen: torch.Generator, p: torch.Tensor, alpha: float,
                         sk_poly: torch.Tensor, params: SecurityParams,
                         bgbit: int, la: int, lb: int) -> torch.Tensor:
     """TRGSW-style gadget rows of small integers ``p`` (int32 [...]) with an
-    engine gadget base Bg_e = 2^bgbit.  Returns int32 [..., la+lb, 2, N]."""
+    engine gadget base Bg_e = 2^bgbit.  Returns carrier [..., la+lb, 2, N]
+    at the set's width."""
     p = torch.as_tensor(p, dtype=torch.int32, device=gen.device)
-    zeros = torch.zeros((*p.shape, la + lb, params.N), dtype=torch.int32,
+    zeros = torch.zeros((*p.shape, la + lb, params.N),
+                        dtype=carrier_dtype(params.torus_bits),
                         device=gen.device)
     ct = _trlwe.encrypt_torus(gen, zeros, alpha, sk_poly,
                               width=params.torus_bits)   # [..., la+lb, 2, N]

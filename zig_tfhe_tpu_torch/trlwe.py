@@ -1,9 +1,10 @@
 """TRLWE ring ciphertexts, batch-first.
 
-Counterpart of zig_tfhe_tpu/trlwe.py.  A TRLWE ciphertext is int32
-``[..., 2, N]`` — index 0 is the mask polynomial ``a``, index 1 the body
-``b`` (trlwe.zig:15-18); ``b = a * s + noise + mu`` with an exact
-negacyclic product.  Sample extraction (trlwe.zig:146-180) is a flip-gather.
+Counterpart of zig_tfhe_tpu/trlwe.py.  A TRLWE ciphertext is a carrier
+``[..., 2, N]`` (int32, or int64 on the 64-bit torus) — index 0 is the
+mask polynomial ``a``, index 1 the body ``b`` (trlwe.zig:15-18);
+``b = a * s + noise + mu`` with an exact negacyclic product.  Sample
+extraction (trlwe.zig:146-180) is a flip-gather.
 """
 
 from __future__ import annotations
@@ -13,16 +14,17 @@ import torch
 
 from zig_tfhe_tpu_torch.ops.poly import negacyclic_polymul_binary
 from zig_tfhe_tpu_torch.utils import rng as _rng
-from zig_tfhe_tpu_torch.utils.torus import to_carrier, torus_constant_w
+from zig_tfhe_tpu_torch.utils.torus import (carrier_dtype, to_carrier,
+                                            torus_constant_w)
 
 A, B = 0, 1  # component indices on axis -2
 
 
 def encrypt_torus(gen: torch.Generator, mu: torch.Tensor, alpha: float,
                   sk_poly: torch.Tensor, width: int = 32) -> torch.Tensor:
-    """Encrypt int32 torus polynomial plaintexts ``mu`` [..., N].
-    Returns int32 [..., 2, N] on the generator's device."""
-    mu = torch.as_tensor(mu, dtype=torch.int32, device=gen.device)
+    """Encrypt torus polynomial plaintexts ``mu`` [..., N] (carriers at
+    ``width``).  Returns carrier [..., 2, N] on the generator's device."""
+    mu = torch.as_tensor(mu, dtype=carrier_dtype(width), device=gen.device)
     a = _rng.uniform_torus(gen, mu.shape, width)
     noise = _rng.gaussian_torus(gen, mu.shape, alpha, width)
     b = negacyclic_polymul_binary(a, sk_poly) + noise + mu
@@ -40,7 +42,7 @@ def encrypt_bool(gen: torch.Generator, bits, alpha: float,
 
 
 def phase(ct: torch.Tensor, sk_poly: torch.Tensor) -> torch.Tensor:
-    """b - a*s, int32 [..., N] (exact)."""
+    """b - a*s, carrier [..., N] (exact)."""
     return ct[..., B, :] - negacyclic_polymul_binary(ct[..., A, :], sk_poly)
 
 
@@ -51,7 +53,7 @@ def decrypt_bool(ct: torch.Tensor, sk_poly: torch.Tensor) -> torch.Tensor:
 def sample_extract(ct: torch.Tensor, k: int = 0) -> torch.Tensor:
     """TLWE(lv1) sample at coefficient ``k`` (trlwe.zig:146-162):
     p[i] = a[k-i] for i <= k else -a[N+k-i];  b = b_poly[k].
-    Returns int32 [..., N+1]."""
+    Returns carrier [..., N+1]."""
     N = ct.shape[-1]
     i = np.arange(N)
     src = torch.from_numpy(np.where(i <= k, k - i, N + k - i)).to(ct.device)

@@ -2,11 +2,13 @@
 zig_tfhe_tpu/utils/serialization.py, without JAX.
 
 The format is a numpy ``.npz`` with a JSON ``__manifest__`` entry that
-carries the object kind and every field of the parameter set; torus arrays
-are stored as uint32, key material as int8/int16/int32.  Files written here
-load into the JAX package and the other way round.  Ported: the secret key,
-the cloud key (its packing key included), the (32-bit) ciphertext and the
-stand-alone packing key, both ways.  The seeded ciphertext and the public
+carries the object kind and every field of the parameter set; ciphertexts
+are stored as uint32 (uint64 on the 64-bit torus), key material as
+int8/int16/int32 (int64 torus arrays on the 64-bit sets, a split-ring set's
+NTT key in its folded split form).  Files written here load into the JAX
+package and the other way round.  Ported: the secret key, the cloud key
+(its packing key included), the ciphertext and the stand-alone packing key,
+both ways, at both widths.  The seeded ciphertext and the public
 and re-encryption keys are a later slice.
 """
 
@@ -21,7 +23,7 @@ import torch
 
 from zig_tfhe_tpu_torch import key as K
 from zig_tfhe_tpu_torch import params as P
-from zig_tfhe_tpu_torch.utils.torus import require_width
+from zig_tfhe_tpu_torch.utils.torus import carrier_dtype
 
 _KIND_SECRET = "secret_key"
 _KIND_CLOUD = "cloud_key"
@@ -98,9 +100,9 @@ def save_secret_key(path, sk: K.SecretKey, params: P.SecurityParams) -> None:
 
 
 def save_cloud_key(path, ck: K.CloudKey) -> None:
-    """The cloud key's arrays (testvec and ksk1 int32, bsk_ntt int16,
-    bsk_ext_limbs int8, the forms it holds, and pksk int32 where it has
-    one) and its static fields, the packing key's (basebit, t) among them
+    """The cloud key's arrays (testvec and ksk1 at the carrier, bsk_ntt
+    int16, bsk_ext_limbs int8, the forms it holds, and pksk at the carrier
+    where it has one) and its static fields, the packing key's (basebit, t) among them
     (the set's (basebit, iks_t) for a key that does not record it)."""
     arrays = {name: _numpy(buf) for name, buf in ck.named_buffers()}
     extra = {"bsk_ntt_drop": ck.bsk_ntt_drop, "bsk_group": ck.bsk_group,
@@ -134,20 +136,23 @@ def load_cloud_key(path, device="cuda") -> K.CloudKey:
 
 
 def save_ciphertext(path, ct: torch.Tensor, params: P.SecurityParams) -> None:
-    """An int32 ciphertext array of any shape, stored as uint32."""
-    require_width(params.torus_bits)
-    if ct.dtype != torch.int32:
-        raise TypeError(f"ciphertexts are int32, not {ct.dtype}")
+    """A ciphertext array of any shape at the set's carrier (int32, or
+    int64 on the 64-bit torus), stored as uint32 (uint64)."""
+    want = carrier_dtype(params.torus_bits)
+    if ct.dtype != want:
+        raise TypeError(f"ciphertexts of a {params.torus_bits}-bit set are "
+                        f"{want}, not {ct.dtype}")
+    u = np.uint32 if params.torus_bits == 32 else np.uint64
     np.savez(path, __manifest__=_manifest(_KIND_CIPHERTEXT, params),
-             ct=_numpy(ct).view(np.uint32))
+             ct=_numpy(ct).view(u))
 
 
 def load_ciphertext(path, device="cuda"):
-    """Returns (ct int32 on ``device``, params)."""
+    """Returns (ct on ``device`` at the set's carrier, params)."""
     arrays, m = _load(path, _KIND_CIPHERTEXT)
     params = _params_from_doc(m)
-    require_width(params.torus_bits)
-    ct = torch.from_numpy(arrays["ct"].view(np.int32).copy()).to(device)
+    i = np.int32 if params.torus_bits == 32 else np.int64
+    ct = torch.from_numpy(arrays["ct"].view(i).copy()).to(device)
     return ct, params
 
 
@@ -155,8 +160,7 @@ def save_packing_ksk(path, pksk: torch.Tensor, params: P.SecurityParams,
                      basebit: int | None = None, t: int | None = None) -> None:
     """A packing key-switch key (ops/packing_keyswitch.py:gen_packing_ksk)
     with the (basebit, t) it was built at: the set's key-switch settings
-    unless given."""
-    require_width(params.torus_bits)
+    unless given (as the JAX package records them)."""
     np.savez(path, __manifest__=_manifest(
         _KIND_PACKING, params,
         {"basebit": params.basebit if basebit is None else basebit,
@@ -165,7 +169,10 @@ def save_packing_ksk(path, pksk: torch.Tensor, params: P.SecurityParams,
 
 
 def load_packing_ksk(path, device="cuda"):
-    """Returns (pksk int32 on ``device``, params, basebit, t)."""
+    """Returns (pksk on ``device`` at the set's carrier, params, basebit,
+    t)."""
     arrays, m = _load(path, _KIND_PACKING)
-    pksk = torch.from_numpy(arrays["pksk"].astype(np.int32)).to(device)
-    return pksk, _params_from_doc(m), m["basebit"], m["t"]
+    params = _params_from_doc(m)
+    i = np.int32 if params.torus_bits == 32 else np.int64
+    pksk = torch.from_numpy(arrays["pksk"].astype(i)).to(device)
+    return pksk, params, m["basebit"], m["t"]
