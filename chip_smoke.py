@@ -164,9 +164,32 @@ negacyclic circulants of the key step's rows, 4 key limbs).  Phases:
      rotations, T64_ROTATIONS); the split cloud key and a 64-bit ciphertext
      saved and loaded (gate_pair bit-equal after the load); the phase's
      wall time, split.
+ 12. slice 5 on SECURITY_128_BIT with phase 3's g3 key (Alice's): 2 x 2048
+     bits encrypted seeded on the card (tlwe.encrypt_bool_seeded), saved
+     (save_seeded_ciphertext), loaded and expanded on the card, bit-equal
+     to the threefry mask of their seed beside their bodies (the file
+     sizes printed, seeded vs expanded); apply_gates on them cycling the
+     10 gates, the launch counts set to 0 just before and read just after
+     (K2 = K1 = 234, K3 = 0), accuracy 1.0; Bob's public key and an
+     asymmetric re-encryption key Alice -> Bob, Carol's secret key and a
+     symmetric key Bob -> Carol, reencrypt twice: each hop's accuracy
+     (>= 0.90, the reference's bar) and phase error std, its first 16
+     lanes bit-equal to the CPU path; the public and re-encryption key
+     files (reencrypt bit-equal after the load); the truncated bootstrap
+     on 16 lanes and CloudKey.generate_no_ksk(group=None)'s gates on 8
+     lanes (K2 = K1 = 234), each bit-equal to the CPU path; TEST_TINY64
+     gates on the card (the direct 64-bit engine and its int64 finish, no
+     hand kernel), bit-equal to the CPU path; parallel/: one NCCL rank
+     (distributed_gates, shard_map_gates) bit-equal to apply_gates, then
+     two gloo ranks on the one card (two processes; the key broadcast from
+     rank 0), each rank's 1024 lanes bit-equal; timings with
+     utils/profiling.time_op (CUDA events, median of 3): reencrypt per
+     batch and lane, expand_seeded, seeded and public-key encryption, the
+     three keygens; the phase's wall time, split.
 
-The script prints its total wall time; the next-to-last stdout line is
-{"kernels": [...]}, before it the card's nvidia-smi name and power limit;
+The script prints its total wall time, a {"slice5_ms": ...} line of phase
+12's timings; the next-to-last stdout line is {"kernels": [...]}, before
+it the card's nvidia-smi name and power limit;
 the last line is {"ok": true, "device": {...}}.  Any failed phase raises (exit code != 0, no result line).
 Without a CUDA device it exits 2 before printing anything.
 """
@@ -306,6 +329,25 @@ def _profile(label: str, fn, gpu: str, top: int = 6, steps: int = 0):
         fn()
         torch.cuda.synchronize()
     launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+    spans, by_name = _kernel_records(prof)
+    kept = {k: sum(c for nm, (_, c) in by_name.items() if sym in nm)
+            for k, (_, _, sym) in _HAND_KERNELS.items()}
+    if not sum(launched.values()) or kept != launched:
+        print(f"{label}: the profiler kept {kept} hand-kernel records of the "
+              f"launches {launched} counted in the call (records lost; "
+              f"profile incomplete, idle share not measured)")
+        return
+    per_step = f" ({len(spans) / steps:.0f} a step)" if steps else ""
+    _print_kernels(label, spans, by_name, gpu, top,
+                   f"{per_step}, hand-kernel records {kept} complete")
+
+
+def _kernel_records(prof):
+    """The CUDA kernels a ``torch.profiler`` run recorded, read from its
+    kernel records: their (start, end) spans in ns, and (total ns, count)
+    by kernel name."""
+    import torch
+
     spans, by_name = [], {}
     for e in prof.profiler.kineto_results.events():
         if (e.device_type() != torch.autograd.DeviceType.CUDA
@@ -315,14 +357,14 @@ def _profile(label: str, fn, gpu: str, top: int = 6, steps: int = 0):
         spans.append((s, s + d))
         t, c = by_name.get(e.name(), (0, 0))
         by_name[e.name()] = (t + d, c + 1)
-    kept = {k: sum(c for nm, (_, c) in by_name.items() if sym in nm)
-            for k, (_, _, sym) in _HAND_KERNELS.items()}
-    if not sum(launched.values()) or kept != launched:
-        print(f"{label}: the profiler kept {kept} hand-kernel records of the "
-              f"launches {launched} counted in the call (records lost; "
-              f"profile incomplete, idle share not measured)")
-        return
-    spans.sort()
+    return spans, by_name
+
+
+def _print_kernels(label, spans, by_name, gpu, top, note=""):
+    """Print the busy time (the union of the kernels' spans), the device
+    span, the idle share over it, the kernel count and the costliest
+    kernels."""
+    spans = sorted(spans)
     busy, (cur_s, cur_e) = 0, spans[0]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -332,10 +374,9 @@ def _profile(label: str, fn, gpu: str, top: int = 6, steps: int = 0):
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     span = max(e for _, e in spans) - spans[0][0]
-    per_step = f" ({len(spans) / steps:.0f} a step)" if steps else ""
     print(f"{label} profile: busy {busy / 1e6:.1f} ms of {span / 1e6:.1f} ms "
           f"device span, idle share {1.0 - busy / span:.3f}, {len(spans)} "
-          f"kernels{per_step}, hand-kernel records {kept} complete [{gpu}]")
+          f"kernels{note} [{gpu}]")
     for nm, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"    {t / 1e6:9.2f} ms {c:7d}x  {nm[:70]}")
 
@@ -1610,6 +1651,360 @@ def _t64_phase(g, counters, gpu):
     return launches, k1_result
 
 
+# -- phase 12: slice 5 on SECURITY_128_BIT --------------------------------------
+S5_LANES = 2048        # seeded encryptions, gates, re-encryption, timings
+S5_CPU_LANES = 16      # lanes held bit-equal to the port's CPU path
+S5_NO_KSK_LANES = 8    # gates on the generate_no_ksk key
+S5_T64_LANES = 20      # TEST_TINY64 gates (the direct 64-bit engine)
+REENC_MIN_ACCURACY = 0.90   # proxy_reenc.zig:401-427, the reference's bar
+
+# Two ranks of parallel/distributed.py on the one card over gloo (NCCL refuses
+# two ranks on one device): argv rank, port, work dir, repository root.  Rank
+# 0 loads the parent's key and broadcasts it (broadcast_cloud_key, then
+# shard_map_gates' buffer broadcast over a zeroed copy on rank 1); each rank
+# evaluates its half of the batch and saves it.
+_GLOO_WORKER = r"""
+import copy, os, sys
+rank, port, tmp, root = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+sys.path.insert(0, root)
+import numpy as np
+import torch
+import torch.distributed as dist
+from zig_tfhe_tpu_torch.parallel import distributed as D
+from zig_tfhe_tpu_torch.parallel import mesh as M
+from zig_tfhe_tpu_torch.utils import serialization as ser
+
+dev = torch.device("cuda", 0)
+D.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+mesh = M.make_mesh(device=dev)
+assert mesh.shape == (2, 1) and mesh.data_index == rank, mesh
+ck = ser.load_cloud_key(os.path.join(tmp, "parent_ck"), device=dev) if rank == 0 else None
+ck = D.broadcast_cloud_key(os.path.join(tmp, "broadcast_ck"), ck, device=dev)
+z = np.load(os.path.join(tmp, "batch.npz"))
+ids, a, b = (D.global_batch(mesh, M.shard_batch(mesh, torch.from_numpy(z[k])))
+             for k in ("ids", "a", "b"))
+out = D.distributed_gates(mesh, D.replicate_global(mesh, ck))(ids, a, b)
+mine = ck if rank == 0 else copy.deepcopy(ck)
+if rank:
+    for buf in mine.buffers():
+        buf.zero_()
+try:
+    again = M.shard_map_gates(mesh, mine)(ids, a, b)
+except RuntimeError as e:
+    sys.exit(f"gloo refused the key broadcast of CUDA tensors: {e}")
+assert torch.equal(again, out), "shard_map_gates differs from distributed_gates"
+np.save(os.path.join(tmp, f"out{rank}.npy"), D.local_shards(out))
+D.barrier()
+dist.destroy_process_group()
+print(f"GLOO_OK rank={rank}", flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _slice5_phase(P, g, sk, ck, counters, gpu):
+    """Phase 12: slice 5 on the card (see the module docstring), its files
+    in a temporary directory.  Returns the counted runs' launches by kernel
+    and the timings (seconds by operation)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s5_") as work:
+        return _slice5_run(P, g, sk, ck, counters, gpu, work)
+
+
+def _slice5_run(P, g, sk, ck, counters, gpu, work):
+    import numpy as np
+    import torch
+
+    from zig_tfhe_tpu_torch import bootstrap, key, params, tlwe
+    from zig_tfhe_tpu_torch.models import gates
+    from zig_tfhe_tpu_torch.models import proxy_reenc as pr
+    from zig_tfhe_tpu_torch.parallel import distributed as D
+    from zig_tfhe_tpu_torch.parallel import mesh as M
+    from zig_tfhe_tpu_torch.utils import profiling, serialization, threefry
+
+    dev = g.device
+    n0, B, nc = P.n0, S5_LANES, S5_CPU_LANES
+    alpha = P.tlwe_lv0.alpha
+    t_phase = time.perf_counter()
+    wall = {"CPU-path checks": 0.0, "2 gloo ranks": 0.0, "timings": 0.0}
+    steps = -(-n0 // ck.bsk_group)
+    g3 = {"k1": steps, "k2": steps, "k3": 0}
+    launches = {}
+    s = sk.key_lv0
+
+    # -- 1. seeded ciphertexts: 2 x 2048 bits, a file, expanded on the card ----
+    x = torch.randint(0, 2, (B,), generator=g, device=dev).bool()
+    y = torch.randint(0, 2, (B,), generator=g, device=dev).bool()
+    seeded = [tlwe.encrypt_bool_seeded(g, bits, alpha, s) for bits in (x, y)]
+    cts, sizes = [], []
+    for i, (seed, body) in enumerate(seeded):
+        path = os.path.join(work, f"seeded{i}")
+        serialization.save_seeded_ciphertext(path, seed, body, P)
+        (seed2, body2), p2 = serialization.load_seeded_ciphertext(
+            path, expand=False, device=dev)
+        ct, _ = serialization.load_seeded_ciphertext(path, device=dev)
+        _check(p2 is P and np.array_equal(seed2, seed)
+               and torch.equal(body2, body), "seeded file: seed or bodies "
+               "differ after the load")
+        # the ciphertext the seeded encryption implies: its threefry mask
+        # (drawn here on the CPU) beside its bodies
+        implied = torch.cat([threefry.random_bits32(seed, (B, n0)),
+                             body.cpu()[:, None]], dim=-1)
+        _check(ct.device == dev and ct.dtype == torch.int32
+               and torch.equal(ct.cpu(), implied),
+               "expand_seeded on the card differs from the implied ciphertext")
+        full = os.path.join(work, f"expanded{i}")
+        serialization.save_ciphertext(full, ct, P)
+        sizes.append((os.path.getsize(path + ".npz"),
+                       os.path.getsize(full + ".npz")))
+        cts.append(ct)
+    a, b = cts
+    for ct, bits in ((a, x), (b, y)):
+        _check(torch.equal(tlwe.decrypt_bool(ct, s), bits),
+               "seeded ciphertexts do not decrypt to their bits")
+    print(f"seeded: 2 x {B} bits encrypted seeded on the card, saved, loaded "
+          f"and expanded on the card, bit-equal to the threefry mask of their "
+          f"seed beside their bodies, every lane decrypts; files "
+          f"{sizes[0][0]:,} B seeded vs {sizes[0][1]:,} B expanded "
+          f"({sizes[0][1] / sizes[0][0]:.1f}x; the arrays {B * 4:,} B vs "
+          f"{B * (n0 + 1) * 4:,} B, (n0+1) = {n0 + 1}x)")
+
+    # -- 2. gates on the expanded batch -----------------------------------------
+    ids = torch.arange(B, device=dev) % len(gates.GATE_NAMES)
+    want = torch.tensor([_TRUTH[gates.GATE_NAMES[i]](bool(p), bool(q))
+                         for i, p, q in zip(ids.tolist(), x.tolist(),
+                                            y.tolist())], device=dev)
+    res, launches["s5 gates"], first_s = _counted_run(
+        counters, "slice 5 gates", lambda: gates.apply_gates(ids, a, b, ck), g3)
+    accuracy = float((tlwe.decrypt_bool(res, s) == want).float().mean())
+    _check(accuracy == 1.0, f"slice 5 gate accuracy {accuracy} != 1.0")
+    print(f"apply_gates B={B} on the expanded seeded batch: accuracy "
+          f"{accuracy}, launches {launches['s5 gates']}, first call "
+          f"{first_s:.2f} s")
+
+    # -- 3. the re-encryption chain Alice -> Bob (asymmetric) -> Carol --------
+    bob, carol = key.SecretKey.generate(g, P), key.SecretKey.generate(g, P)
+    bob_pk = pr.PublicKeyLv0.generate(g, bob.key_lv0, P)
+    rk_ab = pr.ProxyReencryptionKey.new_asymmetric(g, s, bob_pk, P)
+    rk_bc = pr.ProxyReencryptionKey.new_symmetric(g, bob.key_lv0,
+                                                  carol.key_lv0, P)
+    _check(tuple(bob_pk.encryptions.shape) == (2 * n0, n0 + 1)
+           and tuple(rk_ab.key_encryptions.shape) == (n0 * P.iks_t, n0 + 1)
+           and tuple(rk_bc.key_encryptions.shape) == (n0 * P.iks_t, n0 + 1),
+           "public / re-encryption key shapes")
+    mu = torch.where(want, 1 / 8, -1 / 8).double()
+    ct_hop, t0 = res, time.perf_counter()
+    hops = {}
+    for name, rk, s_to in (("Alice -> Bob", rk_ab, bob.key_lv0),
+                           ("Bob -> Carol", rk_bc, carol.key_lv0)):
+        prev, ct_hop = ct_hop, pr.reencrypt(ct_hop, rk)
+        _check(ct_hop.device == dev and ct_hop.dtype == torch.int32,
+               "reencrypt left the card")
+        acc_hop = float((tlwe.decrypt_bool(ct_hop, s_to) == want).float().mean())
+        err = tlwe.phase(ct_hop, s_to).double() / 2.0 ** 32 - mu
+        err = torch.remainder(err + 0.5, 1.0) - 0.5
+        hops[name] = (acc_hop, float(err.std()))
+        _check(acc_hop >= REENC_MIN_ACCURACY,
+               f"re-encryption {name}: accuracy {acc_hop} < {REENC_MIN_ACCURACY}")
+        tc = time.perf_counter()
+        cpu = pr.reencrypt(prev[:nc].cpu(), pr.ProxyReencryptionKey(
+            rk.key_encryptions.cpu(), rk.basebit, rk.t))
+        _check(torch.equal(cpu, ct_hop[:nc].cpu()),
+               f"re-encryption {name}: the card differs from the CPU path")
+        wall["CPU-path checks"] += time.perf_counter() - tc
+    print("reencrypt B=%d: " % B + "; ".join(
+        f"{n} accuracy {acc_:.4f}, phase error std {std:.5f} (torus)"
+        for n, (acc_, std) in hops.items())
+        + f" (bar {REENC_MIN_ACCURACY}); first {nc} lanes of each hop "
+        f"bit-equal to the CPU path; public key {tuple(bob_pk.encryptions.shape)} "
+        f"({bob_pk.encryptions.numel() * 4 / 1e6:.1f} MB), re-encryption keys "
+        f"{tuple(rk_ab.key_encryptions.shape)} "
+        f"({rk_ab.key_encryptions.numel() * 4 / 1e6:.1f} MB)")
+
+    # -- 4. key files -------------------------------------------------------------
+    serialization.save_public_key(os.path.join(work, "pk"), bob_pk, P)
+    serialization.save_reenc_key(os.path.join(work, "rk"), rk_ab, P)
+    pk2, p_pk = serialization.load_public_key(os.path.join(work, "pk"), dev)
+    rk2, p_rk = serialization.load_reenc_key(os.path.join(work, "rk"), dev)
+    _check(p_pk is P and p_rk is P
+           and torch.equal(pk2.encryptions, bob_pk.encryptions)
+           and (rk2.basebit, rk2.t) == (rk_ab.basebit, rk_ab.t)
+           and torch.equal(pr.reencrypt(res, rk2), pr.reencrypt(res, rk_ab)),
+           "public / re-encryption key files: arrays or reencrypt differ "
+           "after the load")
+    print("key files: public and re-encryption keys saved and loaded onto the "
+          "card, reencrypt bit-equal after the load")
+
+    # -- 5. the truncated bootstrap ------------------------------------------------
+    ck_cpu = _on_cpu(ck)
+    trunc = bootstrap.bootstrap_without_key_switch_truncated(a[:nc], ck)
+    tc = time.perf_counter()
+    trunc_cpu = bootstrap.bootstrap_without_key_switch_truncated(a[:nc].cpu(),
+                                                                 ck_cpu)
+    wall["CPU-path checks"] += time.perf_counter() - tc
+    _check(tuple(trunc.shape) == (nc, n0 + 1)
+           and torch.equal(trunc.cpu(), trunc_cpu),
+           "bootstrap_without_key_switch_truncated: the card differs from "
+           "the CPU path")
+    print(f"bootstrap_without_key_switch_truncated B={nc}: "
+          f"[{nc}, {n0 + 1}], bit-equal to the CPU path")
+
+    # -- 6. generate_no_ksk ----------------------------------------------------------
+    nk = S5_NO_KSK_LANES
+    t0 = time.perf_counter()
+    ck0 = key.CloudKey.generate_no_ksk(P, group=None, device=dev)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    cfg = (ck0.bsk_group, ck0.bsk_bgbit, ck0.bsk_levels, ck0.bsk_ntt_drop)
+    _check(cfg == (ck.bsk_group, ck.bsk_bgbit, ck.bsk_levels, ck.bsk_ntt_drop)
+           and ck0.bsk_ntt.shape == ck.bsk_ntt.shape
+           and ck0.ksk1.shape == ck.ksk1.shape,
+           f"generate_no_ksk(group=None) resolved to {cfg}, "
+           f"{tuple(ck0.bsk_ntt.shape)}")
+    out0, launches["s5 no_ksk"], _ = _counted_run(
+        counters, "generate_no_ksk gates",
+        lambda: gates.apply_gates(ids[:nk], a[:nk], b[:nk], ck0), g3)
+    tc = time.perf_counter()
+    cpu0 = gates.apply_gates(ids[:nk].cpu(), a[:nk].cpu(), b[:nk].cpu(),
+                             key.CloudKey.generate_no_ksk(P, group=None,
+                                                          device="cpu"))
+    wall["CPU-path checks"] += time.perf_counter() - tc
+    _check(torch.equal(out0.cpu(), cpu0),
+           "generate_no_ksk gates: the card differs from the CPU path")
+    print(f"generate_no_ksk {P.name} group=None: {cfg}, bsk_ntt "
+          f"{tuple(ck0.bsk_ntt.shape)} zeros, made in {keygen_s:.2f} s; "
+          f"apply_gates B={nk}: launches {launches['s5 no_ksk']}, bit-equal "
+          f"to the CPU path")
+
+    # -- 7. the int64 finish: TEST_TINY64 on the card ------------------------------
+    P64, n64 = params.TEST_TINY64, S5_T64_LANES
+    sk64 = key.SecretKey.generate(g, P64)
+    ck64 = key.CloudKey.generate(g, sk64, P64)
+    x64 = torch.randint(0, 2, (2, n64), generator=g, device=dev).bool()
+    a64, b64 = (tlwe.encrypt_bool(g, v, 0.0, sk64.key_lv0, width=64)
+                for v in x64)
+    ids64 = ids[:n64]
+    out64, launches["s5 tiny64"], _ = _counted_run(
+        counters, "TEST_TINY64 gates",
+        lambda: gates.apply_gates(ids64, a64, b64, ck64),
+        {"k1": 0, "k2": 0, "k3": 0})
+    tc = time.perf_counter()
+    cpu64 = gates.apply_gates(ids64.cpu(), a64.cpu(), b64.cpu(), _on_cpu(ck64))
+    wall["CPU-path checks"] += time.perf_counter() - tc
+    want64 = torch.tensor([_TRUTH[gates.GATE_NAMES[i]](bool(p), bool(q))
+                           for i, p, q in zip(ids64.tolist(), x64[0].tolist(),
+                                              x64[1].tolist())], device=dev)
+    _check(out64.dtype == torch.int64 and out64.device == dev
+           and torch.equal(out64.cpu(), cpu64)
+           and torch.equal(tlwe.decrypt_bool(out64, sk64.key_lv0), want64),
+           "TEST_TINY64 gates on the card differ from the CPU path or the "
+           "truth table")
+    print(f"TEST_TINY64 apply_gates B={n64} on the card (direct 64-bit engine, "
+          f"int64 finish as plain ops, launches {launches['s5 tiny64']}): "
+          f"exact, bit-equal to the CPU path")
+
+    # -- 8. distributed gates: one NCCL rank, then two gloo ranks -------------------
+    D.initialize(f"localhost:{_free_port()}", 1, 0)
+    try:
+        mesh = M.make_mesh()
+        run = D.distributed_gates(mesh, D.replicate_global(mesh, ck))
+        nccl = run(*(D.global_batch(mesh, t) for t in (ids, a, b)))
+        nccl2 = M.shard_map_gates(mesh, ck)(ids, a, b)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    _check(mesh.shape == (1, 1) and torch.equal(nccl, res)
+           and torch.equal(nccl2, res),
+           "one-rank NCCL distributed_gates / shard_map_gates differ from "
+           "apply_gates")
+    t0 = time.perf_counter()
+    serialization.save_cloud_key(os.path.join(work, "parent_ck"), ck)
+    np.savez(os.path.join(work, "batch.npz"), ids=ids.cpu().numpy(),
+             a=a.cpu().numpy(), b=b.cpu().numpy())
+    port = _free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _GLOO_WORKER, str(r), str(port), work, root],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        _check(p.returncode == 0 and f"GLOO_OK rank={r}" in out,
+               f"gloo rank {r} failed (exit {p.returncode}):\n{out[-3000:]}")
+        half = torch.from_numpy(np.load(os.path.join(work, f"out{r}.npy")))
+        _check(torch.equal(half, res[r * B // 2:(r + 1) * B // 2].cpu()),
+               f"gloo rank {r}'s half differs from apply_gates")
+    wall["2 gloo ranks"] = time.perf_counter() - t0
+    print(f"distributed gates B={B}: one NCCL rank (distributed_gates and "
+          f"shard_map_gates) bit-equal to apply_gates; 2 gloo ranks on the "
+          f"one card, the key broadcast from rank 0, each rank's "
+          f"{B // 2} lanes bit-equal ({wall['2 gloo ranks']:.1f} s with the "
+          f"processes' start)")
+
+    # -- 9. timings (profiling.time_op: CUDA events, median of 3) -----------------
+    t0 = time.perf_counter()
+    seed0, body0 = seeded[0]
+    bits = torch.randint(0, 2, (B,), generator=g, device=dev).bool()
+    tms = {
+        "reencrypt (asymmetric key)": profiling.time_op(pr.reencrypt, res, rk_ab),
+        "reencrypt (symmetric key)": profiling.time_op(pr.reencrypt, res, rk_bc),
+        "expand_seeded": profiling.time_op(tlwe.expand_seeded, seed0, body0, n0),
+        "encrypt_bool_seeded": profiling.time_op(
+            lambda: tlwe.encrypt_bool_seeded(g, bits, alpha, s)[1]),
+        "public-key encrypt_bool": profiling.time_op(
+            bob_pk.encrypt_bool, g, bits, alpha),
+        "PublicKeyLv0.generate": profiling.time_op(
+            lambda: pr.PublicKeyLv0.generate(g, bob.key_lv0, P).encryptions),
+        "new_asymmetric": profiling.time_op(
+            lambda: pr.ProxyReencryptionKey.new_asymmetric(
+                g, s, bob_pk, P).key_encryptions),
+        "new_symmetric": profiling.time_op(
+            lambda: pr.ProxyReencryptionKey.new_symmetric(
+                g, bob.key_lv0, carol.key_lv0, P).key_encryptions)}
+    # one call each under utils/profiling.trace (a trace file each): the
+    # kernels of the plain PyTorch ops, read from the profiler's records
+    tdir = os.path.join(work, "traces")
+    for name, fn in (("reencrypt", lambda: pr.reencrypt(res, rk_ab)),
+                     ("expand_seeded", lambda: tlwe.expand_seeded(
+                         seed0, body0, n0))):
+        with profiling.trace(tdir) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans, by_name = _kernel_records(prof)
+        _check(bool(spans), f"the trace of {name} holds no CUDA kernel")
+        _print_kernels(f"{name} B={B}", spans, by_name, gpu, 5,
+                       " (plain PyTorch, no hand kernel)")
+    traces = [os.path.getsize(os.path.join(tdir, f)) for f in os.listdir(tdir)]
+    _check(len(traces) == 2 and min(traces) > 0,
+           f"utils/profiling.trace wrote {traces}, not two trace files")
+    wall["timings"] = time.perf_counter() - t0
+    per_lane = {k: v / B for k, v in tms.items() if k.startswith("reencrypt")
+                or k in ("expand_seeded", "public-key encrypt_bool")}
+    print(f"slice 5 timings B={B}: " + ", ".join(
+        f"{k} {v * 1e3:.3f} ms" + (f" ({per_lane[k] * 1e6:.3f} us/lane)"
+                                   if k in per_lane else "")
+        for k, v in tms.items()) + f" [{gpu}]")
+    total = time.perf_counter() - t_phase
+    print(f"phase 12 wall time {total:.1f} s: " + ", ".join(
+        f"{k_} {v_:.1f} s" for k_, v_ in wall.items())
+        + f", the rest {total - sum(wall.values()):.1f} s")
+    return launches, tms
+
+
 def main() -> int:
     import torch
 
@@ -1980,10 +2375,15 @@ def main() -> int:
     t64_launches, k_results["k1"]["t64"] = _t64_phase(g, counters, gpu)
     launches.update(t64_launches)
     phase_s["11"] = time.perf_counter() - t_mark
+    t_mark = time.perf_counter()
+
+    # -- 12. slice 5: seeded ciphertexts, re-encryption, parallel ----------------
+    s5_launches, s5_times = _slice5_phase(P, g, sk, cks["g3"], counters, gpu)
+    launches.update(s5_launches)
+    phase_s["12"] = time.perf_counter() - t_mark
 
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s: "
           + ", ".join(f"phases {k} {v:.1f} s" for k, v in phase_s.items()))
-    print(gpu)
     kernels = []
     for kk, kname, route_src, replaces, main_path in (
             ("k1", "ntt_inverse_crt_acc", "zig_tfhe_tpu_torch/csrc/ntt_inverse.cu",
@@ -2011,7 +2411,11 @@ def main() -> int:
             "lut_launches": {p: n[kk] for p, n in lut_launches.items()},
             "integer_launches": {p: n[kk] for p, n in
                                  integer_launches.items()},
-            "t64_launches": {p: n[kk] for p, n in t64_launches.items()}})
+            "t64_launches": {p: n[kk] for p, n in t64_launches.items()},
+            "slice5_launches": {p: n[kk] for p, n in s5_launches.items()}})
+    print(json.dumps({"slice5_ms": {k: v * 1e3 for k, v in s5_times.items()},
+                      "device": gpu}))
+    print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -16,7 +16,10 @@ integer layer of models/integer.py (radix_add, the tree-PBS radix_mul,
 radix_eq; a FheUint operator chain exact).  The 64-bit torus: K1 at the
 split-ring step's views, a SECURITY_128_BIT_T64 gate batch (one K1 per
 step of the 384-step hi-plane scan), and the int64 finish, which has no
-kernel and raises on the card.
+kernel and runs its plain version on the card, bit-equal to the CPU.
+Slice 5: the threefry mask expansion, the proxy re-encryption subset sum
+and key switch, and a one-rank NCCL gate runner, each equal to the CPU
+path.
 """
 
 import numpy as np
@@ -24,7 +27,8 @@ import pytest
 import torch
 
 from zig_tfhe_tpu_torch import key, params, tlwe, trgsw
-from zig_tfhe_tpu_torch.models import gates, integer, lut, netlists, scheduler
+from zig_tfhe_tpu_torch.models import (gates, integer, lut, netlists,
+                                       proxy_reenc, scheduler)
 from zig_tfhe_tpu_torch.ops import ntt, split_ring
 from zig_tfhe_tpu_torch.ops.cuda import extprod as K3
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K
@@ -595,18 +599,113 @@ def test_128bit_t64_gates_on_card(dev):
 
 
 def test_int64_finish_raises_on_card(dev):
-    """K1's int64 variant has no kernel: the direct 64-bit engine
-    (TEST_TINY64) raises on the card instead of running on the CPU."""
+    """The int64 finish (K1's int64 variant, no kernel) runs its plain
+    version on the card: the direct 64-bit engine (TEST_TINY64) gives
+    gates bit-equal to the CPU path, and finish_int64 on CUDA tensors
+    equals it on CPU tensors."""
     P = params.TEST_TINY64
     g = torch.Generator().manual_seed(3)
     sk = key.SecretKey.generate(g, P)
-    ck = key.CloudKey.generate(g, sk, P, packing_key=False).to(dev)
-    a = tlwe.encrypt_bool(g, torch.tensor([True, False]), 0.0, sk.key_lv0,
-                          width=64).to(dev)
-    with pytest.raises(NotImplementedError, match="int64"):
-        gates.apply_gates(torch.tensor([0, 1], device=dev), a, a, ck)
-    with pytest.raises(NotImplementedError, match="int64"):
-        split_ring.finish_int64([torch.zeros((1, 2, 64), dtype=torch.int32,
-                                             device=dev)] * 6,
-                                torch.zeros((1, 2, 64), dtype=torch.int64,
-                                            device=dev), None, 0)
+    ck = key.CloudKey.generate(g, sk, P, packing_key=False)
+    x = torch.tensor([True, False, True, False, True, True, False, False])
+    y = torch.tensor([True, True, False, False, True, False, True, False])
+    a = tlwe.encrypt_bool(g, x, 0.0, sk.key_lv0, width=64)
+    b = tlwe.encrypt_bool(g, y, 0.0, sk.key_lv0, width=64)
+    ids = torch.arange(8) % 10
+    cpu = gates.apply_gates(ids, a, b, ck)
+    ck.to(dev)                                  # moves the module in place
+    out = gates.apply_gates(ids.to(dev), a.to(dev), b.to(dev), ck)
+    assert out.dtype == torch.int64 and torch.equal(out.cpu(), cpu)
+    assert tlwe.decrypt_bool(out.cpu(), sk.key_lv0).tolist() == [
+        _TRUTH[gates.GATE_NAMES[i]](bool(p), bool(q))
+        for i, p, q in zip(ids.tolist(), x.tolist(), y.tolist())]
+    plan = ntt.plan_for_params(P, 0, 2, (2, 2), bgbit=6, pseudorandom_key=True)
+    rng = np.random.default_rng(10)
+    c = torch.from_numpy(rng.integers(-2**40, 2**40, (3, 2, plan.N)))
+    acc = torch.from_numpy(rng.integers(-2**62, 2**62, (3, 2, plan.N)))
+    v = ntt.ntt_forward(c, plan, digit_limbs=8, digit_bound=128)
+    want = split_ring.finish_int64(v, acc, plan, 3)
+    assert torch.equal(want, acc + (c << 3))
+    got = split_ring.finish_int64([t.to(dev) for t in v], acc.to(dev), plan, 3)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_threefry_on_card_equals_cpu(dev):
+    from zig_tfhe_tpu_torch.utils import threefry
+
+    kd = np.array([0x12345678, 0x9ABCDEF0], np.uint32)
+    for shape in ((7,), (2048, 701)):
+        assert torch.equal(threefry.random_bits32(kd, shape, dev).cpu(),
+                           threefry.random_bits32(kd, shape))
+    g = torch.Generator(device=dev).manual_seed(5)
+    sk = key.SecretKey.generate(g, params.SECURITY_128_BIT)
+    seed, b = tlwe.encrypt_bool_seeded(g, torch.ones(64, dtype=torch.bool,
+                                                     device=dev),
+                                       params.SECURITY_128_BIT.ksk_alpha,
+                                       sk.key_lv0)
+    ct = tlwe.expand_seeded(seed, b, params.SECURITY_128_BIT.n0)
+    assert ct.device.type == dev.type
+    assert torch.equal(ct.cpu(), tlwe.expand_seeded(seed, b.cpu(),
+                                                    params.SECURITY_128_BIT.n0))
+    assert bool(tlwe.decrypt_bool(ct, sk.key_lv0).all())
+
+
+def test_reencrypt_on_card_equals_cpu(dev):
+    """The subset sum (public-key encryption, the asymmetric key) and the
+    re-encryption key switch on the card against the same draws on the
+    CPU, at SECURITY_128_BIT."""
+    P = params.SECURITY_128_BIT
+    g = torch.Generator(device=dev).manual_seed(6)
+    alice = key.SecretKey.generate(g, P)
+    bob = key.SecretKey.generate(g, P)
+    pk = proxy_reenc.PublicKeyLv0.generate(g, bob.key_lv0, P)
+    shape = (P.n0, P.iks_t)
+    signs = proxy_reenc.draw_signs(g, (*shape, pk.encryptions.shape[0]))
+    noise = torch.zeros(shape, dtype=torch.int32, device=dev)
+    rk = proxy_reenc.asym_key_core(alice.key_lv0, pk.encryptions, signs,
+                                   noise, P.basebit, P.iks_t)
+    rk_cpu = proxy_reenc.asym_key_core(alice.key_lv0.cpu(),
+                                       pk.encryptions.cpu(), signs.cpu(),
+                                       noise.cpu(), P.basebit, P.iks_t)
+    assert torch.equal(rk.cpu(), rk_cpu)
+    rkey = proxy_reenc.ProxyReencryptionKey(rk, P.basebit, P.iks_t)
+    bits = torch.rand(256, generator=g, device=dev) < 0.5
+    ct = tlwe.encrypt_bool(g, bits, P.tlwe_lv0.alpha, alice.key_lv0)
+    out = proxy_reenc.reencrypt(ct, rkey)
+    cpu = proxy_reenc.reencrypt(
+        ct.cpu(), proxy_reenc.ProxyReencryptionKey(rk_cpu, P.basebit, P.iks_t))
+    assert torch.equal(out.cpu(), cpu)
+    assert (tlwe.decrypt_bool(out, bob.key_lv0) == bits).float().mean() > 0.9
+
+
+def test_nccl_one_rank_gates_equal_apply_gates(dev):
+    import socket
+
+    import torch.distributed as dist
+
+    from zig_tfhe_tpu_torch.parallel import distributed as D
+    from zig_tfhe_tpu_torch.parallel import mesh as M
+
+    P = params.TEST_TINY
+    g = torch.Generator(device=dev).manual_seed(7)
+    sk = key.SecretKey.generate(g, P)
+    ck = key.CloudKey.generate(g, sk, P)
+    ids = torch.arange(16, device=dev) % 10
+    a = tlwe.encrypt_bool(g, torch.rand(16, generator=g, device=dev) < 0.5,
+                          0.0, sk.key_lv0)
+    b = tlwe.encrypt_bool(g, torch.rand(16, generator=g, device=dev) < 0.5,
+                          0.0, sk.key_lv0)
+    want = gates.apply_gates(ids, a, b, ck)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    D.initialize(f"localhost:{port}", 1, 0)
+    try:
+        mesh = M.make_mesh()
+        assert mesh.shape == (1, 1) and mesh.device.type == "cuda"
+        run = D.distributed_gates(mesh, D.replicate_global(mesh, ck))
+        out = run(*(D.global_batch(mesh, x) for x in (ids, a, b)))
+        assert torch.equal(out, want)
+        assert torch.equal(M.shard_map_gates(mesh, ck)(ids, a, b), want)
+    finally:
+        dist.destroy_process_group()

@@ -326,8 +326,9 @@ def test_tiny64_port_keygen_gates():
 
 
 def test_int64_finish_has_no_kernel():
-    """K1's int64 variant has no kernel: tensors off the CPU raise (a meta
-    tensor stands in for the card), CPU tensors run the plain version."""
+    """K1's int64 variant has no kernel: its plain version runs on any
+    device.  On the CPU it is the exact acc + (c << drop); on meta tensors
+    (standing in for the card) it runs too and gives the int64 shape."""
     plan = tntt.plan_for_params(TPAR, 0, 2, (2, 2), bgbit=6,
                                 pseudorandom_key=True)
     rng = np.random.default_rng(10)
@@ -336,5 +337,7 @@ def test_int64_finish_has_no_kernel():
     v = tntt.ntt_forward(_t(c), plan, digit_limbs=8, digit_bound=128)
     assert np.array_equal(tsr.finish_int64(v, _t(acc), plan, 3).numpy(),
                           acc + (c << 3))
-    with pytest.raises(NotImplementedError, match="int64"):
-        tsr.finish_int64([x.to("meta") for x in v], _t(acc).to("meta"), plan, 0)
+    out = tsr.finish_int64([x.to("meta") for x in v], _t(acc).to("meta"),
+                           plan, 0)
+    assert out.device.type == "meta" and out.dtype == torch.int64
+    assert tuple(out.shape) == acc.shape

@@ -19,7 +19,11 @@ on those LUTs (FheUint and FheInt: radix arithmetic, comparisons, shifts,
 mul, divmod, the bridge to the boolean gates).  The N = 2048 sets of the
 64-bit torus run the even/odd split-ring engine of ops/split_ring.py.
 utils/serialization.py saves and loads keys and ciphertexts in the JAX
-package's file format.  The JAX package
+package's file format.  models/proxy_reenc.py holds public keys and proxy
+re-encryption; tlwe.encrypt_*_seeded give seeded ciphertexts whose mask
+is the JAX package's threefry draw (utils/threefry.py);
+utils/security.py estimates a set's lattice security, utils/profiling.py
+traces and times; parallel/ splits a batch over torch.distributed ranks.  The JAX package
 ``zig_tfhe_tpu`` is the reference: on equal keys and ciphertexts both
 return the same bits.  This package imports torch and numpy only.
 
@@ -47,5 +51,28 @@ from zig_tfhe_tpu_torch import trgsw
 from zig_tfhe_tpu_torch import key
 from zig_tfhe_tpu_torch import bootstrap
 from zig_tfhe_tpu_torch import models
+from zig_tfhe_tpu_torch import parallel
 
 __version__ = "0.1.0"
+
+
+def get_info() -> dict:
+    """Library info (main.zig:85-97 analog): name, version, backend
+    ("cuda" with a card, else "cpu"), the visible cards' count and the
+    first one's name, and the default parameter set."""
+    import torch
+
+    cuda = torch.cuda.is_available()
+    return {
+        "name": "zig_tfhe_tpu_torch",
+        "version": __version__,
+        "backend": "cuda" if cuda else "cpu",
+        "devices": torch.cuda.device_count() if cuda else 0,
+        "device_name": torch.cuda.get_device_name(0) if cuda else None,
+        "default_security": params.DEFAULT_SECURITY.name,
+    }
+
+
+def print_info() -> None:
+    for k, v in get_info().items():
+        print(f"{k}: {v}")

@@ -4,7 +4,8 @@ batch-first.
 Counterpart of zig_tfhe_tpu/bootstrap.py: blind rotate -> sample extract
 at 0 -> identity key switch.  ``bootstrap_to_lv1`` stops before the key
 switch and returns the TLWE lv1 ciphertext (the optimized MUX combines two
-of them under one key switch).  ``bootstrap_with_testvec`` is the same
+of them under one key switch); ``bootstrap_without_key_switch_truncated``
+is the reference's variant, which truncates that mask to n0.  ``bootstrap_with_testvec`` is the same
 pipeline on a caller's test vector (models/lut.py).  The strategy pair,
 ``BootstrapStrategy`` and ``default_bootstrap``, mirrors the reference's
 function-pointer table (bootstrap.zig:30-52).
@@ -55,6 +56,16 @@ def bootstrap_to_lv1(tlwe_batch: torch.Tensor, ck: CloudKey) -> torch.Tensor:
     """Blind rotate + extract, no key switch: [B, n0+1] -> [B, N+1] (lv1)."""
     tr = blind_rotate(tlwe_batch, ck.testvec, ck, ck.params)
     return _trlwe.sample_extract(tr, 0)
+
+
+def bootstrap_without_key_switch_truncated(tlwe_batch: torch.Tensor,
+                                           ck: CloudKey) -> torch.Tensor:
+    """The reference's bootstrapWithoutKeySwitch (vanilla.zig:58-69): blind
+    rotate + extract with the lv1 mask truncated to n0 coefficients,
+    [B, n0+1] under a truncation of the lv1 key (trlwe.py:
+    sample_extract_lv0_shaped; n0 > N raises)."""
+    tr = blind_rotate(tlwe_batch, ck.testvec, ck, ck.params)
+    return _trlwe.sample_extract_lv0_shaped(tr, ck.params.n0, 0)
 
 
 def bootstrap_with_testvec(tlwe_batch: torch.Tensor, testvec: torch.Tensor,

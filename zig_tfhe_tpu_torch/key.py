@@ -137,15 +137,8 @@ class CloudKey(nn.Module):
                 "the Toeplitz engine is 32-bit-only (ext-limb key form); "
                 "64-bit-torus sets use engines=('ntt',)")
         require_width(params.torus_bits)
-        if group is None:
-            group = _ntt.default_group(params)
-        bgbit, levels = engine_bgbit, decomp_levels
-        if bgbit is None:
-            if levels is None:
-                bgbit, levels = _ntt.default_engine_gadget(params, group)
-            else:
-                bgbit = params.bgbit
-        levels = _ntt.norm_levels(params, levels, bgbit=bgbit)
+        group, bgbit, levels = _engine_knobs(params, group, decomp_levels,
+                                             engine_bgbit)
         drop = _ntt.default_drop_bits(params, group, bgbit)
         ksk1 = gen_key_switching_key(gen, secret_key, params)
         with_ntt = "ntt" in engines
@@ -164,6 +157,48 @@ class CloudKey(nn.Module):
                    bsk_ext_limbs=bsk_ext, pksk=pksk,
                    pksk_gadget=(default_packing_gadget(params)
                                 if pksk is not None else None))
+
+    @classmethod
+    def generate_no_ksk(cls, params: SecurityParams, engines=("ntt",),
+                        group: int | None = 1, decomp_levels=None,
+                        engine_bgbit: int | None = None,
+                        ntt_drop: int | None = None,
+                        device="cuda") -> "CloudKey":
+        """A key of the real shapes with an all-zero bootstrapping key and
+        a zero key-switching key (key.zig:80-100): a fixture for timing the
+        gate path without keygen, whose outputs decrypt to nothing.  The
+        NTT knobs resolve as in ``generate``; ``group=None`` takes the
+        set's default group (1 unless given, as in the JAX package) and
+        ``ntt_drop`` overrides the default drop bits.  No packing key."""
+        require_width(params.torus_bits)
+        group, bgbit, levels = _engine_knobs(params, group, decomp_levels,
+                                             engine_bgbit)
+        if ntt_drop is None:
+            ntt_drop = _ntt.default_drop_bits(params, group, bgbit)
+        with_ntt = "ntt" in engines
+        bsk = None
+        if with_ntt:
+            la, lb = levels
+            plan = _ntt.plan_for_params(params, ntt_drop, group, levels,
+                                        bgbit=bgbit, pseudorandom_key=True)
+            if params.split_ring:   # the folded split form
+                tail = (plan.n_primes, 2 * (la + lb), 4, params.N // 2)
+            else:
+                tail = (plan.n_primes, la + lb, 2, params.N)
+            lead = ((params.n0,) if group == 1
+                    else (-(-params.n0 // group), (1 << group) - 1))
+            bsk = torch.zeros(lead + tail, dtype=torch.int16, device=device)
+        bsk_ext = (torch.zeros((params.n0, _trgsw.N_KLIMBS, 2 * params.L, 2,
+                                2 * params.N), dtype=torch.int8, device=device)
+                   if "toeplitz" in engines else None)
+        ksk1 = torch.zeros((params.n1 * params.iks_t, params.n0 + 1),
+                           dtype=carrier_dtype(params.torus_bits),
+                           device=device)
+        return cls(gen_testvec(params, device), ksk1, bsk, params,
+                   bsk_ntt_drop=ntt_drop, bsk_group=group if with_ntt else 1,
+                   bsk_levels=levels if with_ntt else None,
+                   bsk_bgbit=bgbit if with_ntt else None,
+                   bsk_ext_limbs=bsk_ext)
 
     @classmethod
     def from_numpy(cls, arrays, params: SecurityParams, *, bsk_ntt_drop: int,
@@ -186,6 +221,20 @@ class CloudKey(nn.Module):
                    else _tensor(bsk_ext, np.int8, device),
                    pksk=None if pksk is None else _tensor(pksk, cdt, device),
                    pksk_gadget=pksk_gadget)
+
+
+def _engine_knobs(params: SecurityParams, group, levels, bgbit):
+    """(group, Bg_e bits, levels) of the NTT key as the JAX package's
+    CloudKey.generate resolves them (ops/ntt.py: default_group,
+    default_engine_gadget, norm_levels)."""
+    if group is None:
+        group = _ntt.default_group(params)
+    if bgbit is None:
+        if levels is None:
+            bgbit, levels = _ntt.default_engine_gadget(params, group)
+        else:
+            bgbit = params.bgbit
+    return group, bgbit, _ntt.norm_levels(params, levels, bgbit=bgbit)
 
 
 def default_packing_key(params: SecurityParams) -> bool:

@@ -30,7 +30,7 @@ The 64-bit torus: a split-ring set (N > 1024) runs
 ops/split_ring.py:blind_rotate_split, whose hi-plane step finishes on
 K1.  The direct engine at width 64 (TEST_TINY64, N = 64) runs the plain
 ops at every group and finishes with K1's int64 variant
-(split_ring.py:finish_int64), which has no kernel: CPU tensors only.
+(split_ring.py:finish_int64), plain PyTorch ops on the card as on the CPU.
 """
 
 from __future__ import annotations

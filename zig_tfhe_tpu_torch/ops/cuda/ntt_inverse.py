@@ -117,8 +117,8 @@ def ntt_inverse_to_crt_acc(v_stack: torch.Tensor, acc: torch.Tensor,
         raise NotImplementedError(
             "the kernel takes int32 residues or their int8 limb planes and "
             "an int32 accumulator (the split-ring scan's are its int32 hi "
-            "planes; an int64 accumulator's finish is ops/split_ring.py:"
-            f"finish_int64, CPU only) (got {v_stack.dtype}, {acc.dtype})")
+            "planes; an int64 accumulator's finish is the plain "
+            f"ops/split_ring.py:finish_int64) (got {v_stack.dtype}, {acc.dtype})")
     if v_stack.device.type == "cpu" and acc.device.type == "cpu":
         return ntt_inverse_to_crt_acc_reference(v_stack, acc, plan, drop)
     if v_stack.device.type != "cuda" or acc.device != v_stack.device:

@@ -43,8 +43,8 @@ p within the same bounds, and the CRT lift makes the accumulator bit-equal
 (as K2's residues are to the JAX package's XLA step).  The low word is
 re-attached once after the scan.  The generic scan (int64 accumulator,
 reached by a configuration whose drop is below 32 or whose offsets have
-bits below 32) finishes with K1's int64 variant, which has no kernel: CPU tensors run
-its plain version and CUDA tensors raise.  The path is chosen from the
+bits below 32) finishes with K1's int64 variant, plain PyTorch ops on
+either device (``finish_int64``).  The path is chosen from the
 key's configuration before any launch.  The JAX package's
 ``ZTFHE_SPLIT_HI32`` switch is not ported.
 """
@@ -335,15 +335,9 @@ def _rows_hi32(acc_hi: torch.Tensor, params: SecurityParams, e: int,
 
 def finish_int64(v_hat, acc: torch.Tensor, plan: _ntt.NTTPlan,
                  drop_bits: int) -> torch.Tensor:
-    """acc + (CRT(invNTT(v)) << drop) mod 2^64 on an int64 accumulator: K1's
-    int64 variant, which has no CUDA kernel.  CPU tensors run this plain
-    version; CUDA tensors raise."""
-    if acc.device.type != "cpu":
-        raise NotImplementedError(
-            "the int64 finish (K1's int64-accumulator variant, acc + "
-            "(CRT(invNTT(v)) << drop) mod 2^64) has no CUDA kernel: the "
-            "generic split scan and the direct 64-bit engine run on CPU "
-            "tensors only")
+    """acc + (CRT(invNTT(v)) << drop) mod 2^64 on an int64 accumulator:
+    K1's int64 variant, plain PyTorch ops on any device (the JAX package
+    runs it as XLA ops, with no Pallas kernel)."""
     delta = _ntt.ntt_inverse_to_crt(v_hat, plan, 64)
     return acc + (delta << drop_bits if drop_bits else delta)
 

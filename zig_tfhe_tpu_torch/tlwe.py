@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from zig_tfhe_tpu_torch.utils import rng as _rng
+from zig_tfhe_tpu_torch.utils import threefry as _threefry
 from zig_tfhe_tpu_torch.utils.torus import (carrier_dtype, carrier_width,
                                             f64_to_torus, to_carrier,
                                             torus_constant_w)
@@ -27,6 +28,14 @@ def _inner_product_binary(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return (a * s.to(a.dtype)).sum(-1).to(a.dtype)
 
 
+def encrypt_from_draws(a: torch.Tensor, noise: torch.Tensor, mu: torch.Tensor,
+                       sk: torch.Tensor) -> torch.Tensor:
+    """The deterministic core of an encryption: the body <a, s> + noise +
+    mu of the mask ``a`` [..., n] and the drawn noise [...] (carriers).
+    Returns carrier [...]."""
+    return _inner_product_binary(a, sk) + noise + mu
+
+
 def encrypt_torus(gen: torch.Generator, mu: torch.Tensor, alpha: float,
                   sk: torch.Tensor, width: int = 32) -> torch.Tensor:
     """Encrypt torus plaintexts ``mu`` [...] (carriers at ``width``) under
@@ -37,17 +46,79 @@ def encrypt_torus(gen: torch.Generator, mu: torch.Tensor, alpha: float,
     n = sk.shape[-1]
     a = _rng.uniform_torus(gen, (*mu.shape, n), width)
     noise = _rng.gaussian_torus(gen, mu.shape, alpha, width)
-    b = _inner_product_binary(a, sk) + noise + mu
+    return torch.cat([a, encrypt_from_draws(a, noise, mu, sk)[..., None]],
+                     dim=-1)
+
+
+def require_seeded_width(width: int) -> None:
+    """Raise ValueError unless ``width`` is 32 (seeded ciphertexts)."""
+    if width != 32:
+        raise ValueError(
+            "seeded ciphertexts are 32-bit only: the JAX package's width-64 "
+            "seeded files do not round-trip (its save_seeded_ciphertext "
+            "views an int64 body as uint32 [2x] and load_seeded_ciphertext "
+            "reads it back as int32), so the port does not copy that format")
+
+
+def encrypt_torus_seeded(gen: torch.Generator, mu: torch.Tensor, alpha: float,
+                         sk: torch.Tensor, width: int = 32):
+    """Seeded (compressed) encryption: returns ``(mask_seed, b)``, with
+    ``mask_seed`` the two words of a threefry key as numpy uint32 [2] and
+    ``b`` int32 [...] on the generator's device.  The wire form is (n+1)x
+    smaller than the ciphertext, which ``expand_seeded(mask_seed, b, n)``
+    rebuilds exactly; the mask is the JAX package's draw from that key
+    (utils/threefry.py), so the two packages' seeded files cross.
+
+    SECURITY: only the MASK seed is returned/published — the mask ``a`` is
+    public in any LWE ciphertext, so a seed that derives ``a`` and nothing
+    else reveals nothing extra (under the PRF assumption on threefry).
+    The noise is drawn from ``gen``, apart from the seed, and must stay
+    secret: publishing the randomness that drew it would let anyone
+    recompute the Gaussian noise and solve ``b - noise - mu = <a, s>`` for
+    the secret key.  Width 32 only (ValueError otherwise)."""
+    require_seeded_width(width)
+    mu = torch.as_tensor(mu, dtype=torch.int32, device=gen.device)
+    words = torch.randint(0, 1 << 32, (2,), dtype=torch.int64, generator=gen,
+                          device=gen.device)
+    mask_seed = words.cpu().numpy().astype(np.uint32)
+    a = _threefry.random_bits32(mask_seed, (*mu.shape, sk.shape[-1]),
+                                gen.device)
+    noise = _rng.gaussian_torus(gen, mu.shape, alpha, width)
+    return mask_seed, encrypt_from_draws(a, noise, mu, sk)
+
+
+def expand_seeded(mask_seed, b: torch.Tensor, n: int,
+                  width: int = 32) -> torch.Tensor:
+    """(mask_seed, b) -> the ciphertext int32 [..., n+1] on b's device (see
+    encrypt_torus_seeded; ``mask_seed`` is the published threefry key data,
+    uint32 [2]).  Width 32 only (ValueError otherwise)."""
+    require_seeded_width(width)
+    b = torch.as_tensor(b, dtype=torch.int32)
+    a = _threefry.random_bits32(mask_seed, (*b.shape, n), b.device)
     return torch.cat([a, b[..., None]], dim=-1)
 
 
 def encrypt_bool(gen: torch.Generator, bits, alpha: float, sk: torch.Tensor,
                  width: int = 32) -> torch.Tensor:
     """Encrypt booleans as +-1/8 (tlwe.zig:52-55)."""
-    bits = torch.as_tensor(bits, dtype=torch.bool, device=gen.device)
-    mu = torch.where(bits, to_carrier(torus_constant_w(BOOL_MU, width), width),
-                     to_carrier(torus_constant_w(-BOOL_MU, width), width))
+    mu = bool_mu(bits, width, gen.device)
     return encrypt_torus(gen, mu, alpha, sk, width)
+
+
+def encrypt_bool_seeded(gen: torch.Generator, bits, alpha: float,
+                        sk: torch.Tensor, width: int = 32):
+    """Seeded-form boolean encryption (see encrypt_torus_seeded)."""
+    mu = bool_mu(bits, width, gen.device)
+    return encrypt_torus_seeded(gen, mu, alpha, sk, width)
+
+
+def bool_mu(bits, width: int = 32, device=None) -> torch.Tensor:
+    """The +-1/8 plaintexts of booleans, carriers at ``width`` on
+    ``device``."""
+    bits = torch.as_tensor(bits, dtype=torch.bool, device=device)
+    return torch.where(
+        bits, to_carrier(torus_constant_w(BOOL_MU, width), width),
+        to_carrier(torus_constant_w(-BOOL_MU, width), width))
 
 
 def phase(ct: torch.Tensor, sk: torch.Tensor) -> torch.Tensor:

@@ -54,9 +54,24 @@ def sample_extract(ct: torch.Tensor, k: int = 0) -> torch.Tensor:
     """TLWE(lv1) sample at coefficient ``k`` (trlwe.zig:146-162):
     p[i] = a[k-i] for i <= k else -a[N+k-i];  b = b_poly[k].
     Returns carrier [..., N+1]."""
+    return sample_extract_lv0_shaped(ct, ct.shape[-1], k)
+
+
+def sample_extract_lv0_shaped(ct: torch.Tensor, n0: int,
+                              k: int = 0) -> torch.Tensor:
+    """The reference's sampleExtractIndex2 (trlwe.zig:165-180): the extract
+    at ``k`` keeping only the first n0 mask coefficients, a sample under
+    (a truncation of) the lv1 key, as bootstrapWithoutKeySwitch
+    (vanilla.zig:58-69) returns it.  Returns carrier [..., n0+1].
+
+    Needs n0 <= N: a degree-N ring sample determines only N mask
+    coefficients, so the uint5-uint8 sets (n0 > N) raise ValueError."""
     N = ct.shape[-1]
-    i = np.arange(N)
+    if n0 > N:
+        raise ValueError(
+            f"sample_extract_lv0_shaped needs n0 <= N, got n0={n0} > N={N}")
+    i = np.arange(n0)
     src = torch.from_numpy(np.where(i <= k, k - i, N + k - i)).to(ct.device)
-    sign = torch.from_numpy(np.where(i <= k, 1, -1).astype(np.int32)).to(ct.device)
-    p = ct[..., A, :][..., src] * sign
+    sign = torch.from_numpy(np.where(i <= k, 1, -1).astype(np.int32))
+    p = ct[..., A, :][..., src] * sign.to(ct.device)
     return torch.cat([p, ct[..., B, k:k + 1]], dim=-1)

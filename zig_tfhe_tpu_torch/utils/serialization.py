@@ -8,8 +8,10 @@ int8/int16/int32 (int64 torus arrays on the 64-bit sets, a split-ring set's
 NTT key in its folded split form).  Files written here load into the JAX
 package and the other way round.  Ported: the secret key, the cloud key
 (its packing key included), the ciphertext and the stand-alone packing key,
-both ways, at both widths.  The seeded ciphertext and the public
-and re-encryption keys are a later slice.
+both ways, at both widths; the public and re-encryption keys of
+models/proxy_reenc.py and the seeded ciphertext at width 32 (the JAX
+package's width-64 seeded files do not round-trip, tlwe.py:
+encrypt_torus_seeded).
 """
 
 from __future__ import annotations
@@ -23,12 +25,17 @@ import torch
 
 from zig_tfhe_tpu_torch import key as K
 from zig_tfhe_tpu_torch import params as P
+from zig_tfhe_tpu_torch import tlwe as _tlwe
+from zig_tfhe_tpu_torch.models import proxy_reenc as PR
 from zig_tfhe_tpu_torch.utils.torus import carrier_dtype
 
 _KIND_SECRET = "secret_key"
 _KIND_CLOUD = "cloud_key"
 _KIND_CIPHERTEXT = "ciphertext"
 _KIND_PACKING = "packing_ksk"
+_KIND_PUBLIC = "public_key"
+_KIND_REENC = "reenc_key"
+_KIND_SEEDED = "seeded_ciphertext"
 
 
 def _npz_path(path) -> str:
@@ -176,3 +183,63 @@ def load_packing_ksk(path, device="cuda"):
     i = np.int32 if params.torus_bits == 32 else np.int64
     pksk = torch.from_numpy(arrays["pksk"].astype(i)).to(device)
     return pksk, params, m["basebit"], m["t"]
+
+
+def save_seeded_ciphertext(path, mask_seed, b: torch.Tensor,
+                           params: P.SecurityParams) -> None:
+    """A seeded (compressed) TLWE batch: the mask seed's threefry key data
+    (uint32 [2]) and the bodies (stored as uint32), (n0+1)x smaller than
+    the expanded batch (tlwe.encrypt_*_seeded / tlwe.expand_seeded).
+
+    ``mask_seed`` must be the first element of encrypt_*_seeded's return,
+    the published seed of the mask; the noise's randomness is never
+    stored (see tlwe.encrypt_torus_seeded's SECURITY note).  32-bit sets
+    only (ValueError otherwise)."""
+    _tlwe.require_seeded_width(params.torus_bits)
+    if b.dtype != torch.int32:
+        raise TypeError(f"seeded bodies are int32, not {b.dtype}")
+    np.savez(path, __manifest__=_manifest(_KIND_SEEDED, params),
+             key_data=np.asarray(mask_seed, dtype=np.uint32).reshape(2),
+             b=_numpy(b).view(np.uint32))
+
+
+def load_seeded_ciphertext(path, expand: bool = True, device="cuda"):
+    """Returns (ct, params) with ct int32 [..., n0+1] expanded on
+    ``device`` (expand=True), or ((mask_seed, b), params) in the compressed
+    form (mask_seed numpy uint32 [2], b int32 on ``device``)."""
+    arrays, m = _load(path, _KIND_SEEDED)
+    params = _params_from_doc(m)
+    _tlwe.require_seeded_width(params.torus_bits)
+    mask_seed = arrays["key_data"].astype(np.uint32)
+    b = torch.from_numpy(arrays["b"].view(np.int32).copy()).to(device)
+    if not expand:
+        return (mask_seed, b), params
+    return _tlwe.expand_seeded(mask_seed, b, params.n0), params
+
+
+def save_public_key(path, pk: PR.PublicKeyLv0,
+                    params: P.SecurityParams) -> None:
+    np.savez(path, __manifest__=_manifest(_KIND_PUBLIC, params),
+             encryptions=_numpy(pk.encryptions))
+
+
+def load_public_key(path, device="cuda"):
+    """Returns (PublicKeyLv0 on ``device``, params)."""
+    arrays, m = _load(path, _KIND_PUBLIC)
+    return (PR.PublicKeyLv0.from_numpy(arrays["encryptions"], device),
+            _params_from_doc(m))
+
+
+def save_reenc_key(path, rk: PR.ProxyReencryptionKey,
+                   params: P.SecurityParams) -> None:
+    np.savez(path, __manifest__=_manifest(
+        _KIND_REENC, params, {"basebit": rk.basebit, "t": rk.t}),
+        key_encryptions=_numpy(rk.key_encryptions))
+
+
+def load_reenc_key(path, device="cuda"):
+    """Returns (ProxyReencryptionKey on ``device``, params)."""
+    arrays, m = _load(path, _KIND_REENC)
+    return (PR.ProxyReencryptionKey.from_numpy(
+        arrays["key_encryptions"], m["basebit"], m["t"], device),
+        _params_from_doc(m))
