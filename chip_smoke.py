@@ -25,10 +25,12 @@ Every step of g3 and g2 is two kernel launches: K2, the fused step core
 (csrc/ntt_step.cu: forward NTT, pointwise products, subset combine), then
 K1 (csrc/ntt_inverse.cu: inverse NTT, CRT lift, accumulator add).  Every
 step of toep is one launch of K3 (csrc/extprod.cu: the digits against the
-negacyclic circulants of the key step's rows, 4 key limbs).  Phases:
+negacyclic circulants of the key step's rows, 4 key limbs).  Every step
+of the 64-bit torus's split-ring scan (phase 11) is K2s (csrc/split_step.cu:
+K2's function at the split shape) then K1.  Phases:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the three kernels from zig_tfhe_tpu_torch/csrc (all three on
+  2. build the four kernels from zig_tfhe_tpu_torch/csrc (all on
      csrc/hopper_prims.cuh: TMA, mbarrier, wgmma) with nvcc for sm_90a, one
      nvcc per source, started together; ptxas' registers and spills (and
      any wgmma serialization it reports);
@@ -142,25 +144,33 @@ negacyclic circulants of the key step's rows, 4 key limbs).  Phases:
      (N = 2048, n0 = 768, int64 carriers; its defaults: group 2, Bg_e 2^8
      with (3, 2) levels, drop 32, the four-prime plan on N/2 = 1024, the
      packing key at (8, 3)), its arrays' shapes and bytes and the keygen
-     time.  The split-ring scan runs on the int32 hi planes and finishes
-     every step with K1 on views of the split residues ([P, 2B, 2, 1024],
-     drop 32 - 32 = 0); the rest of the step is plain PyTorch
-     (ops/split_ring.py).  K1 at those views, on the residues of one real
-     step (the hi-plane decompose, forward NTT, pointwise against the
-     key's first group and combine on a rotated test vector), bit-equal to
-     its plain version and to the plain hi-plane finish at B = 2048, 200
-     and 1, timed beside its bound; apply_gates on 512 lanes cycling the 10
-     gates, the launch counts set to 0 just before and read just after (K1
-     384, K2 and K3 0), accuracy 1.0, the first 4 lanes bit-equal to the
-     port's CPU path; gates/s at B = 2048 (one batch, warm from the B =
-     512 run), B = 1 latency, one step split into its stages, and profiles
-     at B = 2048 and B = 1 read from the profiler's kernel records (busy
-     time, idle share, the costliest kernels); bootstrap_lut at m = 16 on B = 256
+     time.  The split-ring scan runs on the int32 hi planes; every step is
+     the hi-plane decompose (plain PyTorch), K2s (forward NTT, pointwise
+     against the key group, the Y-twisted combine; the residues as int8
+     limb planes [P, B, 2, 2, 2, 1024]) and K1 on their views ([P, 2B, 2,
+     2, 1024], drop 32 - 32 = 0).  K2s on one real step's inputs (the
+     hi-plane digits of a rotated test vector, the key's first group, the
+     rotations of real ciphertexts) bit-equal to its plain version (the
+     prime-batched forward NTT, pointwise and combine of ops/split_ring.py)
+     at B = 2048, 200 and 1, timed beside its bound and the plain chain;
+     K1 on K2s's residues, bit-equal to its plain version and to the plain
+     hi-plane finish at the same batches, timed beside its bound;
+     apply_gates on 512 lanes cycling the 10 gates, the launch counts set to
+     0 just before and read just after (K2s = K1 = 384, K2 and K3 0), no
+     call of the plain forward NTT, pointwise or combine on the card,
+     accuracy 1.0, the first 4 lanes bit-equal to the port's CPU path;
+     gates/s at B = 2048 (one batch, warm from the B = 512 run, and its
+     peak device memory), B = 1 latency, one step split into decompose /
+     K2s / K1, and profiles at B = 2048 and B = 1 read from the profiler's
+     kernel records (busy time, idle share, kernels a step, the costliest
+     kernels; a complete profile
+     must hold fewer matrix-product kernels than steps: only the key
+     switch's _int_mm is left); bootstrap_lut at m = 16 on B = 256
      (every lane equal to the table at its modswitched phase), the m = 64
      radix LUT through the tree PBS on B = 64 (every mid table on its
      dedicated rotation lane; in-bin lanes exact, accuracy >= 0.95),
      FheUint 2-digit add, lt and mul and an FheInt add on B = 64, exact
-     against numpy, each with its launch counts (K1 = 384 x the op's
+     against numpy, each with its launch counts (K2s = K1 = 384 x the op's
      rotations, T64_ROTATIONS); the split cloud key and a 64-bit ciphertext
      saved and loaded (gate_pair bit-equal after the load); the phase's
      wall time, split.
@@ -196,6 +206,7 @@ Without a CUDA device it exits 2 before printing anything.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -302,7 +313,8 @@ def _kernel_vs_plain(kernel, plain, iters: int = KERNEL_ITERS):
 _HAND_KERNELS = {"k1": ("ntt_inverse", "ntt_inverse_to_crt_acc",
                         "ntt_inverse_crt_acc_kernel"),
                  "k2": ("ntt_step", "ntt_step_fused", "ntt_step_fused_kernel"),
-                 "k3": ("extprod", "extprod_matmul", "extprod_matmul_kernel")}
+                 "k3": ("extprod", "extprod_matmul", "extprod_matmul_kernel"),
+                 "k2s": ("split_step", "split_step_fused", "split_step_kernel")}
 
 
 def _profile(label: str, fn, gpu: str, top: int = 6, steps: int = 0):
@@ -314,7 +326,9 @@ def _profile(label: str, fn, gpu: str, top: int = 6, steps: int = 0):
     The profiler can lose records: every profiled call launches hand
     kernels, so the profile counts as complete only when it kept one record
     of each kernel for every launch its wrapper counted in the call;
-    otherwise it is reported as incomplete and nothing else is printed."""
+    otherwise it is reported as incomplete and nothing else is printed.
+    Returns the kernel count and (total ns, count) by kernel name of a
+    complete profile, else None."""
     import importlib
 
     import torch
@@ -336,10 +350,11 @@ def _profile(label: str, fn, gpu: str, top: int = 6, steps: int = 0):
         print(f"{label}: the profiler kept {kept} hand-kernel records of the "
               f"launches {launched} counted in the call (records lost; "
               f"profile incomplete, idle share not measured)")
-        return
-    per_step = f" ({len(spans) / steps:.0f} a step)" if steps else ""
+        return None
+    per_step = f" ({len(spans) / steps:.1f} a step)" if steps else ""
     _print_kernels(label, spans, by_name, gpu, top,
                    f"{per_step}, hand-kernel records {kept} complete")
+    return len(spans), by_name
 
 
 def _kernel_records(prof):
@@ -445,6 +460,37 @@ def _k2_bound_ms(plan, group: int, R: int, n_dl: int, B: int,
     t_cuda = clocks * B * N / (SMS * SM_HZ)
     tb = 64 // (R * n_dl)
     l2_bytes = (P * (N // 128) * d_bytes + -(-B // tb) * m_bytes + v_bytes)
+    return _bound(nbytes / HBM_BPS, int8_ops / INT8_OPS, t_cuda) + (l2_bytes, t_cuda * 1e3)
+
+
+def _k2s_bound_ms(plan, B: int, RL: int, n_rot_rows: int, rg: int):
+    """K2s's least time (csrc/split_step.cu's header): the digits' RL int8
+    half-rows, the key step [3, P, RL, 4, N], the rotations, the forward
+    matrices and the rot rows this run gathers (and psi1's) read once, the
+    int8 limb planes [P, B, 2, 2, 2, N] written once; int8 MACs (2 ops
+    each, every half-row through both matrix limbs) against the
+    tensor-core rate; and the CUDA-core stage per (b, k, prime), counted
+    as _cuda_core_clocks counts: the forward reduce-then-combine (3
+    Barretts and a multiply-add a half-row), the pointwise sums (4 planes x
+    3 subsets: a multiply-add a half-row, a Barrett a row group and one on
+    the sum), the subset pair (3 Barretts, 5 multiplies), the apply (per
+    subset and component 3 Barretts, 5 multiplies) and 4 final Barretts.
+    Returns the bound, then (for the printed line only) the L2 -> SM bytes
+    of the 64 x 128 tiling (every tile reads its 64 digit rows over all N
+    and its column tile of both matrices) and the CUDA-core time in ms."""
+    P, N, S = plan.n_primes, plan.N, 3
+    ng = -(-RL // rg)
+    barretts = 3 * RL + S * 4 * (ng + 1) + 3 + S * 2 * 3 + 4
+    imad = RL + S * 4 * RL + 5 + S * 2 * 5
+    t_cuda = (P * _cuda_core_clocks(barretts, imad=imad) * B * N
+              / (SMS * SM_HZ))
+    d_bytes, m_bytes, v_bytes = B * RL * N, 2 * P * N * N, P * B * 8 * N
+    nbytes = (d_bytes + S * P * RL * 4 * N * 2 + 2 * B * 4 + m_bytes
+              + (n_rot_rows + 1) * P * N * 2 + v_bytes)
+    int8_ops = 2 * B * RL * N * N * 2 * P
+    row_tiles = -(-B // (64 // RL))
+    l2_bytes = (P * (N // 128) * row_tiles * 64 * N + row_tiles * m_bytes
+                + v_bytes)
     return _bound(nbytes / HBM_BPS, int8_ops / INT8_OPS, t_cuda) + (l2_bytes, t_cuda * 1e3)
 
 
@@ -574,8 +620,8 @@ def _checked_run(plan, cts, ck, sk, out_ref):
 
 def _counted_run(counters, name, fn, expect):
     """Run ``fn`` once with every launch count set to 0 just before and read
-    just after; fail unless the counts are ``expect``.  Returns (output,
-    counts, host seconds)."""
+    just after; fail unless the counts are ``expect`` (a kernel it does not
+    name: 0).  Returns (output, counts, host seconds)."""
     import torch
 
     torch.cuda.synchronize()
@@ -586,6 +632,7 @@ def _counted_run(counters, name, fn, expect):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = {k: c.launches for k, c in counters.items()}
+    expect = {k: expect.get(k, 0) for k in counters}
     _check(counts == expect, f"{name}: launches {counts}, expected {expect}")
     return out, counts, dt
 
@@ -1396,6 +1443,7 @@ def _t64_phase(g, counters, gpu):
     from zig_tfhe_tpu_torch.ops import ntt, split_ring
     from zig_tfhe_tpu_torch.ops.blind_rotate import modswitch
     from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
+    from zig_tfhe_tpu_torch.ops.cuda import split_step as k2s
     from zig_tfhe_tpu_torch.ops.poly import negacyclic_rotate
     from zig_tfhe_tpu_torch.utils import serialization
 
@@ -1408,7 +1456,7 @@ def _t64_phase(g, counters, gpu):
     launches = {}
 
     def expect(rotations):
-        return {"k1": rotations * T64_STEPS, "k2": 0, "k3": 0}
+        return {"k1": rotations * T64_STEPS, "k2s": rotations * T64_STEPS}
 
     # -- the key: group 2, Bg_e 2^8 (3, 2), drop 32, 4 primes on N/2 ----------
     torch.cuda.synchronize()
@@ -1439,7 +1487,7 @@ def _t64_phase(g, counters, gpu):
                                              ck.buffers()))
           + f"; packing key at {ck.pksk_gadget}")
 
-    # -- K1 at the split shapes, on the residues of one real step -------------
+    # -- K2s and K1 at the split shapes, on one real step's inputs ------------
     B, Nh = B_GATES, plan.N
     x = torch.randint(0, 2, (B,), generator=g, device=dev).bool()
     y = torch.randint(0, 2, (B,), generator=g, device=dev).bool()
@@ -1451,25 +1499,47 @@ def _t64_phase(g, counters, gpu):
     acc = split_ring.split(negacyclic_rotate(tv_hi, b_t)).contiguous()
     ts = modswitch(a[:, :2].T.contiguous(), P)                    # [2, B]
     bsk0 = ck.bsk_ntt[0]
-    stage_fns = {
-        "decompose": lambda: split_ring._rows_hi32(acc, P, 8, (3, 2)),
-        "forward NTT": lambda: split_ring._forward(rows, plan),
-        "3 x pointwise": lambda: [split_ring._pointwise(d_hat, bsk0[m], plan)
-                                  for m in range(3)],
-        "combine": lambda: split_ring.rotate_combine_multi_split(
-            us, [ts[0], ts[1]], plan)}
-    rows = stage_fns["decompose"]()
-    d_hat = stage_fns["forward NTT"]()
-    us = stage_fns["3 x pointwise"]()
-    v = stage_fns["combine"]()                                    # [P, B, 2, 2, Nh]
+    digits = split_ring._rows_hi32(acc, P, 8, (3, 2)).to(torch.int8)
+    errs2s = []
+    for lanes in (B, RAGGED_LANES, 1):
+        step = (digits[:lanes], bsk0, ts[:, :lanes].contiguous(), plan, 8)
+        out = k2s.split_step_fused(*step)
+        ref = k2s.split_step_fused_reference(*step)
+        torch.cuda.synchronize()
+        errs2s.append(int((out.long() - ref.long()).abs().max()))
+        _check(torch.equal(out, ref), f"K2s differs from its plain version at "
+               f"B={lanes} (max |diff| {errs2s[-1]})")
+    v8 = k2s.split_step_fused(digits, bsk0, ts, plan, 8)        # [P, B, 2, 2, 2, Nh]
+    v = k1.join_limbs(v8)                                         # [P, B, 2, 2, Nh]
     finish = acc + ntt.ntt_inverse_to_crt(list(v), plan, 32)     # plain hi-plane finish
-    _check(int(v.abs().max()) <= 32639, "split residues outside the limb range")
+    ts1 = ts[:, :1].contiguous()
+    ms2s, plain2s = _kernel_vs_plain(
+        lambda: k2s.split_step_fused(digits, bsk0, ts, plan, 8),
+        lambda: k2s.split_step_fused_reference(digits, bsk0, ts, plan, 8))
+    one2s = _cuda_ms(lambda: k2s.split_step_fused(digits[:1], bsk0, ts1, plan, 8),
+                     KERNEL_ITERS)
+    dev2s = _graph_ms(lambda: k2s.split_step_fused(digits[:1], bsk0, ts1, plan, 8),
+                      KERNEL_ITERS)
+    n_rows = int(torch.unique(ts >> 1).numel())
+    bound2s, by2s, unit2s, l2_2s, cc2s = _k2s_bound_ms(
+        plan, B, digits.shape[1], n_rows, k2s.row_group(plan))
+    k2s_result = dict(max_abs_err=max(errs2s), ms=ms2s, plain_ms=plain2s,
+                      bound_ms=bound2s, bound_by=by2s, bound_unit=unit2s,
+                      b1_eager_ms=one2s, b1_device_ms=dev2s)
+    print(f"t64: K2s == plain (the prime-batched forward NTT, 3 x pointwise, "
+          f"the Y-twisted combine and the limb split) on one real step "
+          f"(hi-plane digits [B, 10, {Nh}] of a rotated test vector, the "
+          f"key's first group, rotations of real ciphertexts) for B = {B}, "
+          f"{RAGGED_LANES}, 1; B={B}: K2s {ms2s * 1e3:.1f} us/call (plain "
+          f"{plain2s * 1e3:.1f} us, bound {bound2s * 1e3:.1f} us by {unit2s}, "
+          f"cuda cores {cc2s * 1e3:.1f} us, L2->SM of its tiling "
+          f"{l2_2s / 1e6:.0f} MB/call); B=1 {dev2s * 1e3:.1f} us/call on the "
+          f"device ({one2s * 1e3:.1f} us eager) [{gpu}]")
 
     def views(n):
         return (v[:, :n].reshape(plan.n_primes, 2 * n, 2, Nh),
                 acc[:n].reshape(2 * n, 2, Nh))
 
-    v8 = k1.split_limbs(v)                    # [P, B, 2, 2, 2, Nh] limb planes
     errs = []
     for lanes in (B, RAGGED_LANES, 1):
         vv, aa = views(lanes)
@@ -1499,24 +1569,25 @@ def _t64_phase(g, counters, gpu):
                      bound_ms=bound1, bound_by=by1, bound_unit=unit1,
                      b1_eager_ms=one1, b1_device_ms=dev1)
     print(f"t64: K1 == plain == the plain hi-plane finish at the split views "
-          f"[P=4, 2B, 2, {Nh}] of one real step's residues (hi-plane "
-          f"decompose, forward NTT, 3 x pointwise against the key's first "
-          f"group, combine), as int32 (split by the wrapper, as the scan "
-          f"hands them over) and as int8 limb planes, drop 32 - 32 = 0, for B "
-          f"= {B}, {RAGGED_LANES}, 1; B={B}: K1 {ms1 * 1e3:.1f} us/call on "
-          f"the limb planes (plain {plain1 * 1e3:.1f} us, bound "
-          f"{bound1 * 1e3:.1f} us by {unit1}, cuda cores {cc1 * 1e3:.1f} us, "
-          f"L2->SM of the widest tiling {l2_1 / 1e6:.0f} MB/call); B=1 "
-          f"{dev1 * 1e3:.1f} us/call on the device ({one1 * 1e3:.1f} us "
-          f"eager) [{gpu}]")
+          f"[P=4, 2B, 2, {Nh}] of K2s's residues, as int32 (split by the "
+          f"wrapper) and as K2s's int8 limb planes (as the scan hands them "
+          f"over), drop 32 - 32 = 0, for B = {B}, {RAGGED_LANES}, 1; B={B}: "
+          f"K1 {ms1 * 1e3:.1f} us/call on the limb planes (plain "
+          f"{plain1 * 1e3:.1f} us, bound {bound1 * 1e3:.1f} us by {unit1}, "
+          f"cuda cores {cc1 * 1e3:.1f} us, L2->SM of the widest tiling "
+          f"{l2_1 / 1e6:.0f} MB/call); B=1 {dev1 * 1e3:.1f} us/call on the "
+          f"device ({one1 * 1e3:.1f} us eager) [{gpu}]")
 
     # -- gates: B = 512 lanes cycling the 10 gates -----------------------------
     nG = T64_GATE_LANES
     want = np.array([_TRUTH[gates.GATE_NAMES[i]](bool(p), bool(q)) for i, p, q
                      in zip(ids.tolist(), x.tolist(), y.tolist())])
-    res, launches["t64"], first_s = _counted_run(
-        counters, "t64 gates",
-        lambda: gates.apply_gates(ids[:nG], a[:nG], b[:nG], ck), expect(1))
+    with _plain_split_calls(split_ring) as plain_calls:
+        res, launches["t64"], first_s = _counted_run(
+            counters, "t64 gates",
+            lambda: gates.apply_gates(ids[:nG], a[:nG], b[:nG], ck), expect(1))
+    _check(not plain_calls, f"t64 gates: the scan ran the plain split step "
+           f"on the card ({plain_calls})")
     _check(res.dtype == torch.int64 and tuple(res.shape) == (nG, n0 + 1),
            f"t64 gate output {res.dtype} {tuple(res.shape)}")
     got = tlwe.decrypt_bool(res, s).cpu().numpy()
@@ -1530,33 +1601,53 @@ def _t64_phase(g, counters, gpu):
            "t64: CUDA gate outputs differ from the port's CPU path")
     wall["CPU-path checks"] += time.perf_counter() - t0
     print(f"apply_gates t64 B={nG}: accuracy {accuracy}, launches "
-          f"{launches['t64']} (one K1 per step of the {T64_STEPS}-step "
-          f"hi-plane scan), first call {first_s:.2f} s; first {n} lanes "
+          f"{launches['t64']} (one K2s and one K1 per step of the "
+          f"{T64_STEPS}-step hi-plane scan; no call of the plain forward NTT, "
+          f"pointwise or combine), first call {first_s:.2f} s; first {n} lanes "
           f"bit-equal to the CPU path ({time.perf_counter() - t0:.1f} s on "
           f"the host)")
 
     # -- timings ---------------------------------------------------------------
     t0 = time.perf_counter()        # the B = 512 run warmed every stage
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     gate_ms = _cuda_ms(lambda: gates.apply_gates(ids, a, b, ck), 1)
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
     one = (ids[:1], a[:1], b[:1])
     gates.apply_gates(*one, ck)
     lat = sorted(_cuda_ms(lambda: gates.apply_gates(*one, ck), 1)
                  for _ in range(WARM_ITERS))
     lat_ms = lat[WARM_ITERS // 2]
     print(f"t64: gates/s at B={B}: {B / (gate_ms / 1e3):.1f} (one warm "
-          f"batch, {gate_ms:.1f} ms); latency at B=1: {lat_ms:.1f} ms (median "
-          f"of "
+          f"batch, {gate_ms:.1f} ms, peak device memory {peak_mib:.1f} MiB "
+          f"above what was allocated before); latency at B=1: {lat_ms:.1f} "
+          f"ms (median of "
           + ", ".join(f"{t:.1f}" for t in lat) + f" ms) [{gpu}]")
-    stage_fns["limb split + K1"] = lambda: k1.ntt_inverse_to_crt_acc(
-        vv, aa, plan, 0)
-    split_us = {st: _cuda_ms(fn, 5) * 1e3 for st, fn in stage_fns.items()}
+    stage_fns = {
+        "decompose": lambda: split_ring._rows_hi32(acc, P, 8, (3, 2)).to(
+            torch.int8),
+        "K2s": lambda: k2s.split_step_fused(digits, bsk0, ts, plan, 8),
+        "K1": lambda: k1.ntt_inverse_to_crt_acc(vv8, aa, plan, 0)}
+    split_us = {st: _cuda_ms(fn, KERNEL_ITERS) * 1e3
+                for st, fn in stage_fns.items()}
     print(f"t64: one step at B={B}: " + ", ".join(
         f"{st} {t:.1f} us" for st, t in split_us.items())
         + f" (sum {sum(split_us.values()):.1f} us) [{gpu}]")
     for lanes in (B, 1):
-        _profile(f"t64 B={lanes}",
-                 lambda n=lanes: gates.apply_gates(ids[:n], a[:n], b[:n], ck),
-                 gpu, steps=T64_STEPS)
+        prof = _profile(f"t64 B={lanes}",
+                        lambda n=lanes: gates.apply_gates(ids[:n], a[:n], b[:n],
+                                                          ck),
+                        gpu, steps=T64_STEPS)
+        if prof:
+            n_kernels, by_name = prof
+            gemm = sum(c for nm, (_, c) in by_name.items()
+                       if re.search("gemm|wmma|cutlass", nm))
+            _check(gemm < T64_STEPS, f"t64 B={lanes}: {gemm} matrix-product "
+                   f"kernels in a bootstrap: the scan still runs _int_mm")
+            print(f"t64 B={lanes}: {n_kernels / T64_STEPS:.1f} kernels a "
+                  f"step, {gemm} matrix-product kernels in the bootstrap (the "
+                  f"key switch's)")
     wall["timings"] = time.perf_counter() - t0
 
     # -- a LUT and the integer layer at width 64 -------------------------------
@@ -1648,7 +1739,34 @@ def _t64_phase(g, counters, gpu):
     print(f"phase 11 wall time {total:.1f} s: " + ", ".join(
         f"{k_} {v_:.1f} s" for k_, v_ in wall.items())
         + f", the checked runs {total - sum(wall.values()):.1f} s")
-    return launches, k1_result
+    return launches, k1_result, k2s_result
+
+
+@contextlib.contextmanager
+def _plain_split_calls(module):
+    """Count calls of the split step's plain stages (the forward NTT on
+    _int_mm, the prime-batched pointwise, the combine) on CUDA tensors while
+    the block runs: yields the list of their names, empty when the scan
+    took K2s."""
+    calls = []
+    saved = {nm: getattr(module, nm) for nm in
+             ("_forward", "_pointwise", "rotate_combine_multi_split")}
+
+    def counting(nm, fn):
+        def counted(first, *args):
+            t = first[0] if isinstance(first, (list, tuple)) else first
+            if t.is_cuda:
+                calls.append(nm)
+            return fn(first, *args)
+        return counted
+
+    for nm, fn in saved.items():
+        setattr(module, nm, counting(nm, fn))
+    try:
+        yield calls
+    finally:
+        for nm, fn in saved.items():
+            setattr(module, nm, fn)
 
 
 # -- phase 12: slice 5 on SECURITY_128_BIT --------------------------------------
@@ -2023,6 +2141,7 @@ def main() -> int:
     from zig_tfhe_tpu_torch.ops.cuda import extprod as k3
     from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
     from zig_tfhe_tpu_torch.ops.cuda import ntt_step as k2
+    from zig_tfhe_tpu_torch.ops.cuda import split_step as k2s
     from zig_tfhe_tpu_torch.ops.poly import matmul_i8, negacyclic_rotate
     from zig_tfhe_tpu_torch.trgsw import trgsw_matrices
 
@@ -2032,9 +2151,9 @@ def main() -> int:
     print(f"device: {kind} ({torch.cuda.device_count()} visible); "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; [{gpu}]")
 
-    # -- 2. build the three kernels, in parallel -----------------------------
+    # -- 2. build the four kernels, in parallel ------------------------------
     t0 = time.perf_counter()
-    logs = _build.build(k1.SOURCE, k2.SOURCE, k3.SOURCE)
+    logs = _build.build(k1.SOURCE, k2.SOURCE, k3.SOURCE, k2s.SOURCE)
     print(f"built {', '.join(s.name for s in logs)} -> "
           f"{', '.join(_build.library_path(s).name for s in logs)} for sm_90a "
           f"in {time.perf_counter() - t0:.1f} s")
@@ -2264,14 +2383,14 @@ def main() -> int:
                      in zip(ids.tolist(), x.tolist(), y.tolist())])
     cks[TOEP] = ck_toep
     counters = {"k1": k1.ntt_inverse_to_crt_acc, "k2": k2.ntt_step_fused,
-                "k3": k3.extprod_matmul}
+                "k3": k3.extprod_matmul, "k2s": k2s.split_step_fused}
     launches = {}
     for name, ck in cks.items():
         if name == TOEP:
-            expect = {"k1": 0, "k2": 0, "k3": P.n0}
+            expect = {"k1": 0, "k2": 0, "k3": P.n0, "k2s": 0}
         else:
             steps = -(-P.n0 // ck.bsk_group)
-            expect = {"k1": steps, "k2": steps, "k3": 0}
+            expect = {"k1": steps, "k2": steps, "k3": 0, "k2s": 0}
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
@@ -2372,7 +2491,9 @@ def main() -> int:
     t_mark = time.perf_counter()
 
     # -- 11. the 64-bit torus ---------------------------------------------------
-    t64_launches, k_results["k1"]["t64"] = _t64_phase(g, counters, gpu)
+    t64_launches, k_results["k1"]["t64"], k2s_t64 = _t64_phase(g, counters,
+                                                               gpu)
+    k_results["k2s"] = {"t64": k2s_t64}
     launches.update(t64_launches)
     phase_s["11"] = time.perf_counter() - t_mark
     t_mark = time.perf_counter()
@@ -2391,7 +2512,11 @@ def main() -> int:
             ("k2", "ntt_step_fused", "zig_tfhe_tpu_torch/csrc/ntt_step.cu",
              "zig_tfhe_tpu/ops/pallas/ntt_step.py:229", "g3"),
             ("k3", "extprod_matmul", "zig_tfhe_tpu_torch/csrc/extprod.cu",
-             "zig_tfhe_tpu/ops/pallas/extprod.py:57", TOEP)):
+             "zig_tfhe_tpu/ops/pallas/extprod.py:57", TOEP),
+            # K2's function at the split-ring shape: the JAX package has no
+            # Pallas kernel of its own for that step
+            ("k2s", "split_step_fused", "zig_tfhe_tpu_torch/csrc/split_step.cu",
+             "zig_tfhe_tpu/ops/pallas/ntt_step.py:229", "t64")):
         main = k_results[kk][main_path]
         kernels.append({
             "name": kname, "route": "cuda", "source": route_src,
@@ -2402,7 +2527,7 @@ def main() -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "bound_unit": main["bound_unit"],
             # K3: torch._int_mm on the circulants built beforehand (phase
-            # 6); no single PyTorch call computes K1 or K2
+            # 6); no single PyTorch call computes K1, K2 or K2s
             "library_ms": main.get("int_mm_prebuilt_ms"),
             "by_path": {p: {"launches": launches[p][kk], **k_results[kk][p]}
                         for p in k_results[kk]},

@@ -16,7 +16,9 @@ integer layer of models/integer.py (radix_add, the tree-PBS radix_mul,
 radix_eq; a FheUint operator chain exact).  The 64-bit torus: K1 at the
 split-ring step's views, a SECURITY_128_BIT_T64 gate batch (one K1 per
 step of the 384-step hi-plane scan), and the int64 finish, which has no
-kernel and runs its plain version on the card, bit-equal to the CPU.
+kernel and runs its plain version on the card, bit-equal to the CPU; K2s
+(the split-ring step core) bit-equal to its plain version at the t64 and
+TEST_TINY_SPLIT shapes, and one K2s and one K1 launch per hi-plane step.
 Slice 5: the threefry mask expansion, the proxy re-encryption subset sum
 and key switch, and a one-rank NCCL gate runner, each equal to the CPU
 path.
@@ -33,6 +35,7 @@ from zig_tfhe_tpu_torch.ops import ntt, split_ring
 from zig_tfhe_tpu_torch.ops.cuda import extprod as K3
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K
 from zig_tfhe_tpu_torch.ops.cuda import ntt_step as K2
+from zig_tfhe_tpu_torch.ops.cuda import split_step as K2S
 
 pytestmark = pytest.mark.cuda
 
@@ -572,8 +575,8 @@ def test_kernel_split_views_match_plain_and_exact(dev, B):
 
 def test_128bit_t64_gates_on_card(dev):
     """Keygen on the card at SECURITY_128_BIT_T64's defaults, 64 lanes:
-    exact, 384 K1 launches and no K2 or K3, the first 4 lanes equal to the
-    CPU path."""
+    exact, 384 K2s and 384 K1 launches and no K2 or K3, the first 4 lanes
+    equal to the CPU path."""
     P = params.SECURITY_128_BIT_T64
     g = torch.Generator(device=dev).manual_seed(64)
     sk = key.SecretKey.generate(g, P)
@@ -581,13 +584,13 @@ def test_128bit_t64_gates_on_card(dev):
     ids, x, y, want = _lanes(64, 4)
     a = tlwe.encrypt_bool(g, x.to(dev), P.ksk_alpha, sk.key_lv0, width=64)
     b = tlwe.encrypt_bool(g, y.to(dev), P.ksk_alpha, sk.key_lv0, width=64)
-    before = (K.ntt_inverse_to_crt_acc.launches, K2.ntt_step_fused.launches,
-              K3.extprod_matmul.launches)
+    counters = (K.ntt_inverse_to_crt_acc, K2.ntt_step_fused,
+                K3.extprod_matmul, K2S.split_step_fused)
+    before = [c.launches for c in counters]
     out = gates.apply_gates(ids.to(dev), a, b, ck)
     torch.cuda.synchronize()
-    assert (K.ntt_inverse_to_crt_acc.launches - before[0],
-            K2.ntt_step_fused.launches - before[1],
-            K3.extprod_matmul.launches - before[2]) == (384, 0, 0)
+    assert tuple(c.launches - n for c, n in zip(counters, before)) == (
+        384, 0, 0, 384)
     assert out.dtype == torch.int64
     assert np.array_equal(tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy(), want)
     ck_cpu = key.CloudKey.from_numpy(
@@ -596,6 +599,81 @@ def test_128bit_t64_gates_on_card(dev):
         bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit, device="cpu")
     cpu = gates.apply_gates(ids[:4], a[:4].cpu(), b[:4].cpu(), ck_cpu)
     assert torch.equal(out[:4].cpu(), cpu)
+
+
+def _cut_n0(P, n0):
+    import dataclasses
+
+    return dataclasses.replace(P, tlwe_lv0=dataclasses.replace(P.tlwe_lv0,
+                                                               n=n0))
+
+
+@pytest.fixture(scope="module")
+def split_step_keys():
+    """One step of a real split key per set, made on the card:
+    SECURITY_128_BIT_T64 (n0 cut to 2: one group, 10 half-rows) and
+    TEST_TINY_SPLIT (8 half-rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    out = {}
+    for name, P in (("t64", _cut_n0(params.SECURITY_128_BIT_T64, 2)),
+                    ("tiny_split", params.TEST_TINY_SPLIT)):
+        g = torch.Generator(device=dev).manual_seed(len(name))
+        sk = key.SecretKey.generate(g, P)
+        ck = key.CloudKey.generate(g, sk, P, packing_key=False)
+        plan = ntt.plan_for_params(P, 32, 2, ck.bsk_levels, bgbit=8,
+                                   pseudorandom_key=True)
+        out[name] = (P, plan, ck.bsk_levels, ck.bsk_ntt[0])
+    return out
+
+
+def _split_step_inputs(keys, name, B, seed):
+    P, plan, levels, bsk = keys[name]
+    rng = np.random.default_rng(seed)
+    acc = torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, 2, plan.N))
+                           .astype(np.int32)).to(bsk.device)
+    digits = split_ring._rows_hi32(acc, P, 8, levels).to(torch.int8)
+    ts = torch.from_numpy(rng.integers(0, 4 * plan.N, (2, B))
+                          .astype(np.int32)).to(bsk.device)
+    return plan, acc, digits, bsk, ts
+
+
+# t64: 6 lanes a tile (B = 7 and 2049 end inside one), 32 wide tiles at B =
+# 1 take the narrow tile; tiny_split: 8 lanes a tile
+@pytest.mark.parametrize("name, B", [("t64", 1), ("t64", 7), ("t64", 200),
+                                     ("t64", 2048), ("t64", 2049),
+                                     ("tiny_split", 1), ("tiny_split", 33)])
+def test_split_step_kernel_matches_plain(split_step_keys, name, B):
+    plan, acc, digits, bsk, ts = _split_step_inputs(split_step_keys, name, B, B)
+    before = K2S.split_step_fused.launches
+    out = K2S.split_step_fused(digits, bsk, ts, plan, 8)
+    torch.cuda.synchronize()
+    assert K2S.split_step_fused.launches == before + 1
+    assert out.dtype == torch.int8
+    assert tuple(out.shape) == (plan.n_primes, B, 2, 2, 2, plan.N)
+    assert torch.equal(out, K2S.split_step_fused_reference(digits, bsk, ts,
+                                                           plan, 8))
+    # K1 takes the limb planes as they stand: the hi-plane step's finish
+    fin = K.ntt_inverse_to_crt_acc(out.reshape(plan.n_primes, 2 * B, 2, 2,
+                                               plan.N),
+                                   acc.reshape(2 * B, 2, plan.N), plan, 0)
+    want = K.ntt_inverse_to_crt_acc_reference(
+        K.join_limbs(out).reshape(plan.n_primes, 2 * B, 2, plan.N),
+        acc.reshape(2 * B, 2, plan.N), plan, 0)
+    assert torch.equal(fin, want)
+
+
+def test_split_step_kernel_rejects_what_it_cannot_take(split_step_keys):
+    plan, acc, digits, bsk, ts = _split_step_inputs(split_step_keys, "t64", 4, 0)
+    with pytest.raises(ValueError, match="shapes"):
+        K2S.split_step_fused(digits[:, :8], bsk, ts, plan, 8)
+    with pytest.raises(ValueError, match="same CUDA device"):
+        K2S.split_step_fused(digits, bsk.cpu(), ts, plan, 8)
+    with pytest.raises(NotImplementedError, match="group 2"):
+        K2S.split_step_fused(digits, bsk[:1], ts[:1], plan, 8)
+    with pytest.raises(NotImplementedError, match="one-limb"):
+        K2S.split_step_fused(digits, bsk, ts, plan, 11)
 
 
 def test_int64_finish_raises_on_card(dev):

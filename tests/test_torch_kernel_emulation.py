@@ -21,7 +21,13 @@ key window wraps around 2N in some column tile).  The emulated wgmma with
 A from registers is also held against a numpy product on its own, with
 the fragments packed in Python by the PTX register layout.  This checks
 the kernels' indexing and arithmetic; their behaviour on the card is
-tests/test_torch_cuda.py's.  Skips where no host C++ compiler is found.
+tests/test_torch_cuda.py's.  csrc/split_step.cu (K2s, the split-ring
+step of the 64-bit torus) is held equal to its plain version on the digits
+of real hi-plane accumulators (``_rows_hi32``) and one step of a real
+split key, at SECURITY_128_BIT_T64's shape (N/2 = 1024, 4 primes, 10
+half-rows, 6 lanes a tile: a ragged last tile, B = 1 on wide and on
+narrow column tiles, one block walking every tile) and TEST_TINY_SPLIT's
+(8 half-rows, 8 lanes a tile).  Skips where no host C++ compiler is found.
 """
 
 import ctypes
@@ -35,11 +41,14 @@ import numpy as np
 import pytest
 import torch
 
+from zig_tfhe_tpu_torch import key as TK
 from zig_tfhe_tpu_torch import params as TP
 from zig_tfhe_tpu_torch.ops import ntt
+from zig_tfhe_tpu_torch.ops import split_ring as SR
 from zig_tfhe_tpu_torch.ops.cuda import extprod as K3
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K1
 from zig_tfhe_tpu_torch.ops.cuda import ntt_step as K2
+from zig_tfhe_tpu_torch.ops.cuda import split_step as K2S
 
 _EMU_H = Path(__file__).with_name("cuda_emu.h")
 
@@ -89,7 +98,7 @@ def emu(tmp_path_factory):
     out = tmp_path_factory.mktemp("cuda_emu")
     libs = {}
     sources = {src.stem: _emulation_source(src)
-               for src in (K1.SOURCE, K2.SOURCE, K3.SOURCE)}
+               for src in (K1.SOURCE, K2.SOURCE, K3.SOURCE, K2S.SOURCE)}
     sources["wgmma_rs"] = _WGMMA_RS_HARNESS
     for stem, text in sources.items():
         cpp = out / f"{stem}.cpp"
@@ -103,6 +112,7 @@ def emu(tmp_path_factory):
     libs["ntt_step"].ztfhe_ntt_step_fused.argtypes = [p] * 11 + [i] * 6 + [p]
     libs["ntt_inverse"].ztfhe_ntt_inverse_crt_acc.argtypes = [p] * 9 + [i] * 5 + [p]
     libs["extprod"].ztfhe_extprod_matmul.argtypes = [p] * 3 + [i] * 4 + [p]
+    libs["split_step"].ztfhe_split_step_fused.argtypes = [p] * 9 + [i] * 5 + [p]
     libs["wgmma_rs"].emu_wgmma_rs.argtypes = [p] * 3 + [i]
     for lib in libs.values():
         lib.emu_set_sm_count.argtypes = [i]
@@ -218,6 +228,68 @@ def test_step_kernel_source_multi_limb_matches_plain(emu, case):
     assert err == 0
     assert torch.equal(v, K2.ntt_step_fused_reference(digits, bsk, ts, plan,
                                                       bgbit))
+
+
+def _with_n0(P, n0):
+    return dataclasses.replace(P, tlwe_lv0=dataclasses.replace(P.tlwe_lv0, n=n0))
+
+
+@pytest.fixture(scope="module")
+def split_keys():
+    """One step of a real split key per set (the port's keygen on the CPU):
+    SECURITY_128_BIT_T64 with n0 cut to 2 (one group, (3, 2) levels) and
+    TEST_TINY_SPLIT ((2, 2) levels)."""
+    out = {}
+    for name, P in (("t64", _with_n0(TP.SECURITY_128_BIT_T64, 2)),
+                    ("tiny_split", TP.TEST_TINY_SPLIT)):
+        g = torch.Generator().manual_seed(len(name))
+        sk = TK.SecretKey.generate(g, P)
+        ck = TK.CloudKey.generate(g, sk, P, packing_key=False)
+        out[name] = (P, ck.bsk_levels, ck.bsk_ntt[0].contiguous())
+    return out
+
+
+# name -> (key, B, emulated SM count).  The entry point takes 64 x 128 tiles
+# when they give every SM one, else 64 x 32; one block per SM walks the
+# tiles.  t64: 6 lanes a tile, so B = 7 ends one lane into the second row
+# tile; B = 1 on 32 wide tiles and (33 SMs) on 128 narrow ones; one block
+# walks all 96 tiles of B = 13 (many rounds of the ring and of the two
+# d_hat buffers).  tiny_split: 8 lanes a tile, B = 9 ragged.
+_K2S_CASES = {
+    "t64_B7_ragged": ("t64", 7, 4),
+    "t64_B1": ("t64", 1, 4),
+    "t64_B1_narrow": ("t64", 1, 33),
+    "t64_B13_one_block": ("t64", 13, 1),
+    "tiny_split_B9": ("tiny_split", 9, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_K2S_CASES))
+def test_split_step_kernel_source_matches_plain(emu, split_keys, case):
+    """K2s on the hi-plane digits of uniform int32 accumulators (any
+    accumulator mid-scan) and one step of a real split key."""
+    name, B, sms = _K2S_CASES[case]
+    P, levels, bsk = split_keys[name]
+    plan = ntt.plan_for_params(P, 32, 2, levels, bgbit=8, pseudorandom_key=True)
+    assert plan.n_primes == 4 and plan.N == 1024
+    rng = np.random.default_rng(B + sms)
+    acc = torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, 2, plan.N))
+                           .astype(np.int32))
+    digits = SR._rows_hi32(acc, P, 8, levels).to(torch.int8)
+    assert digits.shape[1] == 2 * sum(levels) == bsk.shape[2]
+    ts = torch.from_numpy(rng.integers(0, 4 * plan.N, (2, B)).astype(np.int32))
+    tabs = K2._device_tables(plan, torch.device("cpu"))
+    primes, inv_p = K2._host_scalars(plan, 2, 8)[:2]   # p and f32 1/p
+    v = torch.full((plan.n_primes, B, 2, 2, 2, plan.N), 7, dtype=torch.int8)
+    emu["split_step"].emu_set_sm_count(sms)
+    err = emu["split_step"].ztfhe_split_step_fused(
+        digits.data_ptr(), bsk.data_ptr(), ts.data_ptr(),
+        tabs.fwd_lo_t.data_ptr(), tabs.fwd_hi_t.data_ptr(), tabs.rot.data_ptr(),
+        v.data_ptr(), _ptr(primes), _ptr(inv_p), plan.n_primes,
+        K2S.row_group(plan), B, digits.shape[1], plan.N, None)
+    assert err == 0
+    assert torch.equal(v, K2S.split_step_fused_reference(digits, bsk, ts, plan,
+                                                         8))
 
 
 # (B, N, bits, drop, emulated SM count): the entry point takes 64-wide column

@@ -23,30 +23,31 @@ word never changes; when also every digit shift and decomposition offset
 bit sits at or above bit 32 (``_hi32_viable``: both shipped split gadgets),
 the whole step is a function of the int32 hi planes: decompose at width 32
 (``_rows_hi32``), forward NTT, the folded pointwise sums, the parity
-combine, and the finish acc_hi + (CRT(invNTT(v)) << (drop - 32)) mod 2^32,
-which is exactly what K1 (ops/cuda/ntt_inverse.py:ntt_inverse_to_crt_acc)
-computes: the residues [P, B, 2(c), 2(q), Nh] and the hi planes
-[B, 2, 2, Nh] enter it as [P, 2B, 2, Nh] and [2B, 2, Nh], rows (b, c).
-Every hi-plane step is one K1 launch on CUDA tensors.  The decomposition,
-the forward NTT (``matmul_i8`` on ``torch._int_mm``), the pointwise sums
-and the combine run as plain torch ops: the JAX package runs them in XLA
-and no Pallas kernel covers the split step.  They run on all primes at
-once, the primes on a leading axis with their constants broadcast
-(``_barrett``), so a step launches the same ~208 kernels for any count of
-primes (chip_smoke.py's phase-11 profile); their launch cost on the host
-is what bounds the step below a few hundred lanes.  The
-decomposition and the combine are the JAX formulas element for element
-(bit-equal residues); the forward NTT takes the two-Barrett limb
-combine for every prime and the pointwise sums reduce in groups of the
-plan's smallest row group, so their residues equal the JAX package's mod
-p within the same bounds, and the CRT lift makes the accumulator bit-equal
-(as K2's residues are to the JAX package's XLA step).  The low word is
-re-attached once after the scan.  The generic scan (int64 accumulator,
-reached by a configuration whose drop is below 32 or whose offsets have
-bits below 32) finishes with K1's int64 variant, plain PyTorch ops on
-either device (``finish_int64``).  The path is chosen from the
-key's configuration before any launch.  The JAX package's
-``ZTFHE_SPLIT_HI32`` switch is not ported.
+combine, and the finish acc_hi + (CRT(invNTT(v)) << (drop - 32)) mod 2^32.
+At group 2 with one-limb digits (every split set's defaults) the middle of
+the step is K2s (ops/cuda/split_step.py:split_step_fused, a hand kernel
+for Hopper: forward NTT, pointwise sums and combine in one launch, the
+residues written as int8 limb planes [P, B, 2(c), 2(q), 2(limb), Nh]) and
+the finish is K1 (ops/cuda/ntt_inverse.py:ntt_inverse_to_crt_acc) on the
+views [P, 2B, 2, 2, Nh] and [2B, 2, Nh], rows (b, c): every hi-plane step
+is the decompose, one K2s and one K1 launch on CUDA tensors.  K2s's plain
+version is the prime-batched chain below (``_forward``, ``_pointwise``,
+``rotate_combine_multi_split``; the primes on a leading axis with their
+constants broadcast, ``_barrett``), which the JAX package runs in XLA (no
+Pallas kernel covers the split step).  Group 1 and group 3 keys run that
+chain on either device, and their hi-plane finish is K1 on the int32
+residues.  The decomposition and the combine are the JAX formulas element
+for element (bit-equal residues); the forward NTT takes the two-Barrett
+limb combine for every prime and the pointwise sums reduce in groups of
+the plan's smallest row group, so their residues equal the JAX package's
+mod p within the same bounds, and the CRT lift makes the accumulator
+bit-equal (as K2's residues are to the JAX package's XLA step).  The low
+word is re-attached once after the scan.  The generic scan (int64
+accumulator, reached by a configuration whose drop is below 32 or whose
+offsets have bits below 32) runs the plain chain and finishes with K1's
+int64 variant, plain PyTorch ops on either device (``finish_int64``).
+The path is chosen from the key's configuration before any launch.  The
+JAX package's ``ZTFHE_SPLIT_HI32`` switch is not ported.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ import torch
 
 from zig_tfhe_tpu_torch.ops import ntt as _ntt
 from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows, modswitch
+from zig_tfhe_tpu_torch.ops.cuda import split_step as _k2s
 from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import ntt_inverse_to_crt_acc
 from zig_tfhe_tpu_torch.ops.decomposition import gadget_offset
 from zig_tfhe_tpu_torch.ops.poly import matmul_i8, negacyclic_rotate
@@ -138,7 +140,7 @@ def _pointwise(d_hat: torch.Tensor, key: torch.Tensor,
     prime), each group Barrett-reduced, the group sums reduced once."""
     tb = _tables(plan, d_hat.device)
     P, B, R2, Nh = d_hat.shape
-    g = min(plan.row_group(p) for p in plan.primes)
+    g = _k2s.row_group(plan)
     prod = d_hat[:, :, :, None, :] * key.to(torch.int32)[:, None]
     if R2 % g:
         prod = torch.cat([prod, prod.new_zeros(P, B, g - R2 % g, 4, Nh)], 2)
@@ -401,10 +403,10 @@ def blind_rotate_split(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
             return _forward(rows, plan)                       # [P, B, 2R, Nh]
         return torch.stack(_ntt.ntt_forward(rows, plan, e_limbs, dbound))
 
-    def finish(acc, v):                                       # v [P, B, 2, 2, Nh]
+    def finish(acc, v):       # v int32 [P, B, 2, 2, Nh] or int8 [P, B, 2, 2, 2, Nh]
         if hi32:
             out = ntt_inverse_to_crt_acc(
-                v.reshape(plan.n_primes, 2 * B, 2, Nh),
+                v.reshape(plan.n_primes, 2 * B, *v.shape[3:]),
                 acc.reshape(2 * B, 2, Nh), plan, drop_bits - 32)
             return out.reshape(B, 2, 2, Nh)
         return finish_int64(v, acc, plan, drop_bits)
@@ -418,7 +420,13 @@ def blind_rotate_split(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
         if n0 < group * G:            # ragged n0: a = 0 is the identity rotation
             t_cols = torch.cat([t_cols, t_cols.new_zeros(group * G - n0, B)])
         t_grps = t_cols.reshape(G, group, B)
+        fused = _k2s.supports(group, e_limbs, hi32)
         for s in range(G):
+            if fused:
+                rows = _rows_hi32(acc, params, e, levels).to(torch.int8)
+                acc = finish(acc, _k2s.split_step_fused(rows, bsk_split[s],
+                                                        t_grps[s], plan, e))
+                continue
             d_hat = fwd(acc)
             us = [_pointwise(d_hat, bsk_split[s, m], plan)
                   for m in range((1 << group) - 1)]
