@@ -32,8 +32,12 @@ K2's function at the split shape) then K1.  Phases:
   1. the card's name and power limit (nvidia-smi);
   2. build the four kernels from zig_tfhe_tpu_torch/csrc (all on
      csrc/hopper_prims.cuh: TMA, mbarrier, wgmma) with nvcc for sm_90a, one
-     nvcc per source, started together; ptxas' registers and spills (and
-     any wgmma serialization it reports);
+     nvcc per source, started together with K2s's three probe builds
+     (phase 11's stage split) and tools/cvt_rate.cu; ptxas' registers and
+     spills (and any wgmma serialization it reports); a Barrett's
+     throughput per SM clock in its two forms (both conversions; the
+     rounding by an f32 add) held to 80-100% of the rate the bounds'
+     instruction model (_cuda_core_clocks) gives it;
   3. key generation on the card, all three configurations, and the
      SECURITY_UINT4 and SECURITY_UINT8 keys of phase 9 (group 2, Bg_e 2^22
      with (1, 1) levels: 3-limb engine digits, drop 0, 5 CRT primes; each
@@ -153,6 +157,12 @@ K2's function at the split shape) then K1.  Phases:
      rotations of real ciphertexts) bit-equal to its plain version (the
      prime-batched forward NTT, pointwise and combine of ops/split_ring.py)
      at B = 2048, 200 and 1, timed beside its bound and the plain chain;
+     K2s's Barrett (its rounding by an f32 add) equal to the plain
+     version's conversion form on all 2^32 int32 for each of the four
+     primes (the kernel's own device function); K2s's stage split (the
+     same call on builds without the pointwise stage, without the product
+     stage and with every Barrett a shift, from a CUDA graph) and its
+     ptxas registers and spills;
      K1 on K2s's residues, bit-equal to its plain version and to the plain
      hi-plane finish at the same batches, timed beside its bound;
      apply_gates on 512 lanes cycling the 10 gates, the launch counts set to
@@ -206,7 +216,9 @@ Without a CUDA device it exits 2 before printing anything.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -215,6 +227,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 B_GATES = 2048
 RAGGED_LANES = 200     # a batch that ends inside a kernel tile
@@ -225,28 +238,49 @@ KERNEL_ITERS = 20
 # published H100 SXM peaks (NVIDIA data sheet): bytes/s, int8 op/s
 HBM_BPS = 3.35e12
 INT8_OPS = 1.979e15
-# CUDA-core rates at compute capability 9.0 (CUDA C++ Programming Guide,
-# arithmetic-instruction throughput table), results per clock per SM: f32
-# add / multiply 128, int32 add and multiply-add 64, conversions between
-# int32 and f32 64; the four schedulers of an SM issue 128 thread
+# CUDA-core pipes of an SM on this card, results per clock: the two FMA
+# pipes take f32 add and multiply at 128 between them and int32 multiply
+# and multiply-add (IMAD, IMUL) at 64 (the heavy one only); the ALU pipe
+# takes int32 add, logic and int32 -> f32 (I2FP) at 64; the conversion pipe
+# takes f32 -> int32 at 16; the four schedulers issue 128 thread
 # instructions per clock between them, and the pipes run side by side.
+# The f32, FMA and ALU rates are the CUDA C++ Programming Guide's
+# arithmetic-instruction throughput table for compute capability 9.0 and
+# the pipe names Nsight Compute's; the conversion rates were measured by
+# tools/cvt_rate.cu (f32 -> int32 16.00, int32 -> f32 56.78 a clock per SM
+# on an NVIDIA H100 80GB HBM3 at 700.00 W), and phase 2 measures them and
+# holds _cuda_core_clocks to them on every run (_check_barrett_rates).
 # 132 SMs at the 1.98 GHz boost clock that the 67 TFLOP/s f32 peak assumes
 # (132 x 128 x 2 x 1.98e9).
 SMS, SM_HZ = 132, 1.98e9
-RATE_ISSUE, RATE_F32, RATE_INT, RATE_CVT = 128, 128, 64, 64
+RATE_ISSUE, RATE_FMA, RATE_IMAD, RATE_ALU, RATE_CVT = 128, 128, 64, 64, 16
 
 
 def _cuda_core_clocks(barretts: float, cvt: float = 0, f32: float = 0,
-                      imad: float = 0) -> float:
+                      imad: float = 0, converted: float | None = None) -> float:
     """Least SM clocks per thread-result for a CUDA-core stage: the larger
-    of all its instructions over the issue rate and the busiest pipe's
+    of all its instructions over the issue rate and each pipe's
     instructions over that pipe's rate.  A Barrett is counted as the least
-    the function needs, not as a kernel issues it: int -> f32 conversion,
-    f32 multiply, f32 -> int conversion (which rounds), int32
-    multiply-subtract."""
-    n_cvt, n_f32, n_int = 2 * barretts + cvt, barretts + f32, barretts + imad
-    return max((n_cvt + n_f32 + n_int) / RATE_ISSUE, n_cvt / RATE_CVT,
-               n_f32 / RATE_F32, n_int / RATE_INT)
+    the function needs, not as a kernel issues it: int -> f32 (I2FP, ALU),
+    f32 multiply (FMA), the rounding to an integer and an int32
+    multiply-subtract (IMAD).  Each rounding (a Barrett's, and ``cvt``
+    more) is either an f32 -> int conversion or an f32 add of 1.5 * 2^23
+    (FMA) and an int32 add (ALU), as split_step.cu's barrett rounds;
+    ``converted`` is the share of the roundings converted, by default the
+    share that balances the pipes best.  ``f32`` more f32 operations and
+    ``imad`` more int32 multiply-adds."""
+    n_round = barretts + cvt
+    best = math.inf
+    for a in ((converted,) if converted is not None
+              else (i / 1024 for i in range(1025))):
+        n_cvt, n_add = a * n_round, (1 - a) * n_round
+        n_alu = barretts + n_add
+        n_imad = barretts + imad
+        n_fma = n_imad + barretts + f32 + n_add
+        best = min(best, max((n_cvt + n_alu + n_fma) / RATE_ISSUE,
+                             n_cvt / RATE_CVT, n_alu / RATE_ALU,
+                             n_imad / RATE_IMAD, n_fma / RATE_FMA))
+    return best
 
 
 # NTT path -> CloudKey.generate knobs and the expected (group, Bg_e,
@@ -256,6 +290,16 @@ PATHS = {
     "g2": ({"group": 2, "decomp_levels": (3, 2)}, (2, 6, (3, 2), 7)),
 }
 TOEP = "toep"
+# K2s built with one stage switched off (csrc/split_step.cu's probe
+# switches; its outputs are then wrong and only timed): phase 11's stage
+# split
+K2S_PROBES = {"no pointwise": ("-DZTFHE_PROBE_NO_POINTWISE",),
+              "no product": ("-DZTFHE_PROBE_NO_PRODUCT",),
+              "Barretts as shifts": ("-DZTFHE_PROBE_BARRETT_IMAD",)}
+# the microbenchmark of a Barrett's instructions (phase 2)
+CVT_RATE = Path(__file__).resolve().with_name("tools") / "cvt_rate.cu"
+# ptxas' report per (source, kernel), filled by phase 2
+PTXAS = {}
 
 
 def _check(cond: bool, what: str) -> None:
@@ -296,6 +340,83 @@ def _graph_ms(fn, iters: int) -> float:
             fn()
     graph.replay()
     return _cuda_ms(graph.replay, 3) / iters
+
+
+@contextlib.contextmanager
+def _on_library(mod, lib):
+    """While the block runs, ``mod``'s wrapper launches on ``lib`` (another
+    build of its source, bound as its own) instead of its own library."""
+    real = mod._library
+    mod._library = lambda: lib
+    try:
+        yield
+    finally:
+        mod._library = real
+
+
+def _variant_ms(mod, defines: tuple, call, iters: int) -> float:
+    """Device milliseconds per ``call`` (_graph_ms) with ``mod``'s wrapper
+    on the build of its source with ``defines`` (a probe build: the
+    outputs are then wrong and not used)."""
+    from zig_tfhe_tpu_torch.ops.cuda import _build
+
+    _build.build(mod.SOURCE, defines=defines)
+    lib = mod._bind(ctypes.CDLL(str(_build.library_path(mod.SOURCE, defines))))
+    with _on_library(mod, lib):
+        return _graph_ms(call, iters)
+
+
+# tools/cvt_rate.cu's operations, in the order of its op argument
+CVT_RATE_OPS = ("int32 -> f32 (__int2float_rn)", "f32 -> int32 (__float2int_rn)",
+                "int32 multiply-add", "Barrett, both conversions",
+                "Barrett, rounding by the f32 add",
+                "Barrett, no conversion (int32 -> f32 from 16-bit halves)")
+
+
+def _barrett_rates(dev) -> list:
+    """tools/cvt_rate.cu: results per SM clock of each of CVT_RATE_OPS (one
+    block of 1024 threads per SM, 8 chains a thread, clock64 per block,
+    the mean over the SMs; the second of two launches)."""
+    import torch
+
+    from zig_tfhe_tpu_torch.ops.cuda import _build
+
+    _build.build(CVT_RATE)
+    lib = ctypes.CDLL(str(_build.library_path(CVT_RATE)))
+    p_, i_ = ctypes.c_void_p, ctypes.c_int
+    lib.ztfhe_cvt_rate.argtypes = [i_, p_, p_, i_, i_, i_, ctypes.c_float, p_]
+    lib.ztfhe_cuda_error_string.argtypes = [i_]
+    lib.ztfhe_cuda_error_string.restype = ctypes.c_char_p
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(blocks * 1024, dtype=torch.int32, device=dev)
+    cycles = torch.empty(blocks, dtype=torch.int64, device=dev)
+    p, iters = 61441, 4096
+    rates = []
+    for op in range(len(CVT_RATE_OPS)):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for _ in range(2):      # the first launch warms up
+            err = lib.ztfhe_cvt_rate(op, out.data_ptr(), cycles.data_ptr(),
+                                     blocks, iters, p, 1.0 / p, stream)
+            _build.check(lib, err, "cvt_rate")
+        torch.cuda.synchronize()
+        rates.append(1024 * iters * 8 / float(cycles.double().mean()))
+    return rates
+
+
+def _check_barrett_rates(dev, gpu: str) -> None:
+    """Hold _cuda_core_clocks to the card: a Barrett in each of its two
+    forms (both conversions; the rounding by the f32 add) must run no
+    faster than the model allows and at least 80% as fast."""
+    rates = _barrett_rates(dev)
+    for op, converted in ((3, 1), (4, 0)):
+        model = 1 / _cuda_core_clocks(1, converted=converted)
+        print(f"rate {CVT_RATE_OPS[op]}: {rates[op]:.2f} a clock per SM "
+              f"(the yardstick's model {model:.2f}) [{gpu}]")
+        _check(0.8 * model <= rates[op] <= model,
+               f"{CVT_RATE_OPS[op]} at {rates[op]:.2f} a clock per SM, "
+               f"outside 80-100% of the model's {model:.2f}")
+    print("rates " + ", ".join(f"{n} {r:.2f}" for n, r in
+                               zip(CVT_RATE_OPS, rates)) + f" a clock per SM [{gpu}]")
 
 
 def _kernel_vs_plain(kernel, plain, iters: int = KERNEL_ITERS):
@@ -1536,6 +1657,31 @@ def _t64_phase(g, counters, gpu):
           f"{l2_2s / 1e6:.0f} MB/call); B=1 {dev2s * 1e3:.1f} us/call on the "
           f"device ({one2s * 1e3:.1f} us eager) [{gpu}]")
 
+    # K2s's Barrett against the plain version's on every int32, each prime
+    t0 = time.perf_counter()
+    for p in plan.primes:
+        n_diff = k2s.barrett_mismatches(p, dev)
+        _check(n_diff == 0, f"K2s's Barrett differs from the plain version's "
+               f"on {n_diff} int32 inputs modulo {p}")
+    torch.cuda.synchronize()
+    print(f"t64: K2s's Barrett (rounding by the f32 add) equals the plain "
+          f"version's __float2int_rn form on all 2^32 int32 inputs for p in "
+          f"{plan.primes} ({(time.perf_counter() - t0) * 1e3:.1f} ms)")
+    # K2s's stage split: the same call on the probe builds, from a CUDA graph
+    def call():
+        k2s.split_step_fused(digits, bsk0, ts, plan, 8)
+
+    split2s = {"whole": _graph_ms(call, KERNEL_ITERS)}
+    for vname, defines in K2S_PROBES.items():
+        split2s[vname] = _variant_ms(k2s, defines, call, KERNEL_ITERS)
+    k2s_result["stage_split_ms"] = split2s
+    print(f"t64 B={B}: K2s stage split (from a CUDA graph; the probe builds' "
+          f"outputs are not used): " + ", ".join(
+              f"{n} {t * 1e3:.1f} us" for n, t in split2s.items()) + f" [{gpu}]")
+    for (src, kernel), lines in PTXAS.items():
+        if src == k2s.SOURCE.name:
+            print(f"t64: ptxas K2s {kernel}: {'; '.join(lines)}")
+
     def views(n):
         return (v[:, :n].reshape(plan.n_primes, 2 * n, 2, Nh),
                 acc[:n].reshape(2 * n, 2, Nh))
@@ -2153,10 +2299,17 @@ def main() -> int:
 
     # -- 2. build the four kernels, in parallel ------------------------------
     t0 = time.perf_counter()
-    logs = _build.build(k1.SOURCE, k2.SOURCE, k3.SOURCE, k2s.SOURCE)
+    with concurrent.futures.ThreadPoolExecutor(len(K2S_PROBES) + 1) as pool:
+        probes = [pool.submit(_build.build, k2s.SOURCE, defines=d)
+                  for d in K2S_PROBES.values()]
+        probes.append(pool.submit(_build.build, CVT_RATE))
+        logs = _build.build(k1.SOURCE, k2.SOURCE, k3.SOURCE, k2s.SOURCE)
+        for f in probes:
+            f.result()
     print(f"built {', '.join(s.name for s in logs)} -> "
           f"{', '.join(_build.library_path(s).name for s in logs)} for sm_90a "
-          f"in {time.perf_counter() - t0:.1f} s")
+          f"in {time.perf_counter() - t0:.1f} s (and K2s's {len(K2S_PROBES)} "
+          f"probe builds and tools/{CVT_RATE.name} beside them)")
     for src, log in logs.items():
         kernel = "?"
         for line in log.splitlines():
@@ -2167,8 +2320,10 @@ def main() -> int:
                     args = re.findall(r"Li(\d+)E", m[2] or "")
                     kernel = m[1] + (f"<{', '.join(args)}>" if args else "")
             elif "Used" in line or "spill" in line or "Loss" in line:
-                print(f"  ptxas {src.name} {kernel}: "
-                      f"{line.split(':', 1)[-1].strip()}")
+                text = line.split(':', 1)[-1].strip()
+                PTXAS.setdefault((src.name, kernel), []).append(text)
+                print(f"  ptxas {src.name} {kernel}: {text}")
+    _check_barrett_rates(dev, gpu)
 
     # -- 3. key generation on the card ---------------------------------------
     P = params.SECURITY_128_BIT

@@ -61,8 +61,9 @@ struct alignas(8) int2 { int x, y; };
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 inline int2 make_int2(int a, int b) { return {a, b}; }
 
+
 inline thread_local dim3 threadIdx, blockIdx;
-inline dim3 gridDim;
+inline dim3 gridDim, blockDim;
 inline std::barrier<>* g_block_barrier = nullptr;
 alignas(1024) inline unsigned char g_smem[1 << 18];
 inline std::vector<std::unique_ptr<std::barrier<>>> g_warpgroup_barrier;
@@ -72,6 +73,12 @@ inline int __float2int_rn(float f) { return static_cast<int>(std::nearbyint(f));
 inline float __int2float_rn(int x) { return static_cast<float>(x); }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+// the bits of a float as an int and back
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline unsigned long long atomicAdd(unsigned long long* a, unsigned long long v) {
+  return __atomic_fetch_add(a, v, __ATOMIC_SEQ_CST);
+}
 // byte i of the result = byte (s >> 4i) & 7 of the 8-byte value {y, x}
 inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
   const uint64_t v = (static_cast<uint64_t>(y) << 32) | x;
@@ -95,6 +102,7 @@ inline void emu_launch(F f, dim3 grid, int threads, size_t = 0, void* = nullptr)
   std::barrier<> block(threads);
   g_block_barrier = &block;
   gridDim = grid;
+  blockDim = dim3(threads);
   g_warpgroup_barrier.clear();
   for (int w = 0; w < threads / 128; ++w)
     g_warpgroup_barrier.emplace_back(std::make_unique<std::barrier<>>(128));

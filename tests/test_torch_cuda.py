@@ -24,6 +24,8 @@ and key switch, and a one-rank NCCL gate runner, each equal to the CPU
 path.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -640,12 +642,17 @@ def _split_step_inputs(keys, name, B, seed):
 
 
 # t64: 6 lanes a tile (B = 7 and 2049 end inside one), 32 wide tiles at B =
-# 1 take the narrow tile; tiny_split: 8 lanes a tile
+# 1 take the narrow tile; tiny_split: 8 lanes a tile; t64_rl6: the key's
+# first 6 half-rows, which the instance that reads 2R at run time takes
 @pytest.mark.parametrize("name, B", [("t64", 1), ("t64", 7), ("t64", 200),
                                      ("t64", 2048), ("t64", 2049),
-                                     ("tiny_split", 1), ("tiny_split", 33)])
+                                     ("tiny_split", 1), ("tiny_split", 33),
+                                     ("t64_rl6", 2049)])
 def test_split_step_kernel_matches_plain(split_step_keys, name, B):
-    plan, acc, digits, bsk, ts = _split_step_inputs(split_step_keys, name, B, B)
+    key, rows = ("t64", 6) if name == "t64_rl6" else (name, None)
+    plan, acc, digits, bsk, ts = _split_step_inputs(split_step_keys, key, B, B)
+    if rows:
+        digits, bsk = digits[:, :rows].contiguous(), bsk[:, :, :rows].contiguous()
     before = K2S.split_step_fused.launches
     out = K2S.split_step_fused(digits, bsk, ts, plan, 8)
     torch.cuda.synchronize()
@@ -664,6 +671,23 @@ def test_split_step_kernel_matches_plain(split_step_keys, name, B):
     assert torch.equal(fin, want)
 
 
+@pytest.mark.parametrize("p", (18433, 40961, 59393, 61441))
+def test_split_barrett_exhaustive_on_card(dev, p):
+    """K2s's Barrett (the rounding by an f32 add, off the conversion pipe)
+    equals the plain version's __float2int_rn form on all 2^32 int32, for
+    each prime of the SECURITY_128_BIT_T64 plan, run by the kernel's own
+    device function; the check refuses a prime below ``MIN_PRIME``, where
+    the rounding is not exact, and a CPU device."""
+    plan = ntt.plan_for_params(params.SECURITY_128_BIT_T64, 32, 2, (3, 2),
+                               bgbit=8, pseudorandom_key=True)
+    assert p in plan.primes
+    assert K2S.barrett_mismatches(p, dev) == 0
+    with pytest.raises(ValueError, match="not exact"):
+        K2S.barrett_mismatches(K2S.MIN_PRIME - 1, dev, 0, 16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K2S.barrett_mismatches(p, "cpu", 0, 16)
+
+
 def test_split_step_kernel_rejects_what_it_cannot_take(split_step_keys):
     plan, acc, digits, bsk, ts = _split_step_inputs(split_step_keys, "t64", 4, 0)
     with pytest.raises(ValueError, match="shapes"):
@@ -674,6 +698,9 @@ def test_split_step_kernel_rejects_what_it_cannot_take(split_step_keys):
         K2S.split_step_fused(digits, bsk[:1], ts[:1], plan, 8)
     with pytest.raises(NotImplementedError, match="one-limb"):
         K2S.split_step_fused(digits, bsk, ts, plan, 11)
+    small = dataclasses.replace(plan, primes=(K2S.MIN_PRIME - 1,) + plan.primes[1:])
+    with pytest.raises(ValueError, match=f"all >= {K2S.MIN_PRIME}"):
+        K2S.split_step_fused(digits, bsk, ts, small, 8)
 
 
 def test_int64_finish_raises_on_card(dev):

@@ -26,8 +26,11 @@ step of the 64-bit torus) is held equal to its plain version on the digits
 of real hi-plane accumulators (``_rows_hi32``) and one step of a real
 split key, at SECURITY_128_BIT_T64's shape (N/2 = 1024, 4 primes, 10
 half-rows, 6 lanes a tile: a ragged last tile, B = 1 on wide and on
-narrow column tiles, one block walking every tile) and TEST_TINY_SPLIT's
-(8 half-rows, 8 lanes a tile).  Skips where no host C++ compiler is found.
+narrow column tiles, one block walking every tile), TEST_TINY_SPLIT's (8
+half-rows, 8 lanes a tile) and at 6 and 5 half-rows (the instance that
+reads 2R at run time); its Barrett, which rounds by an f32 add, is held
+equal to the conversion form on edge values, ties and 10^6 int32 per
+prime.  Skips where no host C++ compiler is found.
 """
 
 import ctypes
@@ -113,6 +116,10 @@ def emu(tmp_path_factory):
     libs["ntt_inverse"].ztfhe_ntt_inverse_crt_acc.argtypes = [p] * 9 + [i] * 5 + [p]
     libs["extprod"].ztfhe_extprod_matmul.argtypes = [p] * 3 + [i] * 4 + [p]
     libs["split_step"].ztfhe_split_step_fused.argtypes = [p] * 9 + [i] * 5 + [p]
+    libs["split_step"].ztfhe_split_barrett.argtypes = [p, p, i, i,
+                                                       ctypes.c_float, p]
+    libs["split_step"].ztfhe_split_barrett_mismatches.argtypes = [
+        i, ctypes.c_longlong, i, ctypes.c_float, p, p]
     libs["wgmma_rs"].emu_wgmma_rs.argtypes = [p] * 3 + [i]
     for lib in libs.values():
         lib.emu_set_sm_count.argtypes = [i]
@@ -249,18 +256,26 @@ def split_keys():
     return out
 
 
-# name -> (key, B, emulated SM count).  The entry point takes 64 x 128 tiles
-# when they give every SM one, else 64 x 32; one block per SM walks the
-# tiles.  t64: 6 lanes a tile, so B = 7 ends one lane into the second row
-# tile; B = 1 on 32 wide tiles and (33 SMs) on 128 narrow ones; one block
-# walks all 96 tiles of B = 13 (many rounds of the ring and of the two
-# d_hat buffers).  tiny_split: 8 lanes a tile, B = 9 ragged.
+# name -> (key, B, emulated SM count[, half-rows kept]).  The entry point
+# takes 64 x 128 tiles when they give every SM one, else 64 x 32; one block
+# per SM walks the tiles.  Wide tiles at 2R = 10 and 8 (row group 2) run
+# the instances compiled for them, any other 2R and every narrow tile the
+# one that reads 2R and the row group at run time.  t64: 6 lanes a tile,
+# so B = 7 ends one lane into the second row tile; B = 1 on 32 wide tiles
+# and (33 SMs) on 128 narrow ones; one block walks all 96 tiles of B = 13
+# (many rounds of the ring and of the two d_hat buffers).  tiny_split: 8
+# lanes a tile, B = 9 ragged.  The key's first 6 half-rows (10 lanes a
+# tile; B = 11: a ragged pair past the first tile) and the first 5 (12
+# lanes a tile, an odd lane count at B = 3, narrow tiles) take the
+# runtime instance.
 _K2S_CASES = {
     "t64_B7_ragged": ("t64", 7, 4),
     "t64_B1": ("t64", 1, 4),
     "t64_B1_narrow": ("t64", 1, 33),
     "t64_B13_one_block": ("t64", 13, 1),
     "tiny_split_B9": ("tiny_split", 9, 4),
+    "t64_rl6_runtime": ("t64", 11, 4, 6),
+    "tiny_split_rl5_narrow": ("tiny_split", 3, 33, 5),
 }
 
 
@@ -268,7 +283,7 @@ _K2S_CASES = {
 def test_split_step_kernel_source_matches_plain(emu, split_keys, case):
     """K2s on the hi-plane digits of uniform int32 accumulators (any
     accumulator mid-scan) and one step of a real split key."""
-    name, B, sms = _K2S_CASES[case]
+    name, B, sms, *rows = _K2S_CASES[case]
     P, levels, bsk = split_keys[name]
     plan = ntt.plan_for_params(P, 32, 2, levels, bgbit=8, pseudorandom_key=True)
     assert plan.n_primes == 4 and plan.N == 1024
@@ -277,6 +292,9 @@ def test_split_step_kernel_source_matches_plain(emu, split_keys, case):
                            .astype(np.int32))
     digits = SR._rows_hi32(acc, P, 8, levels).to(torch.int8)
     assert digits.shape[1] == 2 * sum(levels) == bsk.shape[2]
+    if rows:
+        digits = digits[:, :rows[0]].contiguous()
+        bsk = bsk[:, :, :rows[0]].contiguous()
     ts = torch.from_numpy(rng.integers(0, 4 * plan.N, (2, B)).astype(np.int32))
     tabs = K2._device_tables(plan, torch.device("cpu"))
     primes, inv_p = K2._host_scalars(plan, 2, 8)[:2]   # p and f32 1/p
@@ -290,6 +308,56 @@ def test_split_step_kernel_source_matches_plain(emu, split_keys, case):
     assert err == 0
     assert torch.equal(v, K2S.split_step_fused_reference(digits, bsk, ts, plan,
                                                          8))
+
+
+def _barrett_edges(p: int) -> np.ndarray:
+    """0, +-1, +-2^23, +-2^24 +- 1, INT_MIN, INT_MAX, and the int32 next to
+    each half-way point (q + 1/2) p of q = -2^10 .. 2^10 and of the largest
+    q; those whose f32 product lands on q + 1/2 exactly are ties."""
+    fixed = [0, 1, -1, 2**23, -2**23, 2**24 + 1, 2**24 - 1, -2**24 + 1,
+             -2**24 - 1, -2**31, 2**31 - 1]
+    q = np.concatenate([np.arange(-2**10, 2**10), [2**31 // p - 1, -(2**31 // p)]])
+    half = (2 * q + 1) * p // 2
+    near = (half[:, None] + np.arange(-2, 3)[None, :]).ravel()
+    near = near[(near >= -2**31) & (near < 2**31)]
+    return np.concatenate([fixed, near]).astype(np.int32)
+
+
+def test_split_barrett_matches_conversion_form(emu, split_keys):
+    """K2s's Barrett (the rounding as an f32 add of 1.5 * 2^23, off the
+    conversion pipe) equals __float2int_rn(__fmul_rn(__int2float_rn(x),
+    inv_p)) and x - q p of the plain version on the edge values, the ties
+    and 10^6 seeded int32, for every prime of the SECURITY_128_BIT_T64 and
+    TEST_TINY_SPLIT plans; the kernel's own mismatch counter finds none
+    over the 2^21 int32 around 0; both entries refuse a prime below 2^11."""
+    primes = set()
+    for P, levels, _ in split_keys.values():
+        primes |= set(ntt.plan_for_params(P, 32, 2, levels, bgbit=8,
+                                          pseudorandom_key=True).primes)
+    rng = np.random.default_rng(2**20)
+    lib = emu["split_step"]
+    lib.emu_set_sm_count(4)
+    for p in sorted(primes):
+        edges = _barrett_edges(p)
+        inv = np.float32(1.0 / p)
+        f = edges.astype(np.float32) * inv
+        assert (f - np.floor(f) == np.float32(0.5)).any()   # real ties
+        x = np.concatenate([edges, rng.integers(-2**31, 2**31, 10**6)
+                            .astype(np.int32)])
+        r = np.empty_like(x)
+        assert lib.ztfhe_split_barrett(_ptr(x), _ptr(r), x.size, p,
+                                       float(inv), None) == 0
+        assert np.array_equal(r, K2S.barrett_reference(x, p)), p
+        n_diff = np.zeros(1, dtype=np.uint64)
+        assert lib.ztfhe_split_barrett_mismatches(-2**20, 2**21, p, float(inv),
+                                                  _ptr(n_diff), None) == 0
+        assert n_diff[0] == 0, p
+    # the rounding is exact only for p >= 2^11: the entries refuse smaller
+    small = K2S.MIN_PRIME - 1
+    assert lib.ztfhe_split_barrett(_ptr(x), _ptr(r), 16, small,
+                                   1.0 / small, None) != 0
+    assert lib.ztfhe_split_barrett_mismatches(0, 16, small, 1.0 / small,
+                                              _ptr(n_diff), None) != 0
 
 
 # (B, N, bits, drop, emulated SM count): the entry point takes 64-wide column

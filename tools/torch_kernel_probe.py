@@ -2,17 +2,23 @@
 """Build, check and time the hand-written kernels of the PyTorch/CUDA port
 on one GPU.
 
-    python3 tools/torch_kernel_probe.py [--kernels k1,k2,k3] [--paths g3,g2]
+    python3 tools/torch_kernel_probe.py [--kernels k1,k2,k3,k2s]
+                                        [--paths g3,g2,uint4,t64]
                                         [--batches 2048,200,1] [--iters 20]
+                                        [--split]
 
 A quicker loop than chip_smoke.py for work on one kernel: it builds the
 kernels asked for (csrc/ntt_inverse.cu K1, csrc/ntt_step.cu K2,
-csrc/extprod.cu K3) with nvcc, prints ptxas' report (registers, shared
-memory, spills, warnings), and at the shapes of each path (the 128-bit
-g3: group 3, Bg_e 2^7, R = 4, drop 5, and g2: group 2, Bg_e 2^6, R = 5,
-drop 7, both with 3 primes; uint4: group 2, Bg_e 2^22, R = 2 rows of 3
-digit limbs, drop 0, 5 primes; N = 1024; K3: 2L = 6 digit rows, 1-4 key
-limbs of an ext-limb key step, ``--key-limbs``) holds each kernel
+csrc/extprod.cu K3, csrc/split_step.cu K2s) with nvcc, prints ptxas'
+report (registers, shared memory, spills, warnings), and at the shapes of
+each path (the 128-bit g3: group 3, Bg_e 2^7, R = 4, drop 5, and g2:
+group 2, Bg_e 2^6, R = 5, drop 7, both with 3 primes; uint4: group 2,
+Bg_e 2^22, R = 2 rows of 3 digit limbs, drop 0, 5 primes; N = 1024; K3:
+2L = 6 digit rows, 1-4 key limbs of an ext-limb key step,
+``--key-limbs``; t64, K2s only: SECURITY_128_BIT_T64's split step, N/2 =
+1024, 4 primes, 10 half-rows of the hi-plane digits (``_rows_hi32``) of
+a uniform accumulator, one step of a key made on the card with n0 cut to
+2) holds each kernel
 bit-equal to its plain PyTorch version at every batch size given,
 then times kernel and plain version with CUDA events (plain, kernel, kernel,
 plain), the kernel alone replayed from a CUDA graph (device time without
@@ -22,12 +28,26 @@ uniform accumulators, digits in the gadget's range (multi-limb digits: the
 limb planes of a uniform accumulator's digits), key residues of uniform
 polynomials.  Prints the card's nvidia-smi name and power limit beside the
 times.  Needs a CUDA device.
+
+``--split`` also times K2 (paths g3, g2, uint4) and K2s (path t64) built
+with one stage switched off (the sources' ZTFHE_PROBE_* switches: no
+product stage, no pointwise stage, K2s also with each Barrett's
+conversions and multiply replaced by a shift), prints how many of the
+conversion instructions (I2F, I2FP, F2I) and of the other opcodes a
+Barrett is made of are in each kernel's SASS (``cuobjdump -sass``), and
+measures, with tools/cvt_rate.cu, the card's throughput per SM clock of
+int32 -> f32 and f32 -> int32 conversions, of int32 multiply-adds and of
+a whole Barrett in three forms (both conversions; the rounding by an f32
+add; no conversion).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -35,9 +55,16 @@ from pathlib import Path
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import chip_smoke as cs  # noqa: E402  (the timers, the probe-build swap, cvt_rate)
+
 # path -> (parameter set, group, engine bgbit, levels, drop)
 PATHS = {"g3": ("128bit", 3, 7, (2, 2), 5), "g2": ("128bit", 2, 6, (3, 2), 7),
-         "uint4": ("uint4", 2, 22, (1, 1), 0)}
+         "uint4": ("uint4", 2, 22, (1, 1), 0),
+         "t64": ("128bit_t64", 2, 8, (3, 2), 32)}
+K2S_PATHS = ("t64",)      # the split-ring paths: K2s, not K2
+# the opcodes a Barrett is made of, counted in the SASS
+SASS_OPS = ("I2F", "I2FP", "F2I", "FMUL", "FADD", "IMAD", "IADD3", "LOP3",
+            "SHF", "LDS", "STS")
 
 
 def _digits(P, levels, e, B, g):
@@ -59,19 +86,6 @@ def _digits(P, levels, e, B, g):
     return k2.digit_planes(_decompose_to_rows(acc, P, levels, bgbit=e), n_dl)
 
 
-def _cuda_ms(fn, iters):
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _time_calls(label, name, kern, plain, iters, gpu) -> None:
     """Kernel and plain version in turns (plain, kernel, kernel, plain), the
     kernel replayed from a CUDA graph, and the host's cost of one enqueue."""
@@ -81,14 +95,9 @@ def _time_calls(label, name, kern, plain, iters, gpu) -> None:
     plain()
     t = {kern: [], plain: []}
     for fn in (plain, kern, kern, plain):
-        t[fn].append(_cuda_ms(fn, iters))
+        t[fn].append(cs._cuda_ms(fn, iters))
     # device time alone: the calls replayed from a CUDA graph
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            kern()
-    graph.replay()
-    dev_us = _cuda_ms(graph.replay, 3) / iters * 1e3
+    dev_us = cs._graph_ms(kern, iters) * 1e3
     torch.cuda.synchronize()
     h0 = time.perf_counter()
     for _ in range(200):
@@ -136,13 +145,127 @@ def _k3(args, batches, gpu, label="K3") -> bool:
     return ok
 
 
+def _k2s_key(dev, seed):
+    """One step of a real SECURITY_128_BIT_T64 split key, made on the card
+    with n0 cut to 2 (the key step's shape does not depend on n0)."""
+    import dataclasses
+
+    import torch
+
+    from zig_tfhe_tpu_torch import key, params
+    from zig_tfhe_tpu_torch.ops import ntt
+
+    P = params.SECURITY_128_BIT_T64
+    P = dataclasses.replace(P, tlwe_lv0=dataclasses.replace(P.tlwe_lv0, n=2))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sk = key.SecretKey.generate(g, P)
+    ck = key.CloudKey.generate(g, sk, P, packing_key=False)
+    plan = ntt.plan_for_params(P, 32, 2, ck.bsk_levels, bgbit=8,
+                               pseudorandom_key=True)
+    return P, plan, ck.bsk_levels, ck.bsk_ntt[0].contiguous()
+
+
+def _k2s_inputs(key, B, g):
+    """K2s's operands at B lanes: the hi-plane digits of a uniform int32
+    accumulator, the key step, rotations in [0, 4 N/2)."""
+    import torch
+
+    from zig_tfhe_tpu_torch.ops import split_ring
+
+    P, plan, levels, bsk = key
+    acc = torch.randint(0, 1 << 32, (B, 2, 2, plan.N), dtype=torch.int64,
+                        generator=g, device=g.device).to(torch.int32)
+    digits = split_ring._rows_hi32(acc, P, 8, levels).to(torch.int8)
+    ts = torch.randint(0, 4 * plan.N, (2, B), generator=g, device=g.device,
+                       dtype=torch.int32)
+    return digits, bsk, ts, plan, 8
+
+
+def _k2s(args, batches, gpu) -> bool:
+    """K2s at t64's shapes: bit-equal to its plain version at each batch,
+    then timed."""
+    import torch
+
+    from zig_tfhe_tpu_torch.ops.cuda import split_step as k2s
+
+    dev = torch.device("cuda", 0)
+    key = _k2s_key(dev, args.seed)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    ok = True
+    for B in batches:
+        a = _k2s_inputs(key, B, g)
+        out = k2s.split_step_fused(*a)
+        ref = k2s.split_step_fused_reference(*a)
+        torch.cuda.synchronize()
+        same = torch.equal(out, ref)
+        bad = int((out != ref).sum())
+        print(f"t64 B={B}: K2s == plain: {same}"
+              + ("" if same else f" ({bad} of {out.numel()} differ)"))
+        ok &= same
+        _time_calls(f"t64 B={B}", "K2s", lambda a=a: k2s.split_step_fused(*a),
+                    lambda a=a: k2s.split_step_fused_reference(*a),
+                    args.iters, gpu)
+    return ok
+
+
+def _sass_counts(so: Path) -> dict:
+    """Opcode counts (SASS_OPS) of each kernel function in a built library,
+    from ``cuobjdump -sass``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "", "bin",
+                                                     "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m[1]
+            counts[fn] = collections.Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                      line)
+        if m and fn:
+            counts[fn][m[1]] += 1
+            counts[fn]["all"] += 1
+    return counts
+
+
+def _print_sass(label, so: Path, pattern: str) -> None:
+    try:
+        counts = _sass_counts(so)
+    except (OSError, subprocess.CalledProcessError) as e:
+        print(f"  SASS {label}: cuobjdump failed ({e}); not counted")
+        return
+    for fn, c in counts.items():
+        if pattern in fn:
+            print(f"  SASS {label} {fn[:60]}: {c['all']} instructions; "
+                  + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
+
+
+def _cvt_rates(gpu) -> None:
+    """tools/cvt_rate.cu's rates (chip_smoke._barrett_rates), each Barrett
+    form's beside the rate chip_smoke's instruction model gives it, and
+    the SASS of each of its loops."""
+    import torch
+
+    from zig_tfhe_tpu_torch.ops.cuda import _build
+
+    rates = cs._barrett_rates(torch.device("cuda", 0))
+    model = {3: 1 / cs._cuda_core_clocks(1, converted=1),
+             4: 1 / cs._cuda_core_clocks(1, converted=0)}
+    for op, (name, rate) in enumerate(zip(cs.CVT_RATE_OPS, rates)):
+        print(f"rate {name}: {rate:.2f} a clock per SM"
+              + (f" (model {model[op]:.2f})" if op in model else "") + f" [{gpu}]")
+    _print_sass("cvt_rate", _build.library_path(cs.CVT_RATE), "rate_kernel")
+
+
 def _stage_split(args, gpu) -> bool:
     """K2's time with one stage switched off at compile time (the source's
     ZTFHE_PROBE_* switches; the outputs are then wrong and not compared):
     what is left when the product (TMA loads + wgmma) or the pointwise stage
     does not run, replayed from a CUDA graph."""
-    import ctypes
-
     import torch
 
     from zig_tfhe_tpu_torch import params
@@ -150,43 +273,50 @@ def _stage_split(args, gpu) -> bool:
     from zig_tfhe_tpu_torch.ops.cuda import _build
     from zig_tfhe_tpu_torch.ops.cuda import ntt_step as k2
 
+    from zig_tfhe_tpu_torch.ops.cuda import split_step as k2s
+
     dev = torch.device("cuda", 0)
     B = int(args.batches.split(",")[0])
     g = torch.Generator(device=dev).manual_seed(args.seed)
+    kernels = args.kernels.split(",")
     variants = {"whole": (), "no pointwise": ("-DZTFHE_PROBE_NO_POINTWISE",),
                 "no product": ("-DZTFHE_PROBE_NO_PRODUCT",)}
     for path in args.paths.split(","):
         name, group, e, levels, drop = PATHS[path]
-        P = params.PARAMS_BY_NAME[name]
-        plan = ntt.plan_for_params(P, drop, group, levels, bgbit=e,
-                                   pseudorandom_key=True)
-        R, S, N = sum(levels), (1 << group) - 1, P.N
-        digits = _digits(P, levels, e, B, g)
-        bsk = ntt.to_ntt_form(
-            torch.randint(0, 1 << 32, (S, R, 2, N), dtype=torch.int64,
-                          generator=g, device=dev).to(torch.int32),
-            plan, drop).movedim(0, 1).contiguous()
-        ts = torch.randint(0, 2 * N + 1, (group, B), generator=g, device=dev,
-                           dtype=torch.int32)
-        times = {}
-        for name, defines in variants.items():
-            _build.build(k2.SOURCE, defines=defines)
-            lib = k2._bind(ctypes.CDLL(
-                str(_build.library_path(k2.SOURCE, defines))))
-            real = k2._library
-            k2._library = lambda lib=lib: lib   # the wrapper, on this build
-            try:
-                k2.ntt_step_fused(digits, bsk, ts, plan, e)
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph):
-                    for _ in range(args.iters):
-                        k2.ntt_step_fused(digits, bsk, ts, plan, e)
-                graph.replay()
-                times[name] = _cuda_ms(graph.replay, 3) / args.iters * 1e3
-            finally:
-                k2._library = real
-        print(f"{path} B={B}: K2 stage split: " + ", ".join(
+        if path in K2S_PATHS:
+            if "k2s" not in kernels:
+                continue
+            mod, label = k2s, "K2s"
+            a = _k2s_inputs(_k2s_key(dev, args.seed), B, g)
+            call = lambda a=a: k2s.split_step_fused(*a)
+            paths_variants = dict(variants, **{
+                "Barretts as shifts": ("-DZTFHE_PROBE_BARRETT_IMAD",),
+                "no product, Barretts as shifts": (
+                    "-DZTFHE_PROBE_NO_PRODUCT", "-DZTFHE_PROBE_BARRETT_IMAD")})
+        else:
+            if "k2" not in kernels:
+                continue
+            mod, label = k2, "K2"
+            P = params.PARAMS_BY_NAME[name]
+            plan = ntt.plan_for_params(P, drop, group, levels, bgbit=e,
+                                       pseudorandom_key=True)
+            R, S, N = sum(levels), (1 << group) - 1, P.N
+            digits = _digits(P, levels, e, B, g)
+            bsk = ntt.to_ntt_form(
+                torch.randint(0, 1 << 32, (S, R, 2, N), dtype=torch.int64,
+                              generator=g, device=dev).to(torch.int32),
+                plan, drop).movedim(0, 1).contiguous()
+            ts = torch.randint(0, 2 * N + 1, (group, B), generator=g,
+                               device=dev, dtype=torch.int32)
+            call = lambda a=(digits, bsk, ts, plan, e): k2.ntt_step_fused(*a)
+            paths_variants = variants
+        _build.build(mod.SOURCE)
+        _print_sass(label, _build.library_path(mod.SOURCE), "_kernel")
+        times = {vname: cs._variant_ms(mod, defines, call, args.iters) * 1e3
+                 for vname, defines in paths_variants.items()}
+        print(f"{path} B={B}: {label} stage split: " + ", ".join(
             f"{n} {t:.1f} us" for n, t in times.items()) + f" [{gpu}]")
+    _cvt_rates(gpu)
     return True
 
 
@@ -204,8 +334,9 @@ def main() -> int:
                          "hopper_prims.cuh beside it) to build, check and "
                          "time after the shipped one; repeatable")
     ap.add_argument("--split", action="store_true",
-                    help="also time K2 built without its product stage and "
-                         "without its pointwise stage (B = the first batch)")
+                    help="also time K2 / K2s built without a stage (B = the "
+                         "first batch), count the Barrett's opcodes in the "
+                         "SASS and measure the conversion rates")
     args = ap.parse_args()
     import torch
 
@@ -218,6 +349,7 @@ def main() -> int:
     from zig_tfhe_tpu_torch.ops.cuda import extprod as k3
     from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
     from zig_tfhe_tpu_torch.ops.cuda import ntt_step as k2
+    from zig_tfhe_tpu_torch.ops.cuda import split_step as k2s
 
     dev = torch.device("cuda", 0)
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -226,8 +358,8 @@ def main() -> int:
     print(f"[{gpu}] torch {torch.__version__}, CUDA {torch.version.cuda}")
     kernels = args.kernels.split(",")
     batches = [int(b) for b in args.batches.split(",")]
-    sources = [m.SOURCE for n, m in (("k1", k1), ("k2", k2), ("k3", k3))
-               if n in kernels]
+    sources = [m.SOURCE for n, m in (("k1", k1), ("k2", k2), ("k3", k3),
+                                     ("k2s", k2s)) if n in kernels]
     sources += [Path(v).resolve() for v in args.k3_source]
     t0 = time.perf_counter()
     logs = _build.build(*sources)
@@ -246,6 +378,8 @@ def main() -> int:
 
     ok = True
     for path in args.paths.split(",") if {"k1", "k2"} & set(kernels) else ():
+        if path in K2S_PATHS:
+            continue
         name, group, e, levels, drop = PATHS[path]
         P = params.PARAMS_BY_NAME[name]
         N = P.N
@@ -292,6 +426,8 @@ def main() -> int:
                 _time_calls(f"{path} B={B}", name, kern, plain, args.iters, gpu)
     if "k3" in kernels:
         ok &= _k3(args, batches, gpu)
+    if "k2s" in kernels and set(K2S_PATHS) & set(args.paths.split(",")):
+        ok &= _k2s(args, batches, gpu)
     for v in args.k3_source:
         import ctypes
 
@@ -301,12 +437,8 @@ def main() -> int:
         lib.ztfhe_extprod_matmul.restype = ctypes.c_int
         lib.ztfhe_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ztfhe_cuda_error_string.restype = ctypes.c_char_p
-        real = k3._library
-        k3._library = lambda lib=lib: lib   # the wrapper, on this build
-        try:
+        with cs._on_library(k3, lib):     # the wrapper, on this build
             ok &= _k3(args, batches, gpu, label=Path(v).stem)
-        finally:
-            k3._library = real
     if args.split:
         ok &= _stage_split(args, gpu)
     print("probe ok" if ok else "probe FAILED")

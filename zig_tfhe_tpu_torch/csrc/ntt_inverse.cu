@@ -29,11 +29,12 @@
 // data-sheet rate.  Compulsory traffic: residues 25.2 MB, acc and out
 // 33.6 MB, matrices 12.6 MB = 71.3 MB, 21.3 us at 3.35 TB/s.  The per-prime
 // epilogue is 2 Barretts (each at least an int -> f32 conversion, an f32
-// multiply, an f32 -> int conversion and an int32 multiply-subtract), one
-// more conversion, 2 f32 operations and 2 int32 multiply-adds per output
-// and prime: 13 instructions at the SM's 128 a clock, about 5 us over 132
-// SMs at 1.98 GHz.  So the tensor cores bound it (chip_smoke.py computes
-// all three times).
+// multiply, a rounding and an int32 multiply-subtract), one more rounding,
+// 2 f32 operations and 2 int32 multiply-adds per output and prime: about 5
+// us over 132 SMs at 1.98 GHz, the roundings split between the f32 -> int
+// conversion (16 a clock per SM, measured) and an f32 add
+// (chip_smoke.py:_cuda_core_clocks).  So the tensor cores bound it
+// (chip_smoke.py computes all three times).
 //
 // L2 -> SM traffic per call at those shapes.  A block reads its row tile's
 // residues for every prime and its column tile's four matrix planes:

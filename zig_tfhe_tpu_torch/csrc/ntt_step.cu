@@ -55,18 +55,25 @@
 //   CUDA cores: per (b, k) over the three primes at group 3 142 Barretts
 //     and 222 int32 multiply-adds of the pointwise sums and the subset
 //     combine (group 2: 108 and 111).  A Barrett is counted as the least the
-//     function needs (int -> f32 conversion, f32 multiply, f32 -> int
-//     conversion, int32 multiply-subtract), and the stage's time as the
-//     larger of all instructions at 128 a clock per SM (the issue rate) and
-//     the busiest pipe (conversions and int32 at 64 a clock, f32 at 128):
-//     6.2 SM-clocks x 2.1 M (b, k) / 132 SMs / 1.98 GHz = 49.5 us (group 2:
-//     4.2 SM-clocks, 34.0 us), by the issue rate.
+//     function needs: int -> f32 (I2FP, on the ALU pipe), an f32 multiply,
+//     the rounding and an int32 multiply-subtract (IMAD, on the FMA pipe);
+//     the rounding is an f32 -> int conversion (16 a clock per SM,
+//     measured, PERF.md) or an f32 add of 1.5 * 2^23 and an int32 add.
+//     The stage's time is the larger of all instructions at 128 a clock
+//     per SM (the issue rate) and each pipe's (FMA: f32 at 128, IMAD at
+//     64; ALU 64; conversion 16), at the split of the roundings between
+//     the two forms that balances them best
+//     (chip_smoke.py:_cuda_core_clocks, which phase 2 of chip_smoke.py
+//     holds to the card's measured Barrett rates): 6.47 SM-clocks x 2.1 M
+//     (b, k) / 132 SMs / 1.98 GHz = 51.9 us at group 3 (group 2: 4.52,
+//     36.3 us).  This kernel rounds every Barrett on the conversion pipe
+//     (__float2int_rn).
 // So the tensor cores bound it, with the CUDA-core stage close behind at
 // group 3 (chip_smoke.py computes the same counts per path and prints them
 // beside the bound).  At uint4's LUT path (group 2, R = 2 rows of 3 limbs,
 // 5 primes) the int8 MACs are B * 6 * N * N * 2 * 5 = 128.8 G: 130 us, and
 // the CUDA-core stage (per (b, k, prime) 14 forward-combine, 4 Horner, 18
-// pointwise and 7 combine Barretts) about 54 us.
+// pointwise and 7 combine Barretts) about 53 us.
 //
 // L2 -> SM traffic per call at those shapes (group 3; group 2 in brackets).
 // A tile reads its 64 digit rows over all N for one prime, and its column

@@ -13,7 +13,13 @@ K1 (ops/cuda/ntt_inverse.py), which takes the residues as the int8 limb
 planes this kernel writes ([P, B, 2(c), 2(q), 2(limb), N/2], viewed as
 [P, 2B, 2, 2, N/2] rows (b, c)).  The source is
 zig_tfhe_tpu_torch/csrc/split_step.cu (its header gives the bound on the
-card and the design); ops/cuda/_build.py compiles it at first use.
+card and the design); ops/cuda/_build.py compiles it at first use.  Its
+Barrett rounds by an f32 add of 1.5 * 2^23 instead of the f32 -> int32
+conversion, which is exact for primes of at least 2^11 (``MIN_PRIME``; the
+wrapper refuses a plan with a smaller one); ``barrett_mismatches`` runs
+the kernel's own Barrett against the plain form over a range of int32 on
+the card (all 2^32 by default), and ``barrett_reference`` is the plain
+form in numpy.
 
 Its plain version, ``split_step_fused_reference``, is the chain the scan
 ran before the kernel existed: ``_forward`` -> ``_pointwise`` per subset
@@ -49,6 +55,7 @@ GROUP = 2
 _MAX_PRIMES = 8     # kMaxPrimes in the source
 _MAX_ROWS = 10      # kMaxRows in the source: half-rows 2R a batch element
 _COL_TILE = 128     # N/2 must be a multiple of the kernel's stage depth
+MIN_PRIME = 1 << 11  # kMinPrime: the kernel's Barrett rounds exactly above it
 
 
 def supports(group: int, digit_limbs: int, hi32: bool) -> bool:
@@ -116,8 +123,12 @@ def split_step_fused_reference(digits: torch.Tensor, bsk_step: torch.Tensor,
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
+    f = ctypes.c_float
     lib.ztfhe_split_step_fused.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.ztfhe_split_step_fused.restype = i
+    lib.ztfhe_split_barrett_mismatches.argtypes = [i, ctypes.c_longlong, i, f,
+                                                   p, p]
+    lib.ztfhe_split_barrett_mismatches.restype = i
     return lib
 
 
@@ -143,10 +154,12 @@ def split_step_fused(digits: torch.Tensor, bsk_step: torch.Tensor,
                          "all must be on the same CUDA device")
     P, N = plan.n_primes, plan.N
     B, R2 = digits.shape[0], digits.shape[1]
-    if P > _MAX_PRIMES or R2 > _MAX_ROWS or N % _COL_TILE:
-        raise ValueError(f"kernel takes <= {_MAX_PRIMES} primes, <= "
-                         f"{_MAX_ROWS} half-rows and N/2 % {_COL_TILE} == 0 "
-                         f"(got {P} primes, 2R={R2}, N/2={N})")
+    if (P > _MAX_PRIMES or R2 > _MAX_ROWS or N % _COL_TILE
+            or min(plan.primes) < MIN_PRIME):
+        raise ValueError(f"kernel takes <= {_MAX_PRIMES} primes, all >= "
+                         f"{MIN_PRIME}, <= {_MAX_ROWS} half-rows and N/2 % "
+                         f"{_COL_TILE} == 0 (got primes {plan.primes}, "
+                         f"2R={R2}, N/2={N})")
     digits, bsk_step, ts = (t.contiguous() for t in tensors)
     if digits.data_ptr() % 16 or bsk_step.data_ptr() % 16:
         raise ValueError("kernel operands must be 16-byte aligned")
@@ -165,3 +178,37 @@ def split_step_fused(digits: torch.Tensor, bsk_step: torch.Tensor,
 
 
 split_step_fused.launches = 0
+
+
+def barrett_reference(x, p: int):
+    """The plain version's Barrett of int32 x (numpy) modulo p:
+    round(f32(x) * f32(1/p)) half to even, x - q p wrapping mod 2^32."""
+    import numpy as np
+
+    x = np.asarray(x, dtype=np.int32)
+    q = np.rint(x.astype(np.float32) * np.float32(1.0 / p)).astype(np.int64)
+    return (x.astype(np.int64) - q * p).astype(np.uint32).view(np.int32)
+
+
+def barrett_mismatches(p: int, device, start: int = -(1 << 31),
+                       count: int = 1 << 32) -> int:
+    """How many int32 x = start + i (mod 2^32), 0 <= i < count, the
+    kernel's Barrett (its rounding by the add of 1.5 * 2^23) reduces
+    otherwise than the plain version's conversion form modulo p, counted
+    on the CUDA ``device`` by the kernel's own device function (all 2^32
+    inputs take a few ms)."""
+    import numpy as np
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"device {device}: the check runs on a CUDA device")
+    if p < MIN_PRIME:
+        raise ValueError(f"p = {p} < {MIN_PRIME}: the rounding is not exact")
+    n_diff = torch.zeros(1, dtype=torch.int64, device=device)
+    lib = _library()
+    err = lib.ztfhe_split_barrett_mismatches(
+        int(np.int64(start).astype(np.uint32).view(np.int32)), count, p,
+        float(np.float32(1.0 / p)), n_diff.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, err, "split_barrett_mismatches")
+    return int(n_diff.item())
