@@ -26,6 +26,7 @@ import torch
 from zig_tfhe_tpu_torch import bootstrap as _bootstrap
 from zig_tfhe_tpu_torch.key import CloudKey
 from zig_tfhe_tpu_torch.ops.keyswitch import identity_key_switch
+from zig_tfhe_tpu_torch.utils import profiling
 from zig_tfhe_tpu_torch.utils.torus import (carrier_dtype, f64_to_torus,
                                             to_carrier, torus_constant_w)
 
@@ -95,19 +96,20 @@ def apply_gates(gate_ids, a: torch.Tensor, b: torch.Tensor,
     Extra trailing batch dims on a/b broadcast against gate_ids from the
     left (ids [W] with a [W, B, n0+1] applies id w to every lane of row w).
     """
-    gate_ids = torch.as_tensor(gate_ids, device=a.device).long()
-    extra = a.dim() - 1 - gate_ids.dim()
+    with profiling.span("gates.apply", device=a.device):
+        gate_ids = torch.as_tensor(gate_ids, device=a.device).long()
+        extra = a.dim() - 1 - gate_ids.dim()
 
-    def table(t):
-        return torch.from_numpy(t).to(a.device)[gate_ids]
+        def table(t):
+            return torch.from_numpy(t).to(a.device)[gate_ids]
 
-    ca = table(_COEFF_A).reshape(*gate_ids.shape, *(1,) * (extra + 1))
-    cb = table(_COEFF_B).reshape(*gate_ids.shape, *(1,) * (extra + 1))
-    bias = table(_bias_table(ck.params.torus_bits)).reshape(
-        *gate_ids.shape, *(1,) * extra)
-    combo = ca * a + cb * b
-    combo[..., ck.params.n0] += bias
-    return _bootstrap_batch(combo, ck)
+        ca = table(_COEFF_A).reshape(*gate_ids.shape, *(1,) * (extra + 1))
+        cb = table(_COEFF_B).reshape(*gate_ids.shape, *(1,) * (extra + 1))
+        bias = table(_bias_table(ck.params.torus_bits)).reshape(
+            *gate_ids.shape, *(1,) * extra)
+        combo = ca * a + cb * b
+        combo[..., ck.params.n0] += bias
+        return _bootstrap_batch(combo, ck)
 
 
 # Named wrappers (free-function parity with gates.zig:157-238).

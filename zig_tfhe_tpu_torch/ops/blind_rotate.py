@@ -23,6 +23,7 @@ from zig_tfhe_tpu_torch.ops.decomposition import gadget_decompose
 from zig_tfhe_tpu_torch.ops.ntt import norm_levels
 from zig_tfhe_tpu_torch.ops.poly import negacyclic_rotate
 from zig_tfhe_tpu_torch.params import SecurityParams
+from zig_tfhe_tpu_torch.utils import profiling
 from zig_tfhe_tpu_torch.utils.torus import (carrier_dtype, i32_to_i8_limbs,
                                             shift_right_logical, to_carrier)
 
@@ -121,7 +122,8 @@ def blind_rotate_toeplitz(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
         testvec = testvec.expand(B, *testvec.shape)
     acc = negacyclic_rotate(testvec, b_tilda)
     a_cols = tlwe_batch[:, :n0].T                               # [n0, B]
-    for i in range(n0):
-        rotated = negacyclic_rotate(acc, modswitch(a_cols[i], params))
-        acc = cmux(bsk_ext_limbs[i], acc, rotated, params)
+    with profiling.span("blind_rotate.steps", device=acc.device, steps=n0):
+        for i in range(n0):
+            rotated = negacyclic_rotate(acc, modswitch(a_cols[i], params))
+            acc = cmux(bsk_ext_limbs[i], acc, rotated, params)
     return acc

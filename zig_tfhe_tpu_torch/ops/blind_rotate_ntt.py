@@ -44,6 +44,7 @@ from zig_tfhe_tpu_torch.ops.cuda.ntt_step import (digit_planes,
                                                   ntt_step_fused, supports)
 from zig_tfhe_tpu_torch.ops.split_ring import blind_rotate_split, finish_int64
 from zig_tfhe_tpu_torch.params import SecurityParams
+from zig_tfhe_tpu_torch.utils import profiling
 
 
 def rotate_via_ntt(polys: torch.Tensor, t: torch.Tensor,
@@ -111,11 +112,13 @@ def blind_rotate_ntt(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
         return ntt_inverse_to_crt_acc(torch.stack(v_hat), acc, plan, drop_bits)
 
     if group == 1:
-        for i in range(n0):
-            t = modswitch(a_cols[i], params)
-            u_hat = _ntt.pointwise_extprod(fwd(acc), bsk_ntt[i], plan,
-                                           reduce_output=False)
-            acc = finish(acc, _ntt.rotate_diag(u_hat, t, plan))
+        with profiling.span("blind_rotate.steps", device=acc.device,
+                            steps=n0):
+            for i in range(n0):
+                t = modswitch(a_cols[i], params)
+                u_hat = _ntt.pointwise_extprod(fwd(acc), bsk_ntt[i], plan,
+                                               reduce_output=False)
+                acc = finish(acc, _ntt.rotate_diag(u_hat, t, plan))
         return acc
 
     G = bsk_ntt.shape[0]
@@ -124,18 +127,21 @@ def blind_rotate_ntt(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
     a_groups = a_cols.reshape(G, group, B)
     if w == 32 and supports(group, e_limbs):
         ts = modswitch(a_groups, params)     # every step's rotations at once
-        for s in range(G):
-            digits = _decompose_to_rows(acc, params, levels, bgbit=e)
-            v = ntt_step_fused(digit_planes(digits, e_limbs), bsk_ntt[s],
-                               ts[s], plan, e)
-            acc = ntt_inverse_to_crt_acc(v, acc, plan, drop_bits)
+        with profiling.span("blind_rotate.steps", device=acc.device,
+                            steps=G):
+            for s in range(G):
+                digits = _decompose_to_rows(acc, params, levels, bgbit=e)
+                v = ntt_step_fused(digit_planes(digits, e_limbs), bsk_ntt[s],
+                                   ts[s], plan, e)
+                acc = ntt_inverse_to_crt_acc(v, acc, plan, drop_bits)
         return acc
-    for s in range(G):
-        ts = [modswitch(a_groups[s, j], params) for j in range(group)]
-        d_hat = fwd(acc)
-        us = [_ntt.pointwise_extprod(d_hat, bsk_ntt[s, m], plan,
-                                     reduce_output=not fold)
-              for m in range((1 << group) - 1)]
-        acc = finish(acc, _ntt.rotate_combine_multi(us, ts, plan,
-                                                    u_wide=fold))
+    with profiling.span("blind_rotate.steps", device=acc.device, steps=G):
+        for s in range(G):
+            ts = [modswitch(a_groups[s, j], params) for j in range(group)]
+            d_hat = fwd(acc)
+            us = [_ntt.pointwise_extprod(d_hat, bsk_ntt[s, m], plan,
+                                         reduce_output=not fold)
+                  for m in range((1 << group) - 1)]
+            acc = finish(acc, _ntt.rotate_combine_multi(us, ts, plan,
+                                                        u_wide=fold))
     return acc

@@ -14,6 +14,7 @@ import torch
 from zig_tfhe_tpu_torch.ops.decomposition import ks_decompose
 from zig_tfhe_tpu_torch.ops.poly import small_matmul_torus
 from zig_tfhe_tpu_torch.params import SecurityParams
+from zig_tfhe_tpu_torch.utils import profiling
 from zig_tfhe_tpu_torch.utils.torus import carrier_dtype, to_carrier
 
 
@@ -46,5 +47,6 @@ def key_switch_matmul(ct: torch.Tensor, ksk1: torch.Tensor, basebit: int,
 def identity_key_switch(tlwe_lv1: torch.Tensor, ksk1: torch.Tensor,
                         params: SecurityParams) -> torch.Tensor:
     """TLWE lv1 -> lv0 under the lv0 key (trgsw.zig:471-502 semantics)."""
-    return key_switch_matmul(tlwe_lv1, ksk1, params.basebit, params.iks_t,
-                             params.torus_bits)
+    with profiling.span("bootstrap.key_switch", device=tlwe_lv1.device):
+        return key_switch_matmul(tlwe_lv1, ksk1, params.basebit,
+                                 params.iks_t, params.torus_bits)

@@ -65,6 +65,7 @@ from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import ntt_inverse_to_crt_acc
 from zig_tfhe_tpu_torch.ops.decomposition import gadget_offset
 from zig_tfhe_tpu_torch.ops.poly import matmul_i8, negacyclic_rotate
 from zig_tfhe_tpu_torch.params import SecurityParams
+from zig_tfhe_tpu_torch.utils import profiling
 from zig_tfhe_tpu_torch.utils.torus import shift_right_logical, to_i32
 
 
@@ -412,26 +413,30 @@ def blind_rotate_split(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
         return finish_int64(v, acc, plan, drop_bits)
 
     if group == 1:
-        for i in range(n0):
-            u = _pointwise(fwd(acc), bsk_split[i], plan)
-            acc = finish(acc, rotate_minus1_split(u, t_cols[i], plan))
+        with profiling.span("blind_rotate.steps", device=acc.device,
+                            steps=n0):
+            for i in range(n0):
+                u = _pointwise(fwd(acc), bsk_split[i], plan)
+                acc = finish(acc, rotate_minus1_split(u, t_cols[i], plan))
     else:
         G = bsk_split.shape[0]
         if n0 < group * G:            # ragged n0: a = 0 is the identity rotation
             t_cols = torch.cat([t_cols, t_cols.new_zeros(group * G - n0, B)])
         t_grps = t_cols.reshape(G, group, B)
         fused = _k2s.supports(group, e_limbs, hi32)
-        for s in range(G):
-            if fused:
-                rows = _rows_hi32(acc, params, e, levels).to(torch.int8)
-                acc = finish(acc, _k2s.split_step_fused(rows, bsk_split[s],
-                                                        t_grps[s], plan, e))
-                continue
-            d_hat = fwd(acc)
-            us = [_pointwise(d_hat, bsk_split[s, m], plan)
-                  for m in range((1 << group) - 1)]
-            acc = finish(acc, rotate_combine_multi_split(
-                us, [t_grps[s, j] for j in range(group)], plan))
+        with profiling.span("blind_rotate.steps", device=acc.device,
+                            steps=G):
+            for s in range(G):
+                if fused:
+                    rows = _rows_hi32(acc, params, e, levels).to(torch.int8)
+                    acc = finish(acc, _k2s.split_step_fused(
+                        rows, bsk_split[s], t_grps[s], plan, e))
+                    continue
+                d_hat = fwd(acc)
+                us = [_pointwise(d_hat, bsk_split[s, m], plan)
+                      for m in range((1 << group) - 1)]
+                acc = finish(acc, rotate_combine_multi_split(
+                    us, [t_grps[s, j] for j in range(group)], plan))
     if hi32:
         acc = (acc.to(torch.int64) << 32) + acc_lo
     return unsplit(acc)
