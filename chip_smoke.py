@@ -51,7 +51,11 @@ K2's function at the split shape) then K1.  Phases:
      digits, R = 2 rows of 3 limbs; K1 at 5 primes and drop 0); K3 on the
      digits of an accumulator difference and a step of the real key
      (bit-equal), also at B = 65 and 64 (one batch tile and a ragged
-     second one);
+     second one); on the one-limb paths (g3, g2) K1's instance that also
+     writes the next step's gadget digits, its digits bit-equal to the
+     plain version's (``_decompose_to_rows`` of its output, as int8) and
+     its accumulator to the instance without them, at each B, and the two
+     instances timed in turns at B = 2048;
   5. per path, B = 2048 heterogeneous gates with every launch count set to
      0 just before and read just after: accuracy must be 1.0, each kernel
      of the path must have been launched once per step and the others not
@@ -64,7 +68,7 @@ K2's function at the split shape) then K1.  Phases:
      largest) and the L2 -> SM bytes of its tiling, each kernel also per
      call at B = 1 from a CUDA graph (K3 also against torch._int_mm on
      circulants built beforehand, the build not timed), and one step split
-     into its stages;
+     into its stages (g3 and g2: K2, then K1 writing the next digits);
   7. per path, a torch.profiler trace of one warm batch at B = 2048 and at
      B = 1: device busy time, idle share and the costliest kernels (every
      profile in the script is held complete only when it kept one record
@@ -223,6 +227,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2282,7 +2287,8 @@ def main() -> int:
     from zig_tfhe_tpu_torch.models import gates
     from zig_tfhe_tpu_torch.ops import ntt
     from zig_tfhe_tpu_torch.ops.blind_rotate import (_decompose_to_rows,
-                                                     _digit_limbs, modswitch)
+                                                     _digit_limbs, modswitch,
+                                                     row_gadget)
     from zig_tfhe_tpu_torch.ops.cuda import _build
     from zig_tfhe_tpu_torch.ops.cuda import extprod as k3
     from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
@@ -2432,6 +2438,49 @@ def main() -> int:
               f"digit limb planes [B, {digits.shape[1]} = R {levels} x "
               f"{n_dl} limbs, 1024], key step {tuple(bsk_step.shape)}, for "
               f"B = {B_GATES}, {RAGGED_LANES}, 1")
+        digit_times = {}
+        if n_dl == 1:
+            gadget = row_gadget(PK, levels, e)
+            nxt = torch.empty_like(digits)
+            for lanes in (B_GATES, RAGGED_LANES, 1):
+                buf = nxt[:lanes]
+                out = k1.ntt_inverse_to_crt_acc(v[:, :lanes], acc[:lanes],
+                                                plan, drop, digits=buf,
+                                                gadget=gadget)
+                _check(torch.equal(out, k1.ntt_inverse_to_crt_acc(
+                    v[:, :lanes], acc[:lanes], plan, drop)),
+                    f"K1 with digits changes the accumulator on {name} at "
+                    f"B={lanes}")
+                want = _decompose_to_rows(out, PK, levels, bgbit=e)
+                _check(torch.equal(buf, want.to(torch.int8)),
+                       f"K1's digits differ from the plain version's on "
+                       f"{name} at B={lanes}")
+
+            def k1_digits(buf=nxt, v=v, acc=acc, plan=plan, drop=drop,
+                          gadget=gadget):
+                k1.ntt_inverse_to_crt_acc(v, acc, plan, drop, digits=buf,
+                                          gadget=gadget)
+
+            def k1_plain(v=v, acc=acc, plan=plan, drop=drop):
+                k1.ntt_inverse_to_crt_acc(v, acc, plan, drop)
+
+            k1_digits()
+            k1_plain()
+            turns = {"without": [], "with": []}
+            for label in ("without", "with") * 4:
+                fn = k1_plain if label == "without" else k1_digits
+                turns[label].append(_cuda_ms(fn, KERNEL_ITERS))
+            ms_wo = statistics.median(turns["without"])
+            ms_w = statistics.median(turns["with"])
+            digit_times = dict(digits_ms=ms_w, digits_without_ms=ms_wo)
+            print(f"{name} B={B_GATES}: K1 with the next digits "
+                  f"{ms_w * 1e3:.2f} us/call, without {ms_wo * 1e3:.2f} us "
+                  f"(medians of 4 turns each, {KERNEL_ITERS} calls a turn; "
+                  f"with {', '.join(f'{t * 1e3:.2f}' for t in turns['with'])}"
+                  f"; without "
+                  f"{', '.join(f'{t * 1e3:.2f}' for t in turns['without'])}); "
+                  f"digits == plain and the accumulator unchanged at B = "
+                  f"{B_GATES}, {RAGGED_LANES}, 1 [{gpu}]")
 
         def run_k1(n=B_GATES, v=v, acc=acc, plan=plan, drop=drop):
             k1.ntt_inverse_to_crt_acc(v[:, :n], acc[:n], plan, drop)
@@ -2466,7 +2515,7 @@ def main() -> int:
         k_results["k1"][name] = dict(
             max_abs_err=max(errs1), ms=ms1, plain_ms=plain1, bound_ms=bound1,
             bound_by=by1, bound_unit=unit1,
-            b1_eager_ms=one1, b1_device_ms=dev1)
+            b1_eager_ms=one1, b1_device_ms=dev1, **digit_times)
         k_results["k2"][name] = dict(
             max_abs_err=max(errs2), ms=ms2, plain_ms=plain2, bound_ms=bound2,
             bound_by=by2, bound_unit=unit2,
@@ -2549,6 +2598,7 @@ def main() -> int:
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
+        k1.ntt_inverse_to_crt_acc.digit_launches = 0
         t0 = time.perf_counter()
         res = gates.apply_gates(ids, a, b, ck)
         torch.cuda.synchronize()
@@ -2557,6 +2607,11 @@ def main() -> int:
         _check(launches[name] == expect,
                f"{name}: launches {launches[name]} in one bootstrap, "
                f"expected {expect}")
+        # one-limb keys: every K1 but the last writes the next digits
+        digit_launches = k1.ntt_inverse_to_crt_acc.digit_launches
+        _check(digit_launches == max(expect["k1"] - 1, 0),
+               f"{name}: {digit_launches} K1 launches wrote digits, expected "
+               f"{max(expect['k1'] - 1, 0)}")
         _check(res.dtype == torch.int32
                and tuple(res.shape) == (B_GATES, P.n0 + 1),
                f"{name} gate output {res.dtype} {tuple(res.shape)}")
@@ -2607,13 +2662,13 @@ def main() -> int:
             plan, drop = plans[name], ck.bsk_ntt_drop
             e, levels = ck.bsk_bgbit, ck.bsk_levels
             digits, bsk_step, ts, acc, v = step_inputs[name]
+            nxt = torch.empty_like(digits)
             stage = {
-                "decompose": lambda acc=acc, levels=levels, e=e:
-                    _decompose_to_rows(acc, P, levels, bgbit=e).to(torch.int8),
                 "K2": lambda args=(digits, bsk_step, ts, plan, e):
                     k2.ntt_step_fused(*args),
-                "K1": lambda args=(v, acc, plan, drop):
-                    k1.ntt_inverse_to_crt_acc(*args)}
+                "K1 with the next digits": lambda args=(v, acc, plan, drop),
+                    kw=dict(digits=nxt, gadget=row_gadget(P, levels, e)):
+                    k1.ntt_inverse_to_crt_acc(*args, **kw)}
         split = {s: _cuda_ms(fn, KERNEL_ITERS) for s, fn in stage.items()}
         print(f"{name}: one step at B={B_GATES}: " + ", ".join(
             f"{s} {t * 1e3:.1f} us" for s, t in split.items())

@@ -90,6 +90,39 @@ def test_kernel_matches_plain_and_exact(dev, case, B):
     assert torch.equal(K.ntt_inverse_to_crt_acc(v8, acc, plan, drop), out)
 
 
+# K1's instance that also writes the next step's digits, at the 128-bit g3
+# gadget (Bg_e 2^7 (2, 2)) and the g2 one (2^6 (3, 2): a-offset centred)
+@pytest.mark.parametrize("case", ["128bit", "128bit_g2"])
+@pytest.mark.parametrize("B", [1, 200, 2048])
+def test_kernel_writes_digits_of_its_output(dev, case, B):
+    from zig_tfhe_tpu_torch.ops.blind_rotate import row_gadget
+
+    P, drop, _, levels, bgbit = _CASES[case]
+    plan, _ = _plan(case)
+    gadget = row_gadget(P, levels, bgbit)
+    rng = np.random.default_rng(B + 3)
+    c, acc = (torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, plan.N))
+                               .astype(np.int32)).to(dev) for _ in range(2))
+    v = K.split_limbs(torch.stack(ntt.ntt_forward(c, plan, digit_limbs=4,
+                                                  digit_bound=128)))
+    digits = torch.from_numpy(rng.integers(-128, 128, (B, sum(levels), plan.N))
+                              .astype(np.int8)).to(dev)   # all rewritten
+    before = (K.ntt_inverse_to_crt_acc.launches,
+              K.ntt_inverse_to_crt_acc.digit_launches)
+    out = K.ntt_inverse_to_crt_acc(v, acc, plan, drop, digits=digits,
+                                   gadget=gadget)
+    torch.cuda.synchronize()
+    assert (K.ntt_inverse_to_crt_acc.launches,
+            K.ntt_inverse_to_crt_acc.digit_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert torch.equal(out, K.ntt_inverse_to_crt_acc(v, acc, plan, drop))
+    assert torch.equal(out, acc + (c << drop))
+    want = torch.empty_like(digits).cpu()
+    K.ntt_inverse_to_crt_acc_reference(v.cpu(), acc.cpu(), plan, drop, want,
+                                       gadget)
+    assert torch.equal(digits.cpu(), want)
+
+
 def test_kernel_rejects_what_it_cannot_take(dev):
     plan, drop = _plan("tiny")
     v = torch.zeros((plan.n_primes, 4, 2, plan.N), dtype=torch.int32,
@@ -280,7 +313,8 @@ def test_kernel_five_primes_drop0_matches_plain_and_exact(dev, B):
                                           ({"group": 2, "decomp_levels": (3, 2)}, 350)])
 def test_128bit_launches_per_bootstrap(dev, knobs, steps):
     """Each step of a 128-bit bootstrap is one K2 and one K1 launch: 234
-    steps at the group-3 default, 350 with the group-2 (3, 2) key."""
+    steps at the group-3 default, 350 with the group-2 (3, 2) key; all but
+    the last K1 write the next step's digits."""
     P = params.SECURITY_128_BIT
     g = torch.Generator(device=dev).manual_seed(3)
     sk = key.SecretKey.generate(g, P)
@@ -288,11 +322,15 @@ def test_128bit_launches_per_bootstrap(dev, knobs, steps):
     ids, x, y, want = _lanes(20, 2)
     a = tlwe.encrypt_bool(g, x.to(dev), P.ksk_alpha, sk.key_lv0)
     b = tlwe.encrypt_bool(g, y.to(dev), P.ksk_alpha, sk.key_lv0)
-    before = (K2.ntt_step_fused.launches, K.ntt_inverse_to_crt_acc.launches)
+    before = (K2.ntt_step_fused.launches, K.ntt_inverse_to_crt_acc.launches,
+              K.ntt_inverse_to_crt_acc.digit_launches)
     out = gates.apply_gates(ids.to(dev), a, b, ck)
     torch.cuda.synchronize()
+    # one-limb digits: every K1 but the last writes the next step's digits
     assert (K2.ntt_step_fused.launches - before[0],
-            K.ntt_inverse_to_crt_acc.launches - before[1]) == (steps, steps)
+            K.ntt_inverse_to_crt_acc.launches - before[1],
+            K.ntt_inverse_to_crt_acc.digit_launches - before[2]) == (
+                steps, steps, steps - 1)
     assert np.array_equal(tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy(), want)
 
 

@@ -114,6 +114,8 @@ def emu(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     libs["ntt_step"].ztfhe_ntt_step_fused.argtypes = [p] * 11 + [i] * 6 + [p]
     libs["ntt_inverse"].ztfhe_ntt_inverse_crt_acc.argtypes = [p] * 9 + [i] * 5 + [p]
+    libs["ntt_inverse"].ztfhe_ntt_inverse_crt_acc_digits.argtypes = (
+        [p] * 9 + [i] * 5 + [p] + [i] * 5 + [p])
     libs["extprod"].ztfhe_extprod_matmul.argtypes = [p] * 3 + [i] * 4 + [p]
     libs["split_step"].ztfhe_split_step_fused.argtypes = [p] * 9 + [i] * 5 + [p]
     libs["split_step"].ztfhe_split_barrett.argtypes = [p, p, i, i,
@@ -387,6 +389,61 @@ def test_inverse_kernel_source_matches_plain(emu, B, N, bits, drop, sms):
     assert torch.equal(out, K1.ntt_inverse_to_crt_acc_reference(v, acc, plan,
                                                                 drop))
     assert torch.equal(out, acc + (c << drop))
+
+
+# K1's instance that also writes the next step's digits: (B, N, plan bits,
+# drop, emulated SM count, params, levels, engine bgbit).  TEST_TINY (L = 2,
+# Bg 2^6) at (2, 2) centres both components' offsets, at (1, 2) only b's;
+# the 128-bit parameters at N = 128 take Bg_e 2^7 (2, 2) (g3's gadget),
+# 2^6 (3, 2) (g2's: a centred, b not) and 2^8 (2, 2), on two row tiles with
+# a half-live second one, the narrow tile at a large B and the wide tile
+# at B = 1.
+_K1_DIGIT_CASES = {
+    "tiny_22": (3, 64, 40, 0, 4, "tiny", (2, 2), 6),
+    "tiny_12": (5, 64, 40, 2, 1, "tiny", (1, 2), 6),
+    "n128_g3": (70, 128, 40, 5, 4, "128bit", (2, 2), 7),
+    "n128_g2_32": (70, 128, 40, 7, 4, "128bit", (3, 2), 6),
+    "n128_g3_narrow": (100, 128, 56, 3, 1000, "128bit", (2, 2), 7),
+    "n128_bg8_B1": (1, 128, 40, 0, 1, "128bit", (2, 2), 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_K1_DIGIT_CASES))
+def test_inverse_kernel_source_writes_digits(emu, case):
+    from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows, row_gadget
+
+    B, N, bits, drop, sms, name, levels, bgbit = _K1_DIGIT_CASES[case]
+    P = _with_n(TP.PARAMS_BY_NAME[name], N)
+    gadget = row_gadget(P, levels, bgbit)
+    plan = ntt.make_plan(N, bits)
+    rng = np.random.default_rng(B + N)
+    c, acc = (torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, N))
+                               .astype(np.int32)) for _ in range(2))
+    v = K1.split_limbs(torch.stack(ntt.ntt_forward(c, plan, digit_limbs=4,
+                                                   digit_bound=128)))
+    tabs = K1._kernel_tables(plan, torch.device("cpu"))
+    lib = emu["ntt_inverse"]
+    lib.emu_set_sm_count(sms)
+    args = (v.data_ptr(), acc.data_ptr(), None, tabs.m_lo.data_ptr(),
+            tabs.m_hi.data_ptr(), _ptr(tabs.primes), _ptr(tabs.crt_e),
+            _ptr(tabs.inv_p), _ptr(tabs.theta), plan.p_mod, plan.n_primes,
+            2 * B, N, drop)
+    out, plain_out = torch.empty_like(acc), torch.empty_like(acc)
+    digits = torch.from_numpy(rng.integers(-128, 128, (B, sum(levels), N))
+                              .astype(np.int8))   # every byte rewritten
+    err = lib.ztfhe_ntt_inverse_crt_acc_digits(
+        *args[:2], out.data_ptr(), *args[3:], digits.data_ptr(),
+        *K1._digit_scalars(gadget), None)
+    assert err == 0
+    assert lib.ztfhe_ntt_inverse_crt_acc(*args[:2], plain_out.data_ptr(),
+                                         *args[3:], None) == 0
+    want = torch.empty_like(digits)
+    ref = K1.ntt_inverse_to_crt_acc_reference(v, acc, plan, drop, want, gadget)
+    assert torch.equal(out, ref) and torch.equal(out, plain_out)
+    assert torch.equal(out, acc + (c << drop))
+    assert torch.equal(digits, want)
+    assert torch.equal(digits, _decompose_to_rows(out, P, levels, bgbit=bgbit)
+                       .to(torch.int8))
 
 
 def _with_n(P, N):

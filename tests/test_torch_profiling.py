@@ -67,7 +67,9 @@ def _check_call(found, ck):
         s = by[name]
         assert s.parent == root.id and s.call == root.id
         assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
-    assert by["blind_rotate.steps"].attrs == {"steps": ck.bsk_ntt.shape[0]}
+    # a one-limb key: every step's K1 but the last writes the next digits
+    G = ck.bsk_ntt.shape[0]
+    assert by["blind_rotate.steps"].attrs == {"steps": G, "fused_steps": G - 1}
     assert by["blind_rotate.steps"].end_ns <= by["bootstrap.key_switch"].start_ns
     return by
 

@@ -68,6 +68,34 @@
 // version, operation for operation.  A warpgroup whose 64 rows lie past the
 // end does not run; rows past the end inside a tile are zero-filled by TMA
 // and not stored.
+//
+// The next step's digits (one-limb engine gadgets: every boolean key).  A
+// second instance of the kernel (DIGITS = true) also writes the gadget
+// digits of the accumulator it has just made, which the next step's K2
+// reads as its int8 A tile: for each output u of row (b, c) and each level
+// i < levels[c],
+//
+//   digits[b, c * levels[0] + i, col] =
+//       int8(((u + offset[c]) >>u (32 - (i+1) * bits)) & (2^bits - 1))
+//       - 2^(bits-1)
+//
+// which is ops/blind_rotate.py:_decompose_to_rows (ops/decomposition.py:
+// gadget_decompose at the engine gadget) followed by the int8 cast of
+// ops/cuda/ntt_step.py:digit_planes.  Those two were 11 plain PyTorch
+// launches a step, each a pass over the 16 MB accumulator or its digits;
+// here the final epilogue holds the values in registers already.  A level
+// at a time, each thread stages its two adjacent columns' digits (2 bytes
+// a row) in shared memory past the ring, and the warpgroup then stores its
+// 64 rows as 16-byte chunks, each row's BN bytes whole.  The compulsory
+// traffic of a step grows by the 8.4 MB of digits at B = 2048 (R = 4
+// rows): 71.3 -> 79.7 MB, 23.8 us at 3.35 TB/s, so the tensor cores' 52.1
+// us still bound it.  Measured on an NVIDIA H100 80GB HBM3 at 700 W (B =
+// 2048, calls replayed from a CUDA graph): 98.4 us with the digits against
+// 96.2 without at Bg_e 2^7 (2, 2), 99.8 against 96.1 at 2^6 (3, 2).  A
+// first version stored each thread's 2 bytes a level straight to global
+// memory (8 partial sectors a warp store) and took 125.7 us.  The instance
+// without digits is the same machine code as before (`if constexpr`; its
+// SASS compared equal line for line).
 
 #include "hopper_prims.cuh"
 
@@ -83,9 +111,20 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 
 __host__ __device__ constexpr int stage_bytes(int bn) { return BM * BK + 2 * bn * BK; }
 __host__ __device__ constexpr int stages(int bn) { return bn == 64 ? 6 : 8; }
-__host__ __device__ constexpr int smem_bytes(int bn) {
-  return 1024 + stages(bn) * stage_bytes(bn) + 2 * stages(bn) * 8;
+// the DIGITS instance's staging rows: one level of a warpgroup's 64 rows
+__host__ __device__ constexpr int stage_row(int bn) { return bn + 16; }
+__host__ __device__ constexpr int smem_bytes(int bn, bool digits = false) {
+  return 1024 + stages(bn) * stage_bytes(bn) + 2 * stages(bn) * 8 +
+         (digits ? kConsumers * 64 * stage_row(bn) : 0);
 }
+
+// the gadget of the digits the DIGITS instance writes (see the header)
+struct DigitParams {
+  uint32_t offset_a, offset_b;   // per component
+  uint32_t mask, half;           // 2^bits - 1, 2^(bits-1)
+  int bits;                      // 1..8: one int8 a digit
+  int la, lb;                    // levels per component
+};
 
 struct CrtParams {
   int p[kMaxPrimes];
@@ -107,19 +146,22 @@ __device__ __forceinline__ int barrett(int x, int p, float inv_p) {
 // map_lo, map_hi: int8 [P * N, 2N]  limbs of [Minv ; 256*Minv mod p],
 //             transposed so the contraction axis is contiguous, box [BN, 128]
 // acc, out: int32 [rows, N]    (rows = 2B: the (B, 2) axes)
-template <int BN>
+// digits:   int8 [B, la + lb, N] (DIGITS only)
+template <int BN, bool DIGITS>
 __global__ void __launch_bounds__(kThreads, 1)
 ntt_inverse_crt_acc_kernel(const __grid_constant__ CUtensorMap map_v,
                            const __grid_constant__ CUtensorMap map_lo,
                            const __grid_constant__ CUtensorMap map_hi,
                            const int* __restrict__ acc, int* __restrict__ out,
-                           CrtParams cp, int rows, int N, int drop) {
+                           CrtParams cp, int rows, int N, int drop,
+                           int8_t* __restrict__ digits, DigitParams dp) {
   constexpr int S = stages(BN);
   constexpr int REGS = BN / 2;   // sums per thread of a 64 x BN tile
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* tiles = align_1024(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(tiles + S * stage_bytes(BN));
   uint64_t* empty = full + S;
+  unsigned char* staging = reinterpret_cast<unsigned char*>(empty + S);
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -247,7 +289,57 @@ ntt_inverse_crt_acc_kernel(const __grid_constant__ CUtensorMap map_v,
           }
           *reinterpret_cast<int2*>(out + o) =
               make_int2(static_cast<int>(res[0]), static_cast<int>(res[1]));
+          if constexpr (DIGITS) {   // keep u + offset for the digits
+            const uint32_t off = (g & 1) ? dp.offset_b : dp.offset_a;
+            crt_sum[nt * 4 + 2 * h] = res[0] + off;
+            crt_sum[nt * 4 + 2 * h + 1] = res[1] + off;
+          }
         }
+
+      if constexpr (DIGITS) {
+        // The next step's digits, a level at a time.  A thread's rows are
+        // all of one component (the parity of g).  Each thread stages its
+        // two columns' digits of each row as 2 bytes; then the warpgroup
+        // stores its 64 rows from the staging rows as 16-byte chunks, each
+        // row's BN bytes contiguous in the digit plane.
+        constexpr int SR = stage_row(BN);
+        constexpr int CHUNKS = BN / 16;   // 16-byte chunks a row
+        unsigned char* st = staging + wg * 64 * SR;
+        const int lev = (g & 1) ? dp.lb : dp.la;
+        const int levels = dp.la > dp.lb ? dp.la : dp.lb;
+        const int R = dp.la + dp.lb;
+        for (int i = 0; i < levels; ++i) {
+          const int sh = 32 - (i + 1) * dp.bits;
+          if (i < lev) {
+#pragma unroll
+            for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int k = nt * 4 + 2 * h;
+                const uint32_t d0 = ((crt_sum[k] >> sh) & dp.mask) - dp.half;
+                const uint32_t d1 = ((crt_sum[k + 1] >> sh) & dp.mask) - dp.half;
+                *reinterpret_cast<uint16_t*>(
+                    st + (warp * 16 + g + 8 * h) * SR + nt * 8 + t * 2) =
+                    static_cast<uint16_t>((d0 & 0xFFu) | ((d1 & 0xFFu) << 8));
+              }
+          }
+          named_barrier_sync(1 + wg, 128);
+#pragma unroll
+          for (int j = 0; j < 64 * CHUNKS / 128; ++j) {
+            const int k = (tid & 127) + 128 * j;
+            const int rl = k / CHUNKS, part = k % CHUNKS;
+            const int r = row0 + wg * 64 + rl;
+            const int side = rl & 1;
+            if (r < rows && i < (side ? dp.lb : dp.la)) {
+              const size_t drow =
+                  static_cast<size_t>(r >> 1) * R + side * dp.la + i;
+              *reinterpret_cast<int4*>(digits + drow * N + col0 + part * 16) =
+                  *reinterpret_cast<const int4*>(st + rl * SR + part * 16);
+            }
+          }
+          named_barrier_sync(1 + wg, 128);
+        }
+      }
     }
   }
 }
@@ -261,10 +353,10 @@ struct MatrixMaps {
   CUtensorMap map_lo, map_hi;
 };
 
-template <int BN>
+template <int BN, bool DIGITS>
 int launch(const int8_t* v, const int* acc, int* out, const int8_t* m_lo,
            const int8_t* m_hi, const CrtParams& cp, int rows, int N, int drop,
-           cudaStream_t stream) {
+           int8_t* digits, const DigitParams& dp, cudaStream_t stream) {
   thread_local MatrixMaps cache;
   MatrixMaps& m = cache;
   const uint64_t k2 = 2 * static_cast<uint64_t>(N);
@@ -296,30 +388,23 @@ int launch(const int8_t* v, const int* acc, int* out, const int8_t* m_lo,
   cudaGetDevice(&device);
   if (device != cap_device) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ntt_inverse_crt_acc_kernel<BN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(BN));
+        ntt_inverse_crt_acc_kernel<BN, DIGITS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(BN, DIGITS));
     if (e != cudaSuccess) return static_cast<int>(e);
     cap_device = device;
   }
   const dim3 grid(N / BN, (rows + BM - 1) / BM);
-  ntt_inverse_crt_acc_kernel<BN><<<grid, kThreads, smem_bytes(BN), stream>>>(
-      map_v, m.map_lo, m.map_hi, acc, out, cp, rows, N, drop);
+  ntt_inverse_crt_acc_kernel<BN, DIGITS><<<grid, kThreads, smem_bytes(BN, DIGITS), stream>>>(
+      map_v, m.map_lo, m.map_hi, acc, out, cp, rows, N, drop, digits, dp);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes).  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() after the launch (0 = ok).
-// The caller guarantees: device pointers of the stated shapes, contiguous,
-// 16-byte aligned; v int8 [n_primes, rows, 2N]; N % 64 == 0; 1 <= n_primes
-// <= 8; 0 <= drop < 32.  The column tile is 64 wide when that gives every
-// SM a block, else 32.
-extern "C" int ztfhe_ntt_inverse_crt_acc(
-    const int8_t* v, const int* acc, int* out, const int8_t* m_lo,
-    const int8_t* m_hi, const int* primes, const int* crt_e,
-    const float* inv_p, const float* theta, int p_mod, int n_primes,
-    int rows, int N, int drop, void* stream) {
+template <bool DIGITS>
+int entry(const int8_t* v, const int* acc, int* out, const int8_t* m_lo,
+          const int8_t* m_hi, const int* primes, const int* crt_e,
+          const float* inv_p, const float* theta, int p_mod, int n_primes,
+          int rows, int N, int drop, int8_t* digits, const DigitParams& dp,
+          void* stream) {
   if (n_primes < 1 || n_primes > kMaxPrimes || rows < 1 || N < 64 ||
       N % 64 != 0 || drop < 0 || drop > 31)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -336,8 +421,53 @@ extern "C" int ztfhe_ntt_inverse_crt_acc(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles64 = (N / 64) * ((rows + BM - 1) / BM);
   return tiles64 >= sm_count()
-             ? launch<64>(v, acc, out, m_lo, m_hi, cp, rows, N, drop, s)
-             : launch<32>(v, acc, out, m_lo, m_hi, cp, rows, N, drop, s);
+             ? launch<64, DIGITS>(v, acc, out, m_lo, m_hi, cp, rows, N, drop,
+                                  digits, dp, s)
+             : launch<32, DIGITS>(v, acc, out, m_lo, m_hi, cp, rows, N, drop,
+                                  digits, dp, s);
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes).  Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() after the launch (0 = ok).
+// The caller guarantees: device pointers of the stated shapes, contiguous,
+// 16-byte aligned; v int8 [n_primes, rows, 2N]; N % 64 == 0; 1 <= n_primes
+// <= 8; 0 <= drop < 32.  The column tile is 64 wide when that gives every
+// SM a block, else 32.
+extern "C" int ztfhe_ntt_inverse_crt_acc(
+    const int8_t* v, const int* acc, int* out, const int8_t* m_lo,
+    const int8_t* m_hi, const int* primes, const int* crt_e,
+    const float* inv_p, const float* theta, int p_mod, int n_primes,
+    int rows, int N, int drop, void* stream) {
+  return entry<false>(v, acc, out, m_lo, m_hi, primes, crt_e, inv_p, theta,
+                      p_mod, n_primes, rows, N, drop, nullptr, DigitParams{},
+                      stream);
+}
+
+// The same, and the next step's gadget digits of `out` into `digits`, int8
+// [rows / 2, la + lb, N] (see the header): offsets mod 2^32 of the a and b
+// components, 1 <= bits <= 8, 1 <= la, lb and la * bits, lb * bits <= 32,
+// rows even.
+extern "C" int ztfhe_ntt_inverse_crt_acc_digits(
+    const int8_t* v, const int* acc, int* out, const int8_t* m_lo,
+    const int8_t* m_hi, const int* primes, const int* crt_e,
+    const float* inv_p, const float* theta, int p_mod, int n_primes,
+    int rows, int N, int drop, int8_t* digits, int offset_a, int offset_b,
+    int bits, int la, int lb, void* stream) {
+  if (bits < 1 || bits > 8 || la < 1 || lb < 1 || la * bits > 32 ||
+      lb * bits > 32 || rows % 2 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DigitParams dp;
+  dp.offset_a = static_cast<uint32_t>(offset_a);
+  dp.offset_b = static_cast<uint32_t>(offset_b);
+  dp.mask = (1u << bits) - 1u;
+  dp.half = 1u << (bits - 1);
+  dp.bits = bits;
+  dp.la = la;
+  dp.lb = lb;
+  return entry<true>(v, acc, out, m_lo, m_hi, primes, crt_e, inv_p, theta,
+                     p_mod, n_primes, rows, N, drop, digits, dp, stream);
 }
 
 extern "C" const char* ztfhe_cuda_error_string(int code) {

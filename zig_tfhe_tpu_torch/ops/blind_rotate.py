@@ -17,9 +17,12 @@ original), give the same bits as this one path.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
-from zig_tfhe_tpu_torch.ops.decomposition import gadget_decompose
+from zig_tfhe_tpu_torch.ops.decomposition import gadget_base, gadget_decompose
 from zig_tfhe_tpu_torch.ops.ntt import norm_levels
 from zig_tfhe_tpu_torch.ops.poly import negacyclic_rotate
 from zig_tfhe_tpu_torch.params import SecurityParams
@@ -42,6 +45,27 @@ def _decompose_to_rows(ct: torch.Tensor, params: SecurityParams, levels=None,
     db = gadget_decompose(ct[..., 1, :], params, level_axis=-2, levels=lb,
                           bgbit=bgbit, center=True)
     return torch.cat([da, db], dim=-2)
+
+
+class RowGadget(NamedTuple):
+    """The decomposition ``_decompose_to_rows(ct, params, levels, bgbit)``
+    runs: base 2^bits, ``levels`` (la, lb) and each component's offset
+    mod 2^w (``gadget_decompose`` with center=True at that component's
+    levels), the numbers a kernel that writes these rows takes."""
+    params: SecurityParams
+    bits: int
+    levels: tuple
+    offsets: tuple
+
+
+@functools.lru_cache(maxsize=None)
+def row_gadget(params: SecurityParams, levels=None,
+               bgbit: int | None = None) -> RowGadget:
+    """``RowGadget`` of ``_decompose_to_rows`` with these arguments."""
+    la, lb = norm_levels(params, levels, bgbit=bgbit)
+    sides = [gadget_base(params, lv, bgbit, center=True) for lv in (la, lb)]
+    return RowGadget(params, sides[0][0], (la, lb),
+                     tuple(off for _, _, off in sides))
 
 
 def modswitch(x: torch.Tensor, params: SecurityParams) -> torch.Tensor:
@@ -122,7 +146,8 @@ def blind_rotate_toeplitz(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
         testvec = testvec.expand(B, *testvec.shape)
     acc = negacyclic_rotate(testvec, b_tilda)
     a_cols = tlwe_batch[:, :n0].T                               # [n0, B]
-    with profiling.span("blind_rotate.steps", device=acc.device, steps=n0):
+    with profiling.span("blind_rotate.steps", device=acc.device, steps=n0,
+                        fused_steps=0):
         for i in range(n0):
             rotated = negacyclic_rotate(acc, modswitch(a_cols[i], params))
             acc = cmux(bsk_ext_limbs[i], acc, rotated, params)

@@ -26,6 +26,16 @@ the JAX package's XLA step (the pointwise/rotate barrett fold for
 one-limb digits) and then K1.  The path is chosen from the key's
 configuration before any launch.
 
+With one-limb digits at groups 2 and 3 the loop is fused: step 0
+decomposes the set-up's accumulator, and from then on K1 of step s
+writes the digits of the accumulator it makes (``_decompose_to_rows`` at
+the key's engine gadget, as int8, ``row_gadget``) into the one buffer
+that K2 of step s read, for K2 of step s + 1; the last step writes none.  Stream order makes one
+buffer enough, and a step is two launches instead of thirteen.  The span
+``blind_rotate.steps`` carries ``fused_steps``, the steps whose K1 wrote
+digits: G - 1 here, 0 on every other path.  Multi-limb digits keep the
+decompose and ``digit_planes`` on every step.
+
 The 64-bit torus: a split-ring set (N > 1024) runs
 ops/split_ring.py:blind_rotate_split, whose hi-plane step finishes on
 K1.  The direct engine at width 64 (TEST_TINY64, N = 64) runs the plain
@@ -38,7 +48,8 @@ from __future__ import annotations
 import torch
 
 from zig_tfhe_tpu_torch.ops import ntt as _ntt
-from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows, modswitch
+from zig_tfhe_tpu_torch.ops.blind_rotate import (_decompose_to_rows,
+                                                 modswitch, row_gadget)
 from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import ntt_inverse_to_crt_acc
 from zig_tfhe_tpu_torch.ops.cuda.ntt_step import (digit_planes,
                                                   ntt_step_fused, supports)
@@ -113,7 +124,7 @@ def blind_rotate_ntt(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
 
     if group == 1:
         with profiling.span("blind_rotate.steps", device=acc.device,
-                            steps=n0):
+                            steps=n0, fused_steps=0):
             for i in range(n0):
                 t = modswitch(a_cols[i], params)
                 u_hat = _ntt.pointwise_extprod(fwd(acc), bsk_ntt[i], plan,
@@ -127,15 +138,23 @@ def blind_rotate_ntt(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
     a_groups = a_cols.reshape(G, group, B)
     if w == 32 and supports(group, e_limbs):
         ts = modswitch(a_groups, params)     # every step's rotations at once
+        # one-limb digits: K1 writes the next step's digits into the buffer
+        # K2 has just read (stream order), so only step 0 decomposes
+        gadget = row_gadget(params, levels, e) if fold else None
         with profiling.span("blind_rotate.steps", device=acc.device,
-                            steps=G):
+                            steps=G, fused_steps=G - 1 if fold else 0):
+            digits = None
             for s in range(G):
-                digits = _decompose_to_rows(acc, params, levels, bgbit=e)
-                v = ntt_step_fused(digit_planes(digits, e_limbs), bsk_ntt[s],
-                                   ts[s], plan, e)
-                acc = ntt_inverse_to_crt_acc(v, acc, plan, drop_bits)
+                if digits is None or not fold:
+                    digits = digit_planes(_decompose_to_rows(
+                        acc, params, levels, bgbit=e), e_limbs)
+                v = ntt_step_fused(digits, bsk_ntt[s], ts[s], plan, e)
+                nxt = digits if fold and s < G - 1 else None
+                acc = ntt_inverse_to_crt_acc(v, acc, plan, drop_bits,
+                                             digits=nxt, gadget=gadget)
         return acc
-    with profiling.span("blind_rotate.steps", device=acc.device, steps=G):
+    with profiling.span("blind_rotate.steps", device=acc.device, steps=G,
+                        fused_steps=0):
         for s in range(G):
             ts = [modswitch(a_groups[s, j], params) for j in range(group)]
             d_hat = fwd(acc)

@@ -12,6 +12,14 @@ limb planes [P, B, 2, 2, N] (``split_limbs``: v == lo + 256 * hi, every
 as it stands and half the bytes of int32 residues.  Both functions below
 also take int32 residues [P, B, 2, N] and split them first.
 
+Both also write, where given a ``digits`` buffer and the ``RowGadget``
+(ops/blind_rotate.py) of the key's engine gadget, the next step's gadget
+digits of the accumulator they return: int8 [B, la + lb, N], equal to
+``_decompose_to_rows(out, ...).to(torch.int8)``, the one-limb digit planes
+that K2 reads.  On the card that is a second instance of the kernel,
+which computes them in its final epilogue from the values it stores
+(csrc/ntt_inverse.cu); the instance without them is the kernel as it was.
+
 ``ntt_inverse_to_crt_acc`` launches the kernel for CUDA tensors (or
 raises) and runs the plain PyTorch version,
 ``ntt_inverse_to_crt_acc_reference``, for CPU tensors only.
@@ -26,6 +34,7 @@ import functools
 import numpy as np
 import torch
 
+from zig_tfhe_tpu_torch.ops.blind_rotate import RowGadget, _decompose_to_rows
 from zig_tfhe_tpu_torch.ops.cuda import _build
 from zig_tfhe_tpu_torch.ops.ntt import NTTPlan, ntt_inverse_to_crt
 
@@ -48,17 +57,25 @@ def join_limbs(v8: torch.Tensor) -> torch.Tensor:
 
 
 def ntt_inverse_to_crt_acc_reference(v_stack: torch.Tensor, acc: torch.Tensor,
-                                     plan: NTTPlan, drop: int) -> torch.Tensor:
+                                     plan: NTTPlan, drop: int,
+                                     digits: torch.Tensor | None = None,
+                                     gadget: RowGadget | None = None
+                                     ) -> torch.Tensor:
     """Plain PyTorch version: acc + (ntt_inverse_to_crt(v) << drop), the
     JAX package's XLA formulation of the same step (blind_rotate_ntt.py
     finish).  v_stack: int8 limb planes [P, B, 2, 2, N] or int32 residues
-    [P, B, 2, N]."""
+    [P, B, 2, N].  With ``digits`` (int8 [B, la + lb, N]) also writes the
+    output's gadget digits there, ``_decompose_to_rows`` at ``gadget``."""
     if v_stack.dtype == torch.int8:
         v_stack = join_limbs(v_stack)
     delta = ntt_inverse_to_crt(list(v_stack), plan)
     if drop:
         delta = delta << drop
-    return acc + delta
+    out = acc + delta
+    if digits is not None:
+        digits.copy_(_decompose_to_rows(out, gadget.params, gadget.levels,
+                                        bgbit=gadget.bits).to(torch.int8))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,7 +86,18 @@ def _library() -> ctypes.CDLL:
     lib.ztfhe_ntt_inverse_crt_acc.argtypes = [p, p, p, p, p, p, p, p, p,
                                               i, i, i, i, i, p]
     lib.ztfhe_ntt_inverse_crt_acc.restype = i
+    lib.ztfhe_ntt_inverse_crt_acc_digits.argtypes = ([p] * 9 + [i] * 5 + [p]
+                                                     + [i] * 5 + [p])
+    lib.ztfhe_ntt_inverse_crt_acc_digits.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _digit_scalars(gadget: RowGadget) -> tuple:
+    """The digit entry point's scalars, passed by value: both offsets as
+    signed 32-bit ints, bits, la, lb."""
+    offs = tuple(o - (1 << 32) if o >= 1 << 31 else o for o in gadget.offsets)
+    return (*offs, gadget.bits, *gadget.levels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,15 +131,39 @@ def _kernel_tables(plan: NTTPlan, device: torch.device) -> _KernelTables:
         theta=np.array(plan.crt_theta, np.float32))
 
 
+def _require_digits(digits: torch.Tensor, gadget: RowGadget | None,
+                    acc: torch.Tensor) -> None:
+    if gadget is None:
+        raise ValueError("digits need the RowGadget they are written at")
+    B, N = acc.shape[0], acc.shape[-1]
+    if gadget.bits > 8 or gadget.params.torus_bits != 32:
+        raise NotImplementedError(
+            f"the kernel writes one-limb digits of the 32-bit torus (Bg_e <= "
+            f"2^8), not Bg_e = 2^{gadget.bits} at width "
+            f"{gadget.params.torus_bits}")
+    shape = (B, sum(gadget.levels), N)
+    if (digits.dtype != torch.int8 or tuple(digits.shape) != shape
+            or not digits.is_contiguous() or digits.device != acc.device):
+        raise ValueError(
+            f"digits {digits.dtype} {tuple(digits.shape)} on {digits.device} "
+            f"are not a contiguous int8 {shape} on {acc.device}")
+
+
 def ntt_inverse_to_crt_acc(v_stack: torch.Tensor, acc: torch.Tensor,
-                           plan: NTTPlan, drop: int) -> torch.Tensor:
+                           plan: NTTPlan, drop: int,
+                           digits: torch.Tensor | None = None,
+                           gadget: RowGadget | None = None) -> torch.Tensor:
     """acc + (CRT(invNTT(v)) << drop) mod 2^32.
 
     v_stack: the per-prime residues (|.| <= 0.55p), as int8 limb planes
     [P, B, 2, 2, N] (K2's output) or as int32 [P, B, 2, N], which is split
-    here; acc: int32 [B, 2, N].  Any B.  CUDA tensors launch the kernel
-    (and count the launch in ``ntt_inverse_to_crt_acc.launches``); CPU
-    tensors run the plain version."""
+    here; acc: int32 [B, 2, N].  Any B.  With ``digits``, a contiguous
+    int8 [B, la + lb, N] buffer, and the ``gadget`` of one-limb digits
+    (Bg_e <= 2^8), also writes there the output's gadget digits
+    (``_decompose_to_rows(out, ...).to(torch.int8)``).  CUDA tensors
+    launch the kernel (and count the launch in
+    ``ntt_inverse_to_crt_acc.launches``, and one that wrote digits also in
+    ``.digit_launches``); CPU tensors run the plain version."""
     if (v_stack.dtype not in (torch.int32, torch.int8)
             or acc.dtype != torch.int32):
         raise NotImplementedError(
@@ -119,8 +171,11 @@ def ntt_inverse_to_crt_acc(v_stack: torch.Tensor, acc: torch.Tensor,
             "an int32 accumulator (the split-ring scan's are its int32 hi "
             "planes; an int64 accumulator's finish is the plain "
             f"ops/split_ring.py:finish_int64) (got {v_stack.dtype}, {acc.dtype})")
+    if digits is not None:
+        _require_digits(digits, gadget, acc)
     if v_stack.device.type == "cpu" and acc.device.type == "cpu":
-        return ntt_inverse_to_crt_acc_reference(v_stack, acc, plan, drop)
+        return ntt_inverse_to_crt_acc_reference(v_stack, acc, plan, drop,
+                                                digits, gadget)
     if v_stack.device.type != "cuda" or acc.device != v_stack.device:
         raise ValueError(f"tensors on {v_stack.device} and {acc.device}: "
                          "both must be on the same CUDA device")
@@ -139,19 +194,27 @@ def ntt_inverse_to_crt_acc(v_stack: torch.Tensor, acc: torch.Tensor,
         v_stack = split_limbs(v_stack)
     v_stack = v_stack.contiguous()
     acc = acc.contiguous()
-    if v_stack.data_ptr() % 16 or acc.data_ptr() % 16:
+    if (v_stack.data_ptr() % 16 or acc.data_ptr() % 16
+            or (digits is not None and digits.data_ptr() % 16)):
         raise ValueError("kernel operands must be 16-byte aligned")
     tabs = _kernel_tables(plan, v_stack.device)
     out = torch.empty_like(acc)
     lib = _library()
-    err = lib.ztfhe_ntt_inverse_crt_acc(
-        v_stack.data_ptr(), acc.data_ptr(), out.data_ptr(),
-        tabs.m_lo.data_ptr(), tabs.m_hi.data_ptr(), *tabs.scalar_ptrs,
-        plan.p_mod, P, 2 * B, N, drop,
-        torch.cuda.current_stream(v_stack.device).cuda_stream)
+    args = (v_stack.data_ptr(), acc.data_ptr(), out.data_ptr(),
+            tabs.m_lo.data_ptr(), tabs.m_hi.data_ptr(), *tabs.scalar_ptrs,
+            plan.p_mod, P, 2 * B, N, drop)
+    stream = torch.cuda.current_stream(v_stack.device).cuda_stream
+    if digits is None:
+        err = lib.ztfhe_ntt_inverse_crt_acc(*args, stream)
+    else:
+        err = lib.ztfhe_ntt_inverse_crt_acc_digits(
+            *args, digits.data_ptr(), *_digit_scalars(gadget), stream)
     _build.check(lib, err, "ntt_inverse_crt_acc")
     ntt_inverse_to_crt_acc.launches += 1
+    if digits is not None:
+        ntt_inverse_to_crt_acc.digit_launches += 1
     return out
 
 
 ntt_inverse_to_crt_acc.launches = 0
+ntt_inverse_to_crt_acc.digit_launches = 0

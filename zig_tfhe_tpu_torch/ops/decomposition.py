@@ -30,6 +30,25 @@ def gadget_offset(bgbit: int, n_terms: int, width: int = 32) -> int:
     return off
 
 
+def gadget_base(params: SecurityParams, levels: int | None = None,
+                bgbit: int | None = None,
+                center: bool = False) -> tuple[int, int, int]:
+    """(bgbit, levels, offset mod 2^w) that ``gadget_decompose`` runs
+    with these arguments."""
+    w = params.torus_bits
+    if bgbit is None or bgbit == params.bgbit:
+        bgbit, L = params.bgbit, params.L
+        offset = params.decomposition_offset
+        if center and levels in (None, L) and L * bgbit < w:
+            offset = (offset + (1 << (w - L * bgbit - 1))) % (1 << w)
+    else:
+        L = w // bgbit
+        offset = gadget_offset(bgbit, L, w)
+    levels = L if levels is None else levels
+    assert 1 <= levels <= L, (levels, L)
+    return bgbit, levels, offset
+
+
 def gadget_decompose(x: torch.Tensor, params: SecurityParams,
                      level_axis: int = -1, levels: int | None = None,
                      bgbit: int | None = None,
@@ -44,16 +63,7 @@ def gadget_decompose(x: torch.Tensor, params: SecurityParams,
     (ops/decomposition.py:gadget_decompose documents all three)."""
     w = params.torus_bits
     require_width(w)
-    if bgbit is None or bgbit == params.bgbit:
-        bgbit, L = params.bgbit, params.L
-        offset = params.decomposition_offset
-        if center and levels in (None, L) and L * bgbit < w:
-            offset = (offset + (1 << (w - L * bgbit - 1))) % (1 << w)
-    else:
-        L = w // bgbit
-        offset = gadget_offset(bgbit, L, w)
-    levels = L if levels is None else levels
-    assert 1 <= levels <= L, (levels, L)
+    bgbit, levels, offset = gadget_base(params, levels, bgbit, center)
     mask = (1 << bgbit) - 1
     half = 1 << (bgbit - 1)
     tmp = x + to_carrier(offset, w)

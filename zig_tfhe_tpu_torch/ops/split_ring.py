@@ -414,7 +414,7 @@ def blind_rotate_split(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
 
     if group == 1:
         with profiling.span("blind_rotate.steps", device=acc.device,
-                            steps=n0):
+                            steps=n0, fused_steps=0):
             for i in range(n0):
                 u = _pointwise(fwd(acc), bsk_split[i], plan)
                 acc = finish(acc, rotate_minus1_split(u, t_cols[i], plan))
@@ -425,7 +425,7 @@ def blind_rotate_split(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
         t_grps = t_cols.reshape(G, group, B)
         fused = _k2s.supports(group, e_limbs, hi32)
         with profiling.span("blind_rotate.steps", device=acc.device,
-                            steps=G):
+                            steps=G, fused_steps=0):
             for s in range(G):
                 if fused:
                     rows = _rows_hi32(acc, params, e, levels).to(torch.int8)

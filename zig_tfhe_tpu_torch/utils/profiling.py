@@ -46,7 +46,9 @@ gate path records:
   value): torch's sync debug mode is set to warn inside it and its
   warnings are counted, not shown;
 - span ``blind_rotate.steps`` (the step loop of each blind-rotation
-  engine; attribute ``steps``): the scan;
+  engine; attributes ``steps`` and ``fused_steps``, the steps whose K1
+  also wrote the next step's digits: G - 1 on the NTT engine's one-limb
+  path, 0 on every other): the scan;
 - span ``bootstrap.key_switch`` (``ops/keyswitch.py:identity_key_switch``).
 
 No range that the profiler itself records (``record_function``, NVTX) is
