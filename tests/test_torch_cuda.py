@@ -15,7 +15,8 @@ of models/lut.py on a TEST_TINY_UINT key (bootstrap_lut, tree_pbs) and the
 integer layer of models/integer.py (radix_add, the tree-PBS radix_mul,
 radix_eq; a FheUint operator chain exact).  The 64-bit torus: K1 at the
 split-ring step's views, a SECURITY_128_BIT_T64 gate batch (one K1 per
-step of the 384-step hi-plane scan), and the int64 finish, which has no
+step of the 384-step hi-plane scan) and a SECURITY_TFHERS_2_2 one (371
+steps of K2s then K1), and the int64 finish, which has no
 kernel and runs its plain version on the card, bit-equal to the CPU; K2s
 (the split-ring step core) bit-equal to its plain version at the t64 and
 TEST_TINY_SPLIT shapes, and one K2s and one K1 launch per hi-plane step.
@@ -631,6 +632,38 @@ def test_128bit_t64_gates_on_card(dev):
     torch.cuda.synchronize()
     assert tuple(c.launches - n for c, n in zip(counters, before)) == (
         384, 0, 0, 384)
+    assert out.dtype == torch.int64
+    assert np.array_equal(tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy(), want)
+    ck_cpu = key.CloudKey.from_numpy(
+        {n: t.cpu().numpy() for n, t in ck.named_buffers()}, P,
+        bsk_ntt_drop=ck.bsk_ntt_drop, bsk_group=ck.bsk_group,
+        bsk_levels=ck.bsk_levels, bsk_bgbit=ck.bsk_bgbit, device="cpu")
+    cpu = gates.apply_gates(ids[:4], a[:4].cpu(), b[:4].cpu(), ck_cpu)
+    assert torch.equal(out[:4].cpu(), cpu)
+
+
+def test_tfhers_2_2_gates_on_card(dev):
+    """Keygen on the card at SECURITY_TFHERS_2_2's default key form (group
+    2, Bg_e 2^8 with (3, 2) levels, drop 32, four primes), 64 lanes: every
+    lane decrypts to its truth table, 371 K2s and 371 K1 launches and no K2
+    or K3 (the hi-plane scan with the offsets' low words carried in), the
+    first 4 lanes equal to the CPU path."""
+    P = params.SECURITY_TFHERS_2_2
+    g = torch.Generator(device=dev).manual_seed(742)
+    sk = key.SecretKey.generate(g, P)
+    ck = key.CloudKey.generate(g, sk, P, packing_key=False)
+    assert (ck.bsk_group, ck.bsk_bgbit, ck.bsk_levels, ck.bsk_ntt_drop,
+            ck.bsk_ntt.shape[:3]) == (2, 8, (3, 2), 32, (371, 3, 4))
+    ids, x, y, want = _lanes(64, 5)
+    a = tlwe.encrypt_bool(g, x.to(dev), P.ksk_alpha, sk.key_lv0, width=64)
+    b = tlwe.encrypt_bool(g, y.to(dev), P.ksk_alpha, sk.key_lv0, width=64)
+    counters = (K.ntt_inverse_to_crt_acc, K2.ntt_step_fused,
+                K3.extprod_matmul, K2S.split_step_fused)
+    before = [c.launches for c in counters]
+    out = gates.apply_gates(ids.to(dev), a, b, ck)
+    torch.cuda.synchronize()
+    assert tuple(c.launches - n for c, n in zip(counters, before)) == (
+        371, 0, 0, 371)
     assert out.dtype == torch.int64
     assert np.array_equal(tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy(), want)
     ck_cpu = key.CloudKey.from_numpy(

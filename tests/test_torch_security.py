@@ -2,7 +2,8 @@
 import rule of slice 5's modules.
 
 ``utils/security.py:estimate_params`` equals the JAX package's on every
-parameter set; ``time_op`` gives a positive median on the CPU and
+parameter set (on the port's own tfhers_2_2, the JAX package's on its
+twin); ``time_op`` gives a positive median on the CPU and
 ``trace`` writes a trace file; the new modules import torch, numpy, the
 standard library and the port only.
 """
@@ -24,9 +25,21 @@ from zig_tfhe_tpu_torch.utils import profiling, security as tsec
 _ROOT = pathlib.Path(__file__).resolve().parent.parent / "zig_tfhe_tpu_torch"
 
 
+def _jax_params(name):
+    """The JAX package's set of this name; for a set the port alone has
+    (tfhers_2_2), its twin, built by the JAX package's own ``_sp`` from the
+    port's fields."""
+    if name in JP.PARAMS_BY_NAME:
+        return JP.PARAMS_BY_NAME[name]
+    t = TP.PARAMS_BY_NAME[name]
+    return JP._sp(t.name, t.security_bits, t.description, t.n0,
+                  t.tlwe_lv0.alpha, t.tlwe_lv1.alpha, t.nbit, t.bgbit, t.L,
+                  t.basebit, t.iks_t, N=t.N, torus_bits=t.torus_bits)
+
+
 @pytest.mark.parametrize("name", sorted(TP.PARAMS_BY_NAME))
 def test_estimate_params_equals_jax(name):
-    want = jsec.estimate_params(JP.PARAMS_BY_NAME[name])
+    want = jsec.estimate_params(_jax_params(name))
     got = tsec.estimate_params(TP.PARAMS_BY_NAME[name])
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert (got.classical_bits, got.limiting_level) == (

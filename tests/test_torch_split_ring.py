@@ -199,14 +199,14 @@ def test_blind_rotate_split_bit_equal(keys, group):
 def test_hi32_scan_equals_generic(keys, monkeypatch):
     """The hi-plane scan is an exact rewrite of the generic int64 scan at
     drop 32 (the generic scan reached by declaring the configuration not
-    viable)."""
+    viable: ``_hi32_planes``, the one predicate the scan reads)."""
     sk, cks = keys
     tck = cks[2][1]
     rng = np.random.default_rng(20)
     ct, tv = _t(_full64(rng, (2, TPAR.n0 + 1))), _t(_full64(rng, (2, TPAR.N)))
     kw = dict(group=2, levels=(2, 2), bgbit=8)
     hi = TSR.blind_rotate_split(ct, tv, tck.bsk_ntt, TPAR, 32, **kw)
-    monkeypatch.setattr(TSR, "_hi32_viable", lambda *a: False)
+    monkeypatch.setattr(TSR, "_hi32_planes", lambda *a: False)
     generic = TSR.blind_rotate_split(ct, tv, tck.bsk_ntt, TPAR, 32, **kw)
     assert torch.equal(hi, generic)
 

@@ -60,7 +60,7 @@ MIN_PRIME = 1 << 11  # kMinPrime: the kernel's Barrett rounds exactly above it
 
 def supports(group: int, digit_limbs: int, hi32: bool) -> bool:
     """Whether K2s takes a split key's step: group 2, one-limb engine
-    digits, on the int32 hi-plane scan (``split_ring._hi32_viable``)."""
+    digits, on the int32 hi-plane scan (``split_ring._hi32_planes``)."""
     return group == GROUP and digit_limbs == 1 and hi32
 
 

@@ -265,9 +265,16 @@ def default_engine_gadget(params: SecurityParams,
                           group: int = 2) -> tuple[int, tuple[int, int]]:
     """(bgbit_e, (la, lb)) — the gadget the NTT blind rotation runs:
     Bg_e = 2^7 (group >= 3) or 2^8 with (2, 2) levels for the boolean sets,
-    the parameter gadget otherwise (ops/ntt.py:default_engine_gadget)."""
+    the parameter gadget otherwise (ops/ntt.py:default_engine_gadget).
+    A split-ring set whose digit is wider than one int8 limb (the JAX
+    package has none) takes the one-limb gadget Bg_e = 2^8 instead: a-side
+    levels covering at least the parameter gadget's L * bgbit bits, b-side
+    levels the 12 bits of ``default_decomp_levels``; the split step's
+    kernel takes one-limb digits only (ops/cuda/split_step.py)."""
     if params.bgbit == 6 and params.L == 3 and params.N >= 1024:
         return (7 if group >= 3 else 8), (2, 2)
+    if params.split_ring and params.bgbit > 8:
+        return 8, (-(-params.L * params.bgbit // 8), -(-12 // 8))
     return params.bgbit, default_decomp_levels(params)
 
 

@@ -19,11 +19,14 @@ folded into the key planes at keygen (``fold_key_split``).  X^t rotations
 
 The scan (``blind_rotate_split``).  With the key rounded by drop >= 32
 bits every step's delta is a multiple of 2^32, so the accumulator's low
-word never changes; when also every digit shift and decomposition offset
-bit sits at or above bit 32 (``_hi32_viable``: both shipped split gadgets),
-the whole step is a function of the int32 hi planes: decompose at width 32
-(``_rows_hi32``), forward NTT, the folded pointwise sums, the parity
-combine, and the finish acc_hi + (CRT(invNTT(v)) << (drop - 32)) mod 2^32.
+word never changes; when also every digit shift sits at or above bit 32
+(``_hi32_planes``), the whole step is a function of the int32 hi planes
+once each decomposition offset's low word is added to the accumulator
+before the scan (and taken off after it; the set's own gadget at
+128bit_t64 and tiny_split has none, the engine gadget 2^8 of tfhers_2_2
+has): decompose at width 32 (``_rows_hi32``), forward NTT, the folded
+pointwise sums, the parity combine, and the finish
+acc_hi + (CRT(invNTT(v)) << (drop - 32)) mod 2^32.
 At group 2 with one-limb digits (every split set's defaults) the middle of
 the step is K2s (ops/cuda/split_step.py:split_step_fused, a hand kernel
 for Hopper: forward NTT, pointwise sums and combine in one launch, the
@@ -44,7 +47,7 @@ mod p within the same bounds, and the CRT lift makes the accumulator
 bit-equal (as K2's residues are to the JAX package's XLA step).  The low
 word is re-attached once after the scan.  The generic scan (int64
 accumulator, reached by a configuration whose drop is below 32 or whose
-offsets have bits below 32) runs the plain chain and finishes with K1's
+digits read bits below 32) runs the plain chain and finishes with K1's
 int64 variant, plain PyTorch ops on either device (``finish_int64``).
 The path is chosen from the key's configuration before any launch.  The
 JAX package's ``ZTFHE_SPLIT_HI32`` switch is not ported.
@@ -301,14 +304,23 @@ def _hi32_offsets(params: SecurityParams, e: int, levels) -> tuple[int, int]:
     return off_for(levels[0]), off_for(levels[1])
 
 
+def _hi32_planes(params: SecurityParams, drop_bits: int, e: int,
+                 levels) -> bool:
+    """True when the scan runs on int32 hi planes: the 64-bit torus, drop
+    >= 32 (every step's delta a multiple of 2^32) and no digit shift
+    reading below bit 32.  An offset's bits below 32 are added to the
+    accumulator's scan-invariant low word before the scan, so that their
+    carry sits in the hi planes, and taken off after it."""
+    return (params.torus_bits == 64 and drop_bits >= 32
+            and params.torus_bits - max(levels) * e >= 32)
+
+
 def _hi32_viable(params: SecurityParams, drop_bits: int, e: int,
                  levels) -> bool:
-    """True when the scan can run entirely on int32 hi planes: the 64-bit
-    torus, drop >= 32, no digit shift reading below bit 32 and no offset
-    bit below 32 (which would carry from the low word)."""
-    if params.torus_bits != 64 or drop_bits < 32:
-        return False
-    if params.torus_bits - max(levels) * e < 32:
+    """The JAX package's hi-plane condition: ``_hi32_planes`` and no offset
+    bit below 32 (its scan carries no low word; a key at another gadget
+    runs its generic int64 scan)."""
+    if not _hi32_planes(params, drop_bits, e, levels):
         return False
     off_a, off_b = _hi32_offsets(params, e, levels)
     return off_a % (1 << 32) == 0 and off_b % (1 << 32) == 0
@@ -319,7 +331,8 @@ def _rows_hi32(acc_hi: torch.Tensor, params: SecurityParams, e: int,
     """Hi-plane gadget decomposition: int32 [B, 2, 2, Nh] -> digit rows
     int32 [B, 2R, Nh] in (r, q_in) order (the ``_decompose_to_rows`` +
     ``fold_key_split`` layout); digit-exact against the 64-bit
-    decomposition under the ``_hi32_viable`` conditions."""
+    decomposition under the ``_hi32_planes`` conditions, the offsets' low
+    words carried in the accumulator."""
     la, lb = levels
     off_a, off_b = _hi32_offsets(params, e, levels)
     mask, half = (1 << e) - 1, 1 << (e - 1)
@@ -385,11 +398,16 @@ def blind_rotate_split(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
     b_tilda = 2 * N - modswitch(tlwe_batch[:, n0], params)   # [B] in [1, 2N]
     if testvec.dim() == 2:
         testvec = testvec[None]
-    hi32 = _hi32_viable(params, drop_bits, e, levels)
+    hi32 = _hi32_planes(params, drop_bits, e, levels)
     acc = split(negacyclic_rotate(testvec.expand(B, 2, N), b_tilda))
     if hi32:
         # the low word is scan-invariant (every delta is a multiple of
-        # 2^32): carry the int32 hi planes only
+        # 2^32): carry the int32 hi planes only, with each component's
+        # offset below bit 32 added first (none on the set's own gadget)
+        low = [off % (1 << 32) for off in _hi32_offsets(params, e, levels)]
+        for c in (0, 1):
+            if low[c]:
+                acc[:, c] += low[c]
         acc_lo = acc & 0xFFFFFFFF
         acc = (acc >> 32).to(torch.int32)
     t_cols = modswitch(tlwe_batch[:, :n0].T, params)          # [n0, B] int32
@@ -439,4 +457,7 @@ def blind_rotate_split(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
                     us, [t_grps[s, j] for j in range(group)], plan))
     if hi32:
         acc = (acc.to(torch.int64) << 32) + acc_lo
+        for c in (0, 1):
+            if low[c]:
+                acc[:, c] -= low[c]
     return unsplit(acc)

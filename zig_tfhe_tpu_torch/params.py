@@ -2,7 +2,9 @@
 
 A copy of zig_tfhe_tpu/params.py, kept field-for-field identical (the
 JAX package imports jax at package level, so the port cannot import it;
-tests/test_torch_params.py holds the two copies equal).
+tests/test_torch_params.py holds the two copies equal).  The port adds one
+set the JAX package lacks, ``SECURITY_TFHERS_2_2`` (tfhe-rs's default
+64-bit key).
 
 The reference (params.zig) pins one parameter set at comptime
 (params.zig:386-416) so every ciphertext array length is a compile-time
@@ -311,6 +313,27 @@ SECURITY_128_BIT_T64 = _sp(
     "139/137 bits, docs/SECURITY.md)",
     768, 2 ** -17.0, 2 ** -49.0, 11, 8, 3, 2, 12, N=2048, torus_bits=64)
 
+# tfhe-rs's default 64-bit key: zama-ai/tfhe-rs, tag tfhe-rs-0.4.0,
+# tfhe/src/shortint/parameters/mod.rs, PARAM_MESSAGE_2_CARRY_2_KS_PBS (the
+# default of its integer and high-level API in that release):
+# lwe_dimension 742, glwe_dimension 1, polynomial_size 2048,
+# lwe_modular_std_dev 7.069849454709433e-06 (2^-17.1),
+# glwe_modular_std_dev 2.9403601535432533e-16 (2^-51.6), pbs_base_log 23,
+# pbs_level 1, ks_base_log 3, ks_level 5, ciphertext modulus 2^64 (native).
+# 128 is the publisher's claim; the in-tree estimator (utils/security.py)
+# scores lv0 133.7 gate bits (104.0 core-SVP classical) and lv1 129.7
+# gate bits (98.4 core-SVP).  The published digit (2^23) is wider than one
+# int8 limb, so the NTT key is made at the one-limb engine gadget 2^8 with
+# (3, 2) levels (ops/ntt.py:default_engine_gadget), not at tfhe-rs's
+# 2^23 x 1.  Runs on the split-ring engine.  Not in ALL_PARAMS (the
+# reference-parity tuple); the JAX package has no such set.
+SECURITY_TFHERS_2_2 = _sp(
+    "tfhers_2_2", 128,
+    "tfhe-rs 0.4.0 PARAM_MESSAGE_2_CARRY_2_KS_PBS (N=2048, n=742, 64-bit "
+    "torus; gate model 133.7/129.7 bits)",
+    742, 7.069849454709433e-06, 2.9403601535432533e-16, nbit=11, bgbit=23,
+    l=1, basebit=3, iks_t=5, N=2048, torus_bits=64)
+
 # Backwards-compatible alias: the round-4 spike shipped this set under a
 # DRAFT_ name with corpus-tracked alphas and the claim deferred; the
 # in-tree estimator (landed later the same round) retuned and pinned it.
@@ -352,7 +375,7 @@ ALL_PARAMS = (
 PARAMS_BY_NAME = {p.name: p for p in ALL_PARAMS
                   + (TEST_TINY, TEST_TINY_UINT, TEST_TINY64,
                      TEST_TINY_SPLIT, SECURITY_128_BIT_T64,
-                     SECURITY_128_BIT_V2)}
+                     SECURITY_128_BIT_V2, SECURITY_TFHERS_2_2)}
 PARAMS_BY_NAME["draft128_t64"] = SECURITY_128_BIT_T64  # round-4 spike name
 
 
