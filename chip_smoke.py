@@ -153,10 +153,11 @@ K2's function at the split shape) then K1.  Phases:
      with (3, 2) levels, drop 32, the four-prime plan on N/2 = 1024, the
      packing key at (8, 3)), its arrays' shapes and bytes and the keygen
      time.  The split-ring scan runs on the int32 hi planes; every step is
-     the hi-plane decompose (plain PyTorch), K2s (forward NTT, pointwise
-     against the key group, the Y-twisted combine; the residues as int8
-     limb planes [P, B, 2, 2, 2, 1024]) and K1 on their views ([P, 2B, 2,
-     2, 1024], drop 32 - 32 = 0).  K2s on one real step's inputs (the
+     K2s (forward NTT, pointwise against the key group, the Y-twisted
+     combine; the residues as int8 limb planes [P, B, 2, 2, 2, 1024]) and
+     K1 on their views ([P, 2B, 2, 2, 1024], drop 32 - 32 = 0), which also
+     writes the next step's hi-plane half-rows (all but the last step;
+     step 0's come from the plain decompose).  K2s on one real step's inputs (the
      hi-plane digits of a rotated test vector, the key's first group, the
      rotations of real ciphertexts) bit-equal to its plain version (the
      prime-batched forward NTT, pointwise and combine of ops/split_ring.py)
@@ -168,9 +169,13 @@ K2's function at the split shape) then K1.  Phases:
      stage and with every Barrett a shift, from a CUDA graph) and its
      ptxas registers and spills;
      K1 on K2s's residues, bit-equal to its plain version and to the plain
-     hi-plane finish at the same batches, timed beside its bound;
+     hi-plane finish at the same batches, timed beside its bound; K1's
+     instance that also writes the half-rows, its half-rows bit-equal to
+     ``_rows_hi32`` of its output at the same batches, timed in turns with
+     the instance without them from CUDA graphs at B = 2048;
      apply_gates on 512 lanes cycling the 10 gates, the launch counts set to
-     0 just before and read just after (K2s = K1 = 384, K2 and K3 0), no
+     0 just before and read just after (K2s = K1 = 384, 383 K1 launches
+     writing half-rows, K2 and K3 0), no
      call of the plain forward NTT, pointwise or combine on the card,
      accuracy 1.0, the first 4 lanes bit-equal to the port's CPU path;
      gates/s at B = 2048 (one batch, warm from the B = 512 run, and its
@@ -1705,6 +1710,21 @@ def _t64_phase(g, counters, gpu):
                and torch.equal(out.reshape(lanes, 2, 2, Nh), finish[:lanes]),
                f"K1 at the split views differs from its plain version or the "
                f"plain hi-plane finish at B={lanes} (max |diff| {errs[-1]})")
+    # K1 that also writes the next step's half-rows (every step of the scan
+    # but the last): bit-equal to the plain decompose of its output
+    gadget = split_ring.half_row_gadget(P, 8, (3, 2))
+    for lanes in (B, RAGGED_LANES, 1):
+        half_rows = torch.empty((lanes, 10, Nh), dtype=torch.int8, device=dev)
+        out = k1.ntt_inverse_to_crt_acc(
+            v8[:, :lanes].reshape(plan.n_primes, 2 * lanes, 2, 2, Nh),
+            views(lanes)[1], plan, 0, digits=half_rows, gadget=gadget)
+        want = split_ring._rows_hi32(out.reshape(lanes, 2, 2, Nh), P, 8,
+                                     (3, 2)).to(torch.int8)
+        torch.cuda.synchronize()
+        _check(torch.equal(out.reshape(lanes, 2, 2, Nh), finish[:lanes])
+               and torch.equal(half_rows, want),
+               f"K1 writing the half-rows differs from its plain version at "
+               f"B={lanes}")
     vv, aa = views(B)
     vv8 = v8.reshape(plan.n_primes, 2 * B, 2, 2, Nh)
     v1, a1 = v8[:, :1].reshape(plan.n_primes, 2, 2, 2, Nh), acc[:1].reshape(2, 2, Nh)
@@ -1716,9 +1736,18 @@ def _t64_phase(g, counters, gpu):
     dev1 = _graph_ms(lambda: k1.ntt_inverse_to_crt_acc(v1, a1, plan, 0),
                      KERNEL_ITERS)
     bound1, by1, unit1, l2_1, cc1 = _k1_bound_ms(plan.n_primes, 2 * B, Nh)
+    half_rows = torch.empty((B, 10, Nh), dtype=torch.int8, device=dev)
+    k1_fns = {
+        "without": lambda: k1.ntt_inverse_to_crt_acc(vv8, aa, plan, 0),
+        "half-rows": lambda: k1.ntt_inverse_to_crt_acc(
+            vv8, aa, plan, 0, digits=half_rows, gadget=gadget)}
+    k1_graph = {name: [] for name in k1_fns}
+    for name in ("without", "half-rows", "half-rows", "without"):
+        k1_graph[name].append(_graph_ms(k1_fns[name], KERNEL_ITERS))
     k1_result = dict(max_abs_err=max(errs), ms=ms1, plain_ms=plain1,
                      bound_ms=bound1, bound_by=by1, bound_unit=unit1,
-                     b1_eager_ms=one1, b1_device_ms=dev1)
+                     b1_eager_ms=one1, b1_device_ms=dev1,
+                     graph_ms={k: sum(t) / 2 for k, t in k1_graph.items()})
     print(f"t64: K1 == plain == the plain hi-plane finish at the split views "
           f"[P=4, 2B, 2, {Nh}] of K2s's residues, as int32 (split by the "
           f"wrapper) and as K2s's int8 limb planes (as the scan hands them "
@@ -1728,17 +1757,26 @@ def _t64_phase(g, counters, gpu):
           f"cuda cores {cc1 * 1e3:.1f} us, L2->SM of the widest tiling "
           f"{l2_1 / 1e6:.0f} MB/call); B=1 {dev1 * 1e3:.1f} us/call on the "
           f"device ({one1 * 1e3:.1f} us eager) [{gpu}]")
+    print(f"t64: K1 writing the next step's half-rows [B, 10, {Nh}] == "
+          f"_rows_hi32 of its output for B = {B}, {RAGGED_LANES}, 1; B={B} "
+          f"from CUDA graphs, in turns: " + ", ".join(
+              f"{k} {' / '.join(f'{t * 1e3:.1f}' for t in ts)} us"
+              for k, ts in k1_graph.items()) + f" [{gpu}]")
 
     # -- gates: B = 512 lanes cycling the 10 gates -----------------------------
     nG = T64_GATE_LANES
     want = np.array([_TRUTH[gates.GATE_NAMES[i]](bool(p), bool(q)) for i, p, q
                      in zip(ids.tolist(), x.tolist(), y.tolist())])
+    digit_launches = k1.ntt_inverse_to_crt_acc.digit_launches
     with _plain_split_calls(split_ring) as plain_calls:
         res, launches["t64"], first_s = _counted_run(
             counters, "t64 gates",
             lambda: gates.apply_gates(ids[:nG], a[:nG], b[:nG], ck), expect(1))
     _check(not plain_calls, f"t64 gates: the scan ran the plain split step "
            f"on the card ({plain_calls})")
+    digit_launches = k1.ntt_inverse_to_crt_acc.digit_launches - digit_launches
+    _check(digit_launches == T64_STEPS - 1, f"t64 gates: {digit_launches} K1 "
+           f"launches wrote half-rows, expected {T64_STEPS - 1}")
     _check(res.dtype == torch.int64 and tuple(res.shape) == (nG, n0 + 1),
            f"t64 gate output {res.dtype} {tuple(res.shape)}")
     got = tlwe.decrypt_bool(res, s).cpu().numpy()
@@ -1753,7 +1791,8 @@ def _t64_phase(g, counters, gpu):
     wall["CPU-path checks"] += time.perf_counter() - t0
     print(f"apply_gates t64 B={nG}: accuracy {accuracy}, launches "
           f"{launches['t64']} (one K2s and one K1 per step of the "
-          f"{T64_STEPS}-step hi-plane scan; no call of the plain forward NTT, "
+          f"{T64_STEPS}-step hi-plane scan, {digit_launches} K1 launches "
+          f"writing the next half-rows; no call of the plain forward NTT, "
           f"pointwise or combine), first call {first_s:.2f} s; first {n} lanes "
           f"bit-equal to the CPU path ({time.perf_counter() - t0:.1f} s on "
           f"the host)")
@@ -1776,15 +1815,16 @@ def _t64_phase(g, counters, gpu):
           f"ms (median of "
           + ", ".join(f"{t:.1f}" for t in lat) + f" ms) [{gpu}]")
     stage_fns = {
-        "decompose": lambda: split_ring._rows_hi32(acc, P, 8, (3, 2)).to(
-            torch.int8),
         "K2s": lambda: k2s.split_step_fused(digits, bsk0, ts, plan, 8),
-        "K1": lambda: k1.ntt_inverse_to_crt_acc(vv8, aa, plan, 0)}
+        "K1 + half-rows": k1_fns["half-rows"],
+        "step 0's decompose": lambda: split_ring._rows_hi32(
+            acc, P, 8, (3, 2)).to(torch.int8)}
     split_us = {st: _cuda_ms(fn, KERNEL_ITERS) * 1e3
                 for st, fn in stage_fns.items()}
     print(f"t64: one step at B={B}: " + ", ".join(
         f"{st} {t:.1f} us" for st, t in split_us.items())
-        + f" (sum {sum(split_us.values()):.1f} us) [{gpu}]")
+        + f" (a fused step, K2s + K1 + half-rows: "
+        f"{split_us['K2s'] + split_us['K1 + half-rows']:.1f} us) [{gpu}]")
     for lanes in (B, 1):
         prof = _profile(f"t64 B={lanes}",
                         lambda n=lanes: gates.apply_gates(ids[:n], a[:n], b[:n],

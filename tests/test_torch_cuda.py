@@ -14,9 +14,12 @@ full adder and the w = 8 Bristol multiplier), and so are the LUT paths
 of models/lut.py on a TEST_TINY_UINT key (bootstrap_lut, tree_pbs) and the
 integer layer of models/integer.py (radix_add, the tree-PBS radix_mul,
 radix_eq; a FheUint operator chain exact).  The 64-bit torus: K1 at the
-split-ring step's views, a SECURITY_128_BIT_T64 gate batch (one K1 per
-step of the 384-step hi-plane scan) and a SECURITY_TFHERS_2_2 one (371
-steps of K2s then K1), and the int64 finish, which has no
+split-ring step's views, with and without the next step's hi-plane
+half-rows (the tfhers_2_2 and SECURITY_128_BIT_T64 gadgets), a
+SECURITY_128_BIT_T64 gate batch (one K1 per step of the 384-step
+hi-plane scan) and a SECURITY_TFHERS_2_2 one (371 steps of K2s then K1,
+370 of the K1 launches writing the next half-rows, no synchronising
+operation in the scan), and the int64 finish, which has no
 kernel and runs its plain version on the card, bit-equal to the CPU; K2s
 (the split-ring step core) bit-equal to its plain version at the t64 and
 TEST_TINY_SPLIT shapes, and one K2s and one K1 launch per hi-plane step.
@@ -614,6 +617,42 @@ def test_kernel_split_views_match_plain_and_exact(dev, B):
     assert torch.equal(out.reshape(B, 2, 2, plan.N), acc + c)
 
 
+# K1's instance that writes the split ring's hi-plane half-rows, on the
+# split views at tfhers_2_2's gadget (Bg_e 2^8 (3, 2), offsets with low
+# words) and SECURITY_128_BIT_T64's own (3, 2), whose b hi offset differs
+@pytest.mark.parametrize("name", ["tfhers_2_2", "128bit_t64"])
+@pytest.mark.parametrize("B", [1, 200, 2048])
+def test_kernel_writes_half_rows_of_its_output(dev, name, B):
+    P = params.PARAMS_BY_NAME[name]
+    plan = ntt.plan_for_params(P, 32, 2, (3, 2), bgbit=8,
+                               pseudorandom_key=True)
+    gadget = split_ring.half_row_gadget(P, 8, (3, 2))
+    rng = np.random.default_rng(B + 65)
+    c, acc = (torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, 2, plan.N))
+                               .astype(np.int32)).to(dev) for _ in range(2))
+    v = K.split_limbs(torch.stack(ntt.ntt_forward(c, plan, digit_limbs=4,
+                                                  digit_bound=128)))
+    vv, aa = v.reshape(4, 2 * B, 2, 2, plan.N), acc.reshape(2 * B, 2, plan.N)
+    digits = torch.from_numpy(rng.integers(-128, 128, (B, 10, plan.N))
+                              .astype(np.int8)).to(dev)   # all rewritten
+    before = (K.ntt_inverse_to_crt_acc.launches,
+              K.ntt_inverse_to_crt_acc.digit_launches)
+    out = K.ntt_inverse_to_crt_acc(vv, aa, plan, 0, digits=digits,
+                                   gadget=gadget)
+    torch.cuda.synchronize()
+    assert (K.ntt_inverse_to_crt_acc.launches,
+            K.ntt_inverse_to_crt_acc.digit_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert torch.equal(out, K.ntt_inverse_to_crt_acc(vv, aa, plan, 0))
+    assert torch.equal(out.reshape(B, 2, 2, plan.N), acc + c)
+    want = torch.empty_like(digits).cpu()
+    K.ntt_inverse_to_crt_acc_reference(vv.cpu(), aa.cpu(), plan, 0, want,
+                                       gadget)
+    assert torch.equal(digits.cpu(), want)
+    assert torch.equal(want, split_ring._rows_hi32(
+        out.reshape(B, 2, 2, plan.N), P, 8, (3, 2)).to(torch.int8).cpu())
+
+
 def test_128bit_t64_gates_on_card(dev):
     """Keygen on the card at SECURITY_128_BIT_T64's defaults, 64 lanes:
     exact, 384 K2s and 384 K1 launches and no K2 or K3, the first 4 lanes
@@ -645,9 +684,13 @@ def test_128bit_t64_gates_on_card(dev):
 def test_tfhers_2_2_gates_on_card(dev):
     """Keygen on the card at SECURITY_TFHERS_2_2's default key form (group
     2, Bg_e 2^8 with (3, 2) levels, drop 32, four primes), 64 lanes: every
-    lane decrypts to its truth table, 371 K2s and 371 K1 launches and no K2
-    or K3 (the hi-plane scan with the offsets' low words carried in), the
-    first 4 lanes equal to the CPU path."""
+    lane decrypts to its truth table, 371 K2s and 371 K1 launches, 370 of
+    them writing the next step's half-rows, and no K2 or K3 (the hi-plane
+    scan with the offsets' low words carried in), the first 4 lanes equal
+    to the CPU path; the scan alone (span ``blind_rotate.steps``) makes no
+    synchronising CUDA operation and reads ``fused_steps`` 370."""
+    from zig_tfhe_tpu_torch.utils import profiling
+
     P = params.SECURITY_TFHERS_2_2
     g = torch.Generator(device=dev).manual_seed(742)
     sk = key.SecretKey.generate(g, P)
@@ -660,10 +703,23 @@ def test_tfhers_2_2_gates_on_card(dev):
     counters = (K.ntt_inverse_to_crt_acc, K2.ntt_step_fused,
                 K3.extprod_matmul, K2S.split_step_fused)
     before = [c.launches for c in counters]
+    digit_launches = K.ntt_inverse_to_crt_acc.digit_launches
     out = gates.apply_gates(ids.to(dev), a, b, ck)
     torch.cuda.synchronize()
     assert tuple(c.launches - n for c, n in zip(counters, before)) == (
         371, 0, 0, 371)
+    assert K.ntt_inverse_to_crt_acc.digit_launches - digit_launches == 370
+    # the scan alone: its span is then the outermost, which counts syncs
+    with profiling.recording():
+        profiling.clear()
+        split_ring.blind_rotate_split(a, ck.testvec, ck.bsk_ntt, P, 32,
+                                      group=2, levels=(3, 2), bgbit=8)
+        steps = [sp for sp in profiling.spans()
+                 if sp.name == "blind_rotate.steps"]
+        profiling.clear()
+    assert len(steps) == 1 and steps[0].attrs == {"steps": 371,
+                                                  "fused_steps": 370}
+    assert steps[0].syncs == 0
     assert out.dtype == torch.int64
     assert np.array_equal(tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy(), want)
     ck_cpu = key.CloudKey.from_numpy(

@@ -1,5 +1,6 @@
 """The next step's gadget digits written by K1 (ops/cuda/ntt_inverse.py)
-and the fused step loop of ops/blind_rotate_ntt.py that reads them.
+and the fused step loops of ops/blind_rotate_ntt.py and
+ops/split_ring.py that read them.
 
 K1's plain version with a ``digits`` buffer writes exactly
 ``_decompose_to_rows(out, ...).to(torch.int8)`` of the accumulator it
@@ -7,10 +8,17 @@ returns, and returns the same accumulator as without one; the engine's
 one-limb loop (every boolean key: groups 2 and 3) decomposes only for
 step 0 and equals, bit for bit, the loop that decomposes on every step;
 the ``fused_steps`` attribute of span ``blind_rotate.steps`` reads G - 1
-there and 0 on the paths that bypass the fusion (a multi-limb uint key,
-the split ring), whose outputs do not change.  The kernel's own source is
-held to the plain version in tests/test_torch_kernel_emulation.py and on
-the card in tests/test_torch_cuda.py.  The file imports no jax.
+there and 0 on the paths that bypass the fusion (a multi-limb uint key, a
+group-1 split key), whose outputs do not change.  On the split ring's
+views, with a ``HalfRowGadget`` (the hi-plane gadgets of tfhers_2_2, with
+low offset words, of SECURITY_128_BIT_T64 and of TEST_TINY_SPLIT), K1's
+plain version and its wrapper on CPU tensors write exactly
+``split_ring._rows_hi32(out, ...).to(torch.int8)``, and the split ring's
+group-2 scan (K2s then K1) decomposes only for step 0, with G - 1 K1
+calls that carry the buffer, equal bit for bit to the loop that calls
+``_rows_hi32`` on every step.  The kernel's own source is held to the
+plain version in tests/test_torch_kernel_emulation.py and on the card in
+tests/test_torch_cuda.py.  The file imports no jax.
 """
 
 import dataclasses
@@ -22,10 +30,13 @@ import torch
 from zig_tfhe_tpu_torch import key, params
 from zig_tfhe_tpu_torch.ops import ntt
 from zig_tfhe_tpu_torch.ops import blind_rotate_ntt as BRN
+from zig_tfhe_tpu_torch.ops import split_ring as SR
 from zig_tfhe_tpu_torch.ops.blind_rotate import (_decompose_to_rows, modswitch,
                                                  row_gadget)
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K1
 from zig_tfhe_tpu_torch.ops.cuda import ntt_step as K2
+from zig_tfhe_tpu_torch.ops.cuda import split_step as K2S
+from zig_tfhe_tpu_torch.ops.poly import negacyclic_rotate
 from zig_tfhe_tpu_torch.utils import profiling
 
 
@@ -196,17 +207,168 @@ def test_multi_limb_uint_key_bypasses_the_fusion():
     assert torch.equal(got, want)
 
 
-def test_split_ring_bypasses_the_fusion():
-    """TEST_TINY_SPLIT's hi-plane scan finishes on K1 without digits."""
-    P = params.TEST_TINY_SPLIT
-    g = torch.Generator().manual_seed(42)
+# the split ring's hi-plane gadgets at their default key forms (group 2,
+# drop 32): tfhers_2_2's Bg_e 2^8 (3, 2), whose offsets have low words;
+# SECURITY_128_BIT_T64's own Bg 2^8 (3, 2), whose have none (the b hi
+# word differs); TEST_TINY_SPLIT's 2^8 (2, 2)
+_SPLIT_CASES = {"tfhers_2_2": (params.SECURITY_TFHERS_2_2, (3, 2)),
+                "128bit_t64": (params.SECURITY_128_BIT_T64, (3, 2)),
+                "tiny_split": (params.TEST_TINY_SPLIT, (2, 2))}
+
+
+def _split_views(P, levels, B, seed):
+    """K1's operands on the split views: the residues of uniform hi planes
+    c as int8 limb planes [P, 2B, 2, 2, N/2], uniform hi planes acc [2B, 2,
+    N/2], and out = acc + c, what K1 returns at drop 32 - 32."""
+    plan = ntt.plan_for_params(P, 32, 2, levels, bgbit=8,
+                               pseudorandom_key=True)
+    rng = np.random.default_rng(seed)
+    c, acc = (torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, 2, plan.N))
+                               .astype(np.int32)) for _ in range(2))
+    v = K1.split_limbs(torch.stack(ntt.ntt_forward(c, plan, digit_limbs=4,
+                                                   digit_bound=128)))
+    return (plan, v.reshape(plan.n_primes, 2 * B, 2, 2, plan.N),
+            acc.reshape(2 * B, 2, plan.N), acc + c)
+
+
+@pytest.mark.parametrize("via", ["reference", "wrapper"])
+@pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
+def test_reference_writes_the_half_rows_of_its_output(case, via):
+    P, levels = _SPLIT_CASES[case]
+    B = 3
+    plan, v, acc, exact = _split_views(P, levels, B, len(case))
+    gadget = SR.half_row_gadget(P, 8, levels)
+    assert isinstance(gadget, K1.HalfRowGadget)
+    assert (gadget.bits, gadget.levels) == (8, levels)
+    digits = torch.from_numpy(np.random.default_rng(B).integers(
+        -128, 128, (B, 2 * sum(levels), plan.N)).astype(np.int8))
+    before = (K1.ntt_inverse_to_crt_acc.launches,
+              K1.ntt_inverse_to_crt_acc.digit_launches)
+    fn = (K1.ntt_inverse_to_crt_acc_reference if via == "reference"
+          else K1.ntt_inverse_to_crt_acc)
+    out = fn(v, acc, plan, 0, digits=digits, gadget=gadget)
+    assert (K1.ntt_inverse_to_crt_acc.launches,
+            K1.ntt_inverse_to_crt_acc.digit_launches) == before
+    assert torch.equal(out, K1.ntt_inverse_to_crt_acc_reference(v, acc, plan,
+                                                                0))
+    assert torch.equal(out.reshape(B, 2, 2, plan.N), exact)
+    want = SR._rows_hi32(exact, P, 8, levels)
+    assert int(want.abs().max()) <= 128
+    assert torch.equal(digits, want.to(torch.int8))
+
+
+def test_wrapper_refuses_half_rows_it_cannot_write():
+    P, levels = _SPLIT_CASES["tiny_split"]
+    plan, v, acc, _ = _split_views(P, levels, 2, 0)
+    gadget = SR.half_row_gadget(P, 8, levels)
+    d = torch.zeros((2, 2 * sum(levels), plan.N), dtype=torch.int8)
+    with pytest.raises(ValueError, match="HalfRowGadget"):
+        K1.ntt_inverse_to_crt_acc(v, acc, plan, 0, digits=d)
+    # the 32-bit engine's row layout [2B, R, N/2], and a wrong dtype
+    for bad in (torch.zeros((4, sum(levels), plan.N), dtype=torch.int8),
+                d.int(), d[:, :-1]):
+        with pytest.raises(ValueError, match="contiguous int8"):
+            K1.ntt_inverse_to_crt_acc(v, acc, plan, 0, digits=bad,
+                                      gadget=gadget)
+    # an accumulator of an odd row count holds no whole lane
+    with pytest.raises(ValueError, match="contiguous int8"):
+        K1.ntt_inverse_to_crt_acc(v[:, :3], acc[:3], plan, 0, digits=d[:1],
+                                  gadget=gadget)
+    # digits wider than one int8 limb, and a 32-bit row gadget on the views
+    with pytest.raises(NotImplementedError, match="one-limb"):
+        K1.ntt_inverse_to_crt_acc(v, acc, plan, 0, digits=d,
+                                  gadget=gadget._replace(bits=11))
+    with pytest.raises(NotImplementedError, match="one-limb"):
+        K1.ntt_inverse_to_crt_acc(v, acc, plan, 0, digits=d,
+                                  gadget=row_gadget(P, levels, 8))
+
+
+def _split_step_by_step(tlwe, tv, bsk, P, levels):
+    """The split ring's group-2 hi-plane scan as it ran before the fusion:
+    the set-up's rotation and carried low words, then on every step
+    ``_rows_hi32``, its int8 cast, K2s and K1 without digits."""
+    n0, N, B = P.n0, P.N, tlwe.shape[0]
+    Nh, G = N // 2, bsk.shape[0]
+    plan = ntt.plan_for_params(P, 32, 2, levels, bgbit=8,
+                               pseudorandom_key=True)
+    low = [off % (1 << 32) for off in SR._hi32_offsets(P, 8, levels)]
+    acc = SR.split(negacyclic_rotate(tv[None].expand(B, 2, N),
+                                     2 * N - modswitch(tlwe[:, n0], P)))
+    for c in (0, 1):
+        acc[:, c] += low[c]
+    acc_lo = acc & 0xFFFFFFFF
+    acc = (acc >> 32).to(torch.int32)
+    t_cols = modswitch(tlwe[:, :n0].T, P)
+    t_cols = torch.cat([t_cols, t_cols.new_zeros(2 * G - n0, B)])
+    t_grps = t_cols.reshape(G, 2, B)
+    for s in range(G):
+        rows = SR._rows_hi32(acc, P, 8, levels).to(torch.int8)
+        v = K2S.split_step_fused(rows, bsk[s], t_grps[s], plan, 8)
+        acc = K1.ntt_inverse_to_crt_acc(
+            v.reshape(plan.n_primes, 2 * B, 2, 2, Nh),
+            acc.reshape(2 * B, 2, Nh), plan, 0).reshape(B, 2, 2, Nh)
+    acc = (acc.to(torch.int64) << 32) + acc_lo
+    for c in (0, 1):
+        acc[:, c] -= low[c]
+    return SR.unsplit(acc)
+
+
+def _split_key(P, n0, group, seed):
+    P = _cut(P, n0) if n0 else P
+    g = torch.Generator().manual_seed(seed)
     ck = key.CloudKey.generate(g, key.SecretKey.generate(g, P), P,
-                               packing_key=False)
-    tlwe = torch.randint(-2**63, 2**63 - 1, (2, P.n0 + 1), generator=g,
+                               packing_key=False, group=group)
+    tlwe = torch.randint(-2**63, 2**63 - 1, (3, P.n0 + 1), generator=g,
                          dtype=torch.int64)
-    before = K1.ntt_inverse_to_crt_acc.digit_launches
-    _, attrs = _recorded_steps(lambda: BRN.blind_rotate_ntt(
-        tlwe, ck.testvec, ck.bsk_ntt, P, ck.bsk_ntt_drop, group=ck.bsk_group,
-        levels=ck.bsk_levels, bgbit=ck.bsk_bgbit))
-    assert attrs == {"steps": ck.bsk_ntt.shape[0], "fused_steps": 0}
-    assert K1.ntt_inverse_to_crt_acc.digit_launches == before
+    tv = torch.randint(-2**63, 2**63 - 1, (2, P.N), generator=g,
+                       dtype=torch.int64)
+    return P, ck, tlwe, tv
+
+
+def _k1_digit_calls(monkeypatch):
+    """Whether each K1 call of the split scan carried a digits buffer."""
+    calls = []
+    k1 = SR.ntt_inverse_to_crt_acc
+
+    def counted(*a, digits=None, **kw):
+        calls.append(digits is not None)
+        return k1(*a, digits=digits, **kw)
+
+    monkeypatch.setattr(SR, "ntt_inverse_to_crt_acc", counted)
+    return calls
+
+
+# TEST_TINY_SPLIT's key (n0 = 8: 4 steps) and tfhers_2_2 cut to n0 = 5
+# (3 steps, the last group padded), with an arbitrary int64 test vector
+@pytest.mark.parametrize("case, n0", [("tiny_split", None), ("tfhers_2_2", 5)])
+def test_split_scan_takes_the_fusion(case, n0, monkeypatch):
+    P, levels = _SPLIT_CASES[case]
+    P, ck, tlwe, tv = _split_key(P, n0, None, 42)
+    assert (ck.bsk_group, ck.bsk_bgbit, ck.bsk_levels, ck.bsk_ntt_drop) == (
+        2, 8, levels, 32)
+    G = ck.bsk_ntt.shape[0]
+    assert G >= 3
+    calls = _k1_digit_calls(monkeypatch)
+    got, attrs = _recorded_steps(lambda: BRN.blind_rotate_ntt(
+        tlwe, tv, ck.bsk_ntt, P, 32, group=2, levels=levels, bgbit=8))
+    assert attrs == {"steps": G, "fused_steps": G - 1}
+    assert calls == [True] * (G - 1) + [False]
+    want = _split_step_by_step(tlwe, tv, ck.bsk_ntt, P, levels)
+    assert torch.equal(got, want)
+
+
+def test_split_ring_bypasses_the_fusion(monkeypatch):
+    """A group-1 TEST_TINY_SPLIT key (no K2s) runs the plain chain and K1
+    without digits on every step: ``fused_steps`` 0, and the scan equals
+    the generic int64 scan, which never reaches K1."""
+    P, ck, tlwe, tv = _split_key(params.TEST_TINY_SPLIT, None, 1, 43)
+    calls = _k1_digit_calls(monkeypatch)
+    kw = dict(group=1, levels=ck.bsk_levels, bgbit=ck.bsk_bgbit)
+    got, attrs = _recorded_steps(lambda: BRN.blind_rotate_ntt(
+        tlwe, tv, ck.bsk_ntt, P, ck.bsk_ntt_drop, **kw))
+    assert attrs == {"steps": P.n0, "fused_steps": 0}
+    assert calls == [False] * P.n0
+    monkeypatch.setattr(SR, "_hi32_planes", lambda *a: False)
+    assert torch.equal(got, BRN.blind_rotate_ntt(tlwe, tv, ck.bsk_ntt, P,
+                                                 ck.bsk_ntt_drop, **kw))
+    assert len(calls) == P.n0

@@ -114,8 +114,10 @@ def emu(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     libs["ntt_step"].ztfhe_ntt_step_fused.argtypes = [p] * 11 + [i] * 6 + [p]
     libs["ntt_inverse"].ztfhe_ntt_inverse_crt_acc.argtypes = [p] * 9 + [i] * 5 + [p]
-    libs["ntt_inverse"].ztfhe_ntt_inverse_crt_acc_digits.argtypes = (
-        [p] * 9 + [i] * 5 + [p] + [i] * 5 + [p])
+    for entry in ("ztfhe_ntt_inverse_crt_acc_digits",
+                  "ztfhe_ntt_inverse_crt_acc_half_rows"):
+        getattr(libs["ntt_inverse"], entry).argtypes = (
+            [p] * 9 + [i] * 5 + [p] + [i] * 5 + [p])
     libs["extprod"].ztfhe_extprod_matmul.argtypes = [p] * 3 + [i] * 4 + [p]
     libs["split_step"].ztfhe_split_step_fused.argtypes = [p] * 9 + [i] * 5 + [p]
     libs["split_step"].ztfhe_split_barrett.argtypes = [p, p, i, i,
@@ -444,6 +446,61 @@ def test_inverse_kernel_source_writes_digits(emu, case):
     assert torch.equal(digits, want)
     assert torch.equal(digits, _decompose_to_rows(out, P, levels, bgbit=bgbit)
                        .to(torch.int8))
+
+
+# K1's instance that writes the split ring's hi-plane half-rows, on the
+# split views (rows (b, c, q): 4 rows a lane): (lanes, N/2, plan bits, drop,
+# emulated SM count, params, levels).  tfhers_2_2's gadget (3, 2) on two
+# row tiles, the second with 12 rows (one live warpgroup); t64's (3, 2),
+# whose b hi offset differs, ending inside the second warpgroup on the
+# narrow tile; TEST_TINY_SPLIT's (2, 2) at one lane on the wide tile and
+# t64's at one lane with a drop.  The half-rows depend on the gadget and
+# not on N, so the plans are small.
+_K1_HALF_ROW_CASES = {
+    "tfhers_22": (35, 128, 40, 0, 4, "tfhers_2_2", (3, 2)),
+    "t64_narrow": (25, 128, 56, 0, 1000, "128bit_t64", (3, 2)),
+    "tiny_split_B1": (1, 64, 40, 0, 1, "tiny_split", (2, 2)),
+    "t64_B1_drop": (1, 128, 40, 3, 4, "128bit_t64", (3, 2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_K1_HALF_ROW_CASES))
+def test_inverse_kernel_source_writes_half_rows(emu, case):
+    lanes, N, bits, drop, sms, name, levels = _K1_HALF_ROW_CASES[case]
+    P = TP.PARAMS_BY_NAME[name]
+    gadget = SR.half_row_gadget(P, 8, levels)
+    plan = ntt.make_plan(N, bits)
+    rng = np.random.default_rng(lanes + N)
+    rows = 4 * lanes
+    c, acc = (torch.from_numpy(rng.integers(-2**31, 2**31, (rows // 2, 2, N))
+                               .astype(np.int32)) for _ in range(2))
+    v = K1.split_limbs(torch.stack(ntt.ntt_forward(c, plan, digit_limbs=4,
+                                                   digit_bound=128)))
+    tabs = K1._kernel_tables(plan, torch.device("cpu"))
+    lib = emu["ntt_inverse"]
+    lib.emu_set_sm_count(sms)
+    args = (v.data_ptr(), acc.data_ptr(), None, tabs.m_lo.data_ptr(),
+            tabs.m_hi.data_ptr(), _ptr(tabs.primes), _ptr(tabs.crt_e),
+            _ptr(tabs.inv_p), _ptr(tabs.theta), plan.p_mod, plan.n_primes,
+            rows, N, drop)
+    out = torch.empty_like(acc)
+    digits = torch.from_numpy(rng.integers(-128, 128, (lanes, 2 * sum(levels),
+                                                       N)).astype(np.int8))
+    err = lib.ztfhe_ntt_inverse_crt_acc_half_rows(
+        *args[:2], out.data_ptr(), *args[3:], digits.data_ptr(),
+        *K1._digit_scalars(gadget), None)
+    assert err == 0
+    want = torch.empty_like(digits)
+    ref = K1.ntt_inverse_to_crt_acc_reference(v, acc, plan, drop, want, gadget)
+    assert torch.equal(out, ref)
+    assert torch.equal(out, acc + (c << drop))
+    assert torch.equal(digits, want)
+    assert torch.equal(digits, SR._rows_hi32(out.reshape(lanes, 2, 2, N), P, 8,
+                                             levels).to(torch.int8))
+    # the entry refuses views that are not whole lanes (rows % 4)
+    assert lib.ztfhe_ntt_inverse_crt_acc_half_rows(
+        *args[:2], out.data_ptr(), *args[3:11], rows - 2, N, drop,
+        digits.data_ptr(), *K1._digit_scalars(gadget), None) != 0
 
 
 def _with_n(P, N):

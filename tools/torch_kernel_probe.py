@@ -18,7 +18,8 @@ Bg_e 2^22, R = 2 rows of 3 digit limbs, drop 0, 5 primes; N = 1024; K3:
 ``--key-limbs``; t64, K2s only: SECURITY_128_BIT_T64's split step, N/2 =
 1024, 4 primes, 10 half-rows of the hi-plane digits (``_rows_hi32``) of
 a uniform accumulator, one step of a key made on the card with n0 cut to
-2) holds each kernel
+2; K1 there on the split views [P, 2B, 2, 2, 1024] of uniform hi planes,
+without and with the next step's half-rows) holds each kernel
 bit-equal to its plain PyTorch version at every batch size given,
 then times kernel and plain version with CUDA events (plain, kernel, kernel,
 plain), the kernel alone replayed from a CUDA graph (device time without
@@ -179,6 +180,61 @@ def _k2s_inputs(key, B, g):
     ts = torch.randint(0, 4 * plan.N, (2, B), generator=g, device=g.device,
                        dtype=torch.int32)
     return digits, bsk, ts, plan, 8
+
+
+def _k1_split(args, batches, gpu) -> bool:
+    """K1 at t64's split views, without and with the next step's hi-plane
+    half-rows: bit-equal to its plain version at each batch, each timed,
+    then the two instances from CUDA graphs in turns at the first batch."""
+    import torch
+
+    from zig_tfhe_tpu_torch import params
+    from zig_tfhe_tpu_torch.ops import ntt, split_ring
+    from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
+
+    dev = torch.device("cuda", 0)
+    P = params.SECURITY_128_BIT_T64
+    plan = ntt.plan_for_params(P, 32, 2, (3, 2), bgbit=8,
+                               pseudorandom_key=True)
+    gadget = split_ring.half_row_gadget(P, 8, (3, 2))
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    Nh, ok, turns = plan.N, True, None
+    for B in batches:
+        c, acc = (torch.randint(0, 1 << 32, (B, 2, 2, Nh), dtype=torch.int64,
+                                generator=g, device=dev).to(torch.int32)
+                  for _ in range(2))
+        v = k1.split_limbs(torch.stack(
+            ntt.ntt_forward(c, plan, digit_limbs=4, digit_bound=128)))
+        vv, aa = v.reshape(4, 2 * B, 2, 2, Nh), acc.reshape(2 * B, 2, Nh)
+        rows = torch.empty((B, 10, Nh), dtype=torch.int8, device=dev)
+        out = k1.ntt_inverse_to_crt_acc(vv, aa, plan, 0, digits=rows,
+                                        gadget=gadget)
+        plain = k1.ntt_inverse_to_crt_acc(vv, aa, plan, 0)
+        want = split_ring._rows_hi32(acc + c, P, 8, (3, 2)).to(torch.int8)
+        torch.cuda.synchronize()
+        same = (torch.equal(out, plain)
+                and torch.equal(out.reshape(B, 2, 2, Nh), acc + c)
+                and torch.equal(rows, want))
+        print(f"t64 B={B}: K1 with half-rows == without == exact, half-rows "
+              f"== _rows_hi32: {same}")
+        ok &= same
+        fns = {"K1": lambda a=(vv, aa, plan, 0): k1.ntt_inverse_to_crt_acc(*a),
+               "K1 + half-rows": lambda a=(vv, aa, plan, 0), d=rows:
+                   k1.ntt_inverse_to_crt_acc(*a, digits=d, gadget=gadget)}
+        refs = {"K1": lambda a=(vv, aa, plan, 0):
+                    k1.ntt_inverse_to_crt_acc_reference(*a),
+                "K1 + half-rows": lambda a=(vv, aa, plan, 0), d=rows:
+                    k1.ntt_inverse_to_crt_acc_reference(*a, d, gadget)}
+        for name, fn in fns.items():
+            _time_calls(f"t64 B={B}", name, fn, refs[name], args.iters, gpu)
+        turns = turns or fns
+    graph = {name: [] for name in turns}
+    for name in (*turns, *reversed(turns), *turns, *reversed(turns)):
+        graph[name].append(cs._graph_ms(turns[name], args.iters) * 1e3)
+    print(f"t64 B={batches[0]}: from CUDA graphs in turns: " + "; ".join(
+        f"{name} {', '.join(f'{t:.2f}' for t in ts)} us" for name, ts
+        in graph.items()) + f" [{gpu}]")
+    return ok
 
 
 def _k2s(args, batches, gpu) -> bool:
@@ -428,6 +484,8 @@ def main() -> int:
         ok &= _k3(args, batches, gpu)
     if "k2s" in kernels and set(K2S_PATHS) & set(args.paths.split(",")):
         ok &= _k2s(args, batches, gpu)
+    if "k1" in kernels and set(K2S_PATHS) & set(args.paths.split(",")):
+        ok &= _k1_split(args, batches, gpu)
     for v in args.k3_source:
         import ctypes
 

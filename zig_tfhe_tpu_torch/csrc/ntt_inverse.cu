@@ -70,7 +70,7 @@
 // and not stored.
 //
 // The next step's digits (one-limb engine gadgets: every boolean key).  A
-// second instance of the kernel (DIGITS = true) also writes the gadget
+// second instance of the kernel (Digits::kRows) also writes the gadget
 // digits of the accumulator it has just made, which the next step's K2
 // reads as its int8 A tile: for each output u of row (b, c) and each level
 // i < levels[c],
@@ -96,6 +96,25 @@
 // memory (8 partial sectors a warp store) and took 125.7 us.  The instance
 // without digits is the same machine code as before (`if constexpr`; its
 // SASS compared equal line for line).
+//
+// The split ring's half-rows (the 64-bit torus's hi-plane scan,
+// ops/split_ring.py).  There the kernel runs on the views [P, 2B, 2, 2, N]
+// and [2B, 2, N] (N = the ring's N/2), so its rows are (b, c, q): the
+// component is bit 1 of the row, and the parity q bit 0.  A third instance
+// (Digits::kHalfRows) writes the next step's int8 half-rows, which K2s
+// (csrc/split_step.cu) reads as its A tile, in (r, q) row order:
+//
+//   digits[b, 2 * (c * levels[0] + i) + q, col] =
+//       int8(((u + offset[c]) >>u (32 - (i+1) * bits)) & (2^bits - 1))
+//       - 2^(bits-1)
+//
+// with offset[c] the hi word of the component's 64-bit offset (its low
+// word is carried in the accumulator): ops/split_ring.py:_rows_hi32 and
+// the int8 cast, 11 plain PyTorch launches a step before.  A thread's rows
+// g + 8h keep bits 0-1 of g, so its component is still uniform and the
+// staged 16-byte stores carry over; only the component bit and the digit
+// row differ (`component`, `digit_row`).  The two instances above keep
+// their machine code (SASS compared equal line for line).
 
 #include "hopper_prims.cuh"
 
@@ -111,14 +130,19 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 
 __host__ __device__ constexpr int stage_bytes(int bn) { return BM * BK + 2 * bn * BK; }
 __host__ __device__ constexpr int stages(int bn) { return bn == 64 ? 6 : 8; }
-// the DIGITS instance's staging rows: one level of a warpgroup's 64 rows
+// the digits an instance also writes (see the header): none, the 32-bit
+// engine's rows [B, la + lb, N] (rows (b, c)), or the split ring's
+// half-rows [B, 2 (la + lb), N] (rows (b, c, q))
+enum class Digits { kNone, kRows, kHalfRows };
+
+// the digit instances' staging rows: one level of a warpgroup's 64 rows
 __host__ __device__ constexpr int stage_row(int bn) { return bn + 16; }
 __host__ __device__ constexpr int smem_bytes(int bn, bool digits = false) {
   return 1024 + stages(bn) * stage_bytes(bn) + 2 * stages(bn) * 8 +
          (digits ? kConsumers * 64 * stage_row(bn) : 0);
 }
 
-// the gadget of the digits the DIGITS instance writes (see the header)
+// the gadget of the digits a digit instance writes (see the header)
 struct DigitParams {
   uint32_t offset_a, offset_b;   // per component
   uint32_t mask, half;           // 2^bits - 1, 2^(bits-1)
@@ -135,6 +159,26 @@ struct CrtParams {
   int n_primes;
 };
 
+// the component of a row: bit 0 on rows (b, c), bit 1 on rows (b, c, q);
+// a thread's rows g + 8h keep bits 0-1 of g, so g gives them all
+template <Digits D>
+__device__ __forceinline__ int component(int row) {
+  if constexpr (D == Digits::kHalfRows)
+    return (row >> 1) & 1;
+  else
+    return row & 1;
+}
+
+// the digit row of level i of row r, component c (see the header)
+template <Digits D>
+__device__ __forceinline__ size_t digit_row(int r, int c, int i, int la,
+                                            int R) {
+  if constexpr (D == Digits::kHalfRows)
+    return static_cast<size_t>(r >> 2) * (2 * R) + 2 * (c * la + i) + (r & 1);
+  else
+    return static_cast<size_t>(r >> 1) * R + c * la + i;
+}
+
 // round(f32(x) * f32(1/p)) half to even, as jnp.round; r = x - q*p wraps
 __device__ __forceinline__ int barrett(int x, int p, float inv_p) {
   const int q = __float2int_rn(__fmul_rn(__int2float_rn(x), inv_p));
@@ -145,9 +189,10 @@ __device__ __forceinline__ int barrett(int x, int p, float inv_p) {
 // map_v:  int8 [P, rows, 2N]   limb planes of the residues, box [1, 128, 128]
 // map_lo, map_hi: int8 [P * N, 2N]  limbs of [Minv ; 256*Minv mod p],
 //             transposed so the contraction axis is contiguous, box [BN, 128]
-// acc, out: int32 [rows, N]    (rows = 2B: the (B, 2) axes)
-// digits:   int8 [B, la + lb, N] (DIGITS only)
-template <int BN, bool DIGITS>
+// acc, out: int32 [rows, N]    (rows = 2B: the (B, 2) axes; 4B on the split
+//                               views: (B, 2, 2))
+// digits:   int8 [B, la + lb, N] (kRows) or [B, 2 (la + lb), N] (kHalfRows)
+template <int BN, Digits D>
 __global__ void __launch_bounds__(kThreads, 1)
 ntt_inverse_crt_acc_kernel(const __grid_constant__ CUtensorMap map_v,
                            const __grid_constant__ CUtensorMap map_lo,
@@ -289,23 +334,23 @@ ntt_inverse_crt_acc_kernel(const __grid_constant__ CUtensorMap map_v,
           }
           *reinterpret_cast<int2*>(out + o) =
               make_int2(static_cast<int>(res[0]), static_cast<int>(res[1]));
-          if constexpr (DIGITS) {   // keep u + offset for the digits
-            const uint32_t off = (g & 1) ? dp.offset_b : dp.offset_a;
+          if constexpr (D != Digits::kNone) {   // keep u + offset for the digits
+            const uint32_t off = component<D>(g) ? dp.offset_b : dp.offset_a;
             crt_sum[nt * 4 + 2 * h] = res[0] + off;
             crt_sum[nt * 4 + 2 * h + 1] = res[1] + off;
           }
         }
 
-      if constexpr (DIGITS) {
+      if constexpr (D != Digits::kNone) {
         // The next step's digits, a level at a time.  A thread's rows are
-        // all of one component (the parity of g).  Each thread stages its
-        // two columns' digits of each row as 2 bytes; then the warpgroup
-        // stores its 64 rows from the staging rows as 16-byte chunks, each
-        // row's BN bytes contiguous in the digit plane.
+        // all of one component.  Each thread stages its two columns' digits
+        // of each row as 2 bytes; then the warpgroup stores its 64 rows from
+        // the staging rows as 16-byte chunks, each row's BN bytes contiguous
+        // in the digit plane.
         constexpr int SR = stage_row(BN);
         constexpr int CHUNKS = BN / 16;   // 16-byte chunks a row
         unsigned char* st = staging + wg * 64 * SR;
-        const int lev = (g & 1) ? dp.lb : dp.la;
+        const int lev = component<D>(g) ? dp.lb : dp.la;
         const int levels = dp.la > dp.lb ? dp.la : dp.lb;
         const int R = dp.la + dp.lb;
         for (int i = 0; i < levels; ++i) {
@@ -329,10 +374,9 @@ ntt_inverse_crt_acc_kernel(const __grid_constant__ CUtensorMap map_v,
             const int k = (tid & 127) + 128 * j;
             const int rl = k / CHUNKS, part = k % CHUNKS;
             const int r = row0 + wg * 64 + rl;
-            const int side = rl & 1;
+            const int side = component<D>(rl);
             if (r < rows && i < (side ? dp.lb : dp.la)) {
-              const size_t drow =
-                  static_cast<size_t>(r >> 1) * R + side * dp.la + i;
+              const size_t drow = digit_row<D>(r, side, i, dp.la, R);
               *reinterpret_cast<int4*>(digits + drow * N + col0 + part * 16) =
                   *reinterpret_cast<const int4*>(st + rl * SR + part * 16);
             }
@@ -353,7 +397,7 @@ struct MatrixMaps {
   CUtensorMap map_lo, map_hi;
 };
 
-template <int BN, bool DIGITS>
+template <int BN, Digits D>
 int launch(const int8_t* v, const int* acc, int* out, const int8_t* m_lo,
            const int8_t* m_hi, const CrtParams& cp, int rows, int N, int drop,
            int8_t* digits, const DigitParams& dp, cudaStream_t stream) {
@@ -383,23 +427,24 @@ int launch(const int8_t* v, const int* acc, int* out, const int8_t* m_lo,
   }
   // above 48 KB, dynamic shared memory needs the cap raised (per device)
   // (set once per device: the call costs host time on a host-bound path)
+  constexpr int smem = smem_bytes(BN, D != Digits::kNone);
   thread_local int cap_device = -1;
   int device = 0;
   cudaGetDevice(&device);
   if (device != cap_device) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ntt_inverse_crt_acc_kernel<BN, DIGITS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(BN, DIGITS));
+        ntt_inverse_crt_acc_kernel<BN, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     cap_device = device;
   }
   const dim3 grid(N / BN, (rows + BM - 1) / BM);
-  ntt_inverse_crt_acc_kernel<BN, DIGITS><<<grid, kThreads, smem_bytes(BN, DIGITS), stream>>>(
+  ntt_inverse_crt_acc_kernel<BN, D><<<grid, kThreads, smem, stream>>>(
       map_v, m.map_lo, m.map_hi, acc, out, cp, rows, N, drop, digits, dp);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool DIGITS>
+template <Digits D>
 int entry(const int8_t* v, const int* acc, int* out, const int8_t* m_lo,
           const int8_t* m_hi, const int* primes, const int* crt_e,
           const float* inv_p, const float* theta, int p_mod, int n_primes,
@@ -421,10 +466,26 @@ int entry(const int8_t* v, const int* acc, int* out, const int8_t* m_lo,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles64 = (N / 64) * ((rows + BM - 1) / BM);
   return tiles64 >= sm_count()
-             ? launch<64, DIGITS>(v, acc, out, m_lo, m_hi, cp, rows, N, drop,
-                                  digits, dp, s)
-             : launch<32, DIGITS>(v, acc, out, m_lo, m_hi, cp, rows, N, drop,
-                                  digits, dp, s);
+             ? launch<64, D>(v, acc, out, m_lo, m_hi, cp, rows, N, drop,
+                             digits, dp, s)
+             : launch<32, D>(v, acc, out, m_lo, m_hi, cp, rows, N, drop,
+                             digits, dp, s);
+}
+
+// the digit entries' gadget: false where the kernel cannot write it
+bool digit_params(DigitParams* dp, int offset_a, int offset_b, int bits,
+                  int la, int lb) {
+  if (bits < 1 || bits > 8 || la < 1 || lb < 1 || la * bits > 32 ||
+      lb * bits > 32)
+    return false;
+  dp->offset_a = static_cast<uint32_t>(offset_a);
+  dp->offset_b = static_cast<uint32_t>(offset_b);
+  dp->mask = (1u << bits) - 1u;
+  dp->half = 1u << (bits - 1);
+  dp->bits = bits;
+  dp->la = la;
+  dp->lb = lb;
+  return true;
 }
 
 }  // namespace
@@ -440,9 +501,9 @@ extern "C" int ztfhe_ntt_inverse_crt_acc(
     const int8_t* m_hi, const int* primes, const int* crt_e,
     const float* inv_p, const float* theta, int p_mod, int n_primes,
     int rows, int N, int drop, void* stream) {
-  return entry<false>(v, acc, out, m_lo, m_hi, primes, crt_e, inv_p, theta,
-                      p_mod, n_primes, rows, N, drop, nullptr, DigitParams{},
-                      stream);
+  return entry<Digits::kNone>(v, acc, out, m_lo, m_hi, primes, crt_e, inv_p,
+                              theta, p_mod, n_primes, rows, N, drop, nullptr,
+                              DigitParams{}, stream);
 }
 
 // The same, and the next step's gadget digits of `out` into `digits`, int8
@@ -455,19 +516,30 @@ extern "C" int ztfhe_ntt_inverse_crt_acc_digits(
     const float* inv_p, const float* theta, int p_mod, int n_primes,
     int rows, int N, int drop, int8_t* digits, int offset_a, int offset_b,
     int bits, int la, int lb, void* stream) {
-  if (bits < 1 || bits > 8 || la < 1 || lb < 1 || la * bits > 32 ||
-      lb * bits > 32 || rows % 2 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   DigitParams dp;
-  dp.offset_a = static_cast<uint32_t>(offset_a);
-  dp.offset_b = static_cast<uint32_t>(offset_b);
-  dp.mask = (1u << bits) - 1u;
-  dp.half = 1u << (bits - 1);
-  dp.bits = bits;
-  dp.la = la;
-  dp.lb = lb;
-  return entry<true>(v, acc, out, m_lo, m_hi, primes, crt_e, inv_p, theta,
-                     p_mod, n_primes, rows, N, drop, digits, dp, stream);
+  if (!digit_params(&dp, offset_a, offset_b, bits, la, lb) || rows % 2 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return entry<Digits::kRows>(v, acc, out, m_lo, m_hi, primes, crt_e, inv_p,
+                              theta, p_mod, n_primes, rows, N, drop, digits,
+                              dp, stream);
+}
+
+// The same on the split ring's views (rows = 4B: (b, c, q)), and the next
+// step's half-rows of `out` into `digits`, int8 [rows / 4, 2 (la + lb), N]
+// (see the header): the hi words of the a and b components' offsets, the
+// other conditions as above, rows a multiple of 4.
+extern "C" int ztfhe_ntt_inverse_crt_acc_half_rows(
+    const int8_t* v, const int* acc, int* out, const int8_t* m_lo,
+    const int8_t* m_hi, const int* primes, const int* crt_e,
+    const float* inv_p, const float* theta, int p_mod, int n_primes,
+    int rows, int N, int drop, int8_t* digits, int offset_a, int offset_b,
+    int bits, int la, int lb, void* stream) {
+  DigitParams dp;
+  if (!digit_params(&dp, offset_a, offset_b, bits, la, lb) || rows % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return entry<Digits::kHalfRows>(v, acc, out, m_lo, m_hi, primes, crt_e,
+                                  inv_p, theta, p_mod, n_primes, rows, N, drop,
+                                  digits, dp, stream);
 }
 
 extern "C" const char* ztfhe_cuda_error_string(int code) {

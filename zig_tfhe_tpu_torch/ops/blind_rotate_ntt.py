@@ -33,12 +33,13 @@ the key's engine gadget, as int8, ``row_gadget``) into the one buffer
 that K2 of step s read, for K2 of step s + 1; the last step writes none.  Stream order makes one
 buffer enough, and a step is two launches instead of thirteen.  The span
 ``blind_rotate.steps`` carries ``fused_steps``, the steps whose K1 wrote
-digits: G - 1 here, 0 on every other path.  Multi-limb digits keep the
-decompose and ``digit_planes`` on every step.
+digits: G - 1 here, 0 on the other paths of this module.  Multi-limb
+digits keep the decompose and ``digit_planes`` on every step.
 
 The 64-bit torus: a split-ring set (N > 1024) runs
 ops/split_ring.py:blind_rotate_split, whose hi-plane step finishes on
-K1.  The direct engine at width 64 (TEST_TINY64, N = 64) runs the plain
+K1 (at group 2, fused the same way: K1 writes the next step's half-rows
+for K2s).  The direct engine at width 64 (TEST_TINY64, N = 64) runs the plain
 ops at every group and finishes with K1's int64 variant
 (split_ring.py:finish_int64), plain PyTorch ops on the card as on the CPU.
 """

@@ -19,6 +19,10 @@ digits of the accumulator they return: int8 [B, la + lb, N], equal to
 that K2 reads.  On the card that is a second instance of the kernel,
 which computes them in its final epilogue from the values it stores
 (csrc/ntt_inverse.cu); the instance without them is the kernel as it was.
+On the split ring's views (accumulator [2B, 2, N/2], rows (b, c, q)) a
+``HalfRowGadget`` instead asks for the next step's hi-plane half-rows,
+int8 [B, 2(la + lb), N/2], equal to ``split_ring._rows_hi32(out, ...)
+.to(torch.int8)``, the digits that K2s reads: a third instance.
 
 ``ntt_inverse_to_crt_acc`` launches the kernel for CUDA tensors (or
 raises) and runs the plain PyTorch version,
@@ -30,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,10 +42,36 @@ import torch
 from zig_tfhe_tpu_torch.ops.blind_rotate import RowGadget, _decompose_to_rows
 from zig_tfhe_tpu_torch.ops.cuda import _build
 from zig_tfhe_tpu_torch.ops.ntt import NTTPlan, ntt_inverse_to_crt
+from zig_tfhe_tpu_torch.params import SecurityParams
 
 SOURCE = _build.CSRC / "ntt_inverse.cu"
 _MAX_PRIMES = 8     # kMaxPrimes in the source
 _COL_TILE = 64      # N must be a multiple of the kernel's widest tile
+
+
+class HalfRowGadget(NamedTuple):
+    """The split-ring scan's hi-plane decomposition
+    (``split_ring._rows_hi32(acc_hi, params, bits, levels)``) as K1 writes
+    it on the split views: base 2^bits, ``levels`` (la, lb) and the hi word
+    of each component's offset mod 2^32 (its low word is carried in the
+    accumulator); made by ``split_ring.half_row_gadget``."""
+    params: SecurityParams
+    bits: int
+    levels: tuple
+    offsets: tuple
+
+
+def _gadget_digits(out: torch.Tensor, gadget) -> torch.Tensor:
+    """The plain digits of ``out`` at ``gadget``, int8."""
+    if isinstance(gadget, HalfRowGadget):
+        from zig_tfhe_tpu_torch.ops.split_ring import _rows_hi32
+
+        rows = _rows_hi32(out.reshape(-1, 2, *out.shape[1:]), gadget.params,
+                          gadget.bits, gadget.levels)
+    else:
+        rows = _decompose_to_rows(out, gadget.params, gadget.levels,
+                                  bgbit=gadget.bits)
+    return rows.to(torch.int8)
 
 
 def split_limbs(v: torch.Tensor) -> torch.Tensor:
@@ -64,8 +95,10 @@ def ntt_inverse_to_crt_acc_reference(v_stack: torch.Tensor, acc: torch.Tensor,
     """Plain PyTorch version: acc + (ntt_inverse_to_crt(v) << drop), the
     JAX package's XLA formulation of the same step (blind_rotate_ntt.py
     finish).  v_stack: int8 limb planes [P, B, 2, 2, N] or int32 residues
-    [P, B, 2, N].  With ``digits`` (int8 [B, la + lb, N]) also writes the
-    output's gadget digits there, ``_decompose_to_rows`` at ``gadget``."""
+    [P, B, 2, N].  With ``digits`` also writes the output's gadget digits
+    there: ``_decompose_to_rows`` at a ``RowGadget`` (int8 [B, la + lb,
+    N]), ``split_ring._rows_hi32`` at a ``HalfRowGadget`` (int8 [B / 2,
+    2(la + lb), N])."""
     if v_stack.dtype == torch.int8:
         v_stack = join_limbs(v_stack)
     delta = ntt_inverse_to_crt(list(v_stack), plan)
@@ -73,8 +106,7 @@ def ntt_inverse_to_crt_acc_reference(v_stack: torch.Tensor, acc: torch.Tensor,
         delta = delta << drop
     out = acc + delta
     if digits is not None:
-        digits.copy_(_decompose_to_rows(out, gadget.params, gadget.levels,
-                                        bgbit=gadget.bits).to(torch.int8))
+        digits.copy_(_gadget_digits(out, gadget))
     return out
 
 
@@ -86,14 +118,15 @@ def _library() -> ctypes.CDLL:
     lib.ztfhe_ntt_inverse_crt_acc.argtypes = [p, p, p, p, p, p, p, p, p,
                                               i, i, i, i, i, p]
     lib.ztfhe_ntt_inverse_crt_acc.restype = i
-    lib.ztfhe_ntt_inverse_crt_acc_digits.argtypes = ([p] * 9 + [i] * 5 + [p]
-                                                     + [i] * 5 + [p])
-    lib.ztfhe_ntt_inverse_crt_acc_digits.restype = i
+    for entry in (lib.ztfhe_ntt_inverse_crt_acc_digits,
+                  lib.ztfhe_ntt_inverse_crt_acc_half_rows):
+        entry.argtypes = [p] * 9 + [i] * 5 + [p] + [i] * 5 + [p]
+        entry.restype = i
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _digit_scalars(gadget: RowGadget) -> tuple:
+def _digit_scalars(gadget: RowGadget | HalfRowGadget) -> tuple:
     """The digit entry point's scalars, passed by value: both offsets as
     signed 32-bit ints, bits, la, lb."""
     offs = tuple(o - (1 << 32) if o >= 1 << 31 else o for o in gadget.offsets)
@@ -131,19 +164,26 @@ def _kernel_tables(plan: NTTPlan, device: torch.device) -> _KernelTables:
         theta=np.array(plan.crt_theta, np.float32))
 
 
-def _require_digits(digits: torch.Tensor, gadget: RowGadget | None,
+def _require_digits(digits: torch.Tensor,
+                    gadget: RowGadget | HalfRowGadget | None,
                     acc: torch.Tensor) -> None:
-    if gadget is None:
-        raise ValueError("digits need the RowGadget they are written at")
-    B, N = acc.shape[0], acc.shape[-1]
-    if gadget.bits > 8 or gadget.params.torus_bits != 32:
+    half = isinstance(gadget, HalfRowGadget)
+    if not (half or isinstance(gadget, RowGadget)):
+        raise ValueError("digits need the RowGadget or HalfRowGadget they "
+                         "are written at")
+    width = 64 if half else 32
+    if gadget.bits > 8 or gadget.params.torus_bits != width:
         raise NotImplementedError(
-            f"the kernel writes one-limb digits of the 32-bit torus (Bg_e <= "
-            f"2^8), not Bg_e = 2^{gadget.bits} at width "
-            f"{gadget.params.torus_bits}")
-    shape = (B, sum(gadget.levels), N)
+            f"the kernel writes one-limb digits (Bg_e <= 2^8) of the 32-bit "
+            f"torus, or of the 64-bit torus's hi planes, not Bg_e = "
+            f"2^{gadget.bits} at width {gadget.params.torus_bits} "
+            f"({type(gadget).__name__})")
+    rows, N = acc.shape[0], acc.shape[-1]
+    shape = ((rows // 2, 2 * sum(gadget.levels), N) if half
+             else (rows, sum(gadget.levels), N))
     if (digits.dtype != torch.int8 or tuple(digits.shape) != shape
-            or not digits.is_contiguous() or digits.device != acc.device):
+            or (half and rows % 2) or not digits.is_contiguous()
+            or digits.device != acc.device):
         raise ValueError(
             f"digits {digits.dtype} {tuple(digits.shape)} on {digits.device} "
             f"are not a contiguous int8 {shape} on {acc.device}")
@@ -158,9 +198,12 @@ def ntt_inverse_to_crt_acc(v_stack: torch.Tensor, acc: torch.Tensor,
     v_stack: the per-prime residues (|.| <= 0.55p), as int8 limb planes
     [P, B, 2, 2, N] (K2's output) or as int32 [P, B, 2, N], which is split
     here; acc: int32 [B, 2, N].  Any B.  With ``digits``, a contiguous
-    int8 [B, la + lb, N] buffer, and the ``gadget`` of one-limb digits
+    int8 [B, la + lb, N] buffer, and the ``RowGadget`` of one-limb digits
     (Bg_e <= 2^8), also writes there the output's gadget digits
-    (``_decompose_to_rows(out, ...).to(torch.int8)``).  CUDA tensors
+    (``_decompose_to_rows(out, ...).to(torch.int8)``); on the split ring's
+    views (acc [2L, 2, N] for L lanes, rows (b, c, q)) a ``HalfRowGadget``
+    and an int8 [L, 2(la + lb), N] buffer take the hi-plane half-rows
+    (``split_ring._rows_hi32(out, ...).to(torch.int8)``).  CUDA tensors
     launch the kernel (and count the launch in
     ``ntt_inverse_to_crt_acc.launches``, and one that wrote digits also in
     ``.digit_launches``); CPU tensors run the plain version."""
@@ -207,8 +250,10 @@ def ntt_inverse_to_crt_acc(v_stack: torch.Tensor, acc: torch.Tensor,
     if digits is None:
         err = lib.ztfhe_ntt_inverse_crt_acc(*args, stream)
     else:
-        err = lib.ztfhe_ntt_inverse_crt_acc_digits(
-            *args, digits.data_ptr(), *_digit_scalars(gadget), stream)
+        entry = (lib.ztfhe_ntt_inverse_crt_acc_half_rows
+                 if isinstance(gadget, HalfRowGadget)
+                 else lib.ztfhe_ntt_inverse_crt_acc_digits)
+        err = entry(*args, digits.data_ptr(), *_digit_scalars(gadget), stream)
     _build.check(lib, err, "ntt_inverse_crt_acc")
     ntt_inverse_to_crt_acc.launches += 1
     if digits is not None:

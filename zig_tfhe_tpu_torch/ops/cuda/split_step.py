@@ -8,10 +8,11 @@ split-ring shape of ops/split_ring.py: 2R half-rows a batch element, the
 folded key's 4 output planes, the Y-twisted combine
 (``rotate_combine_multi_split``).  The JAX package runs this step in XLA
 and has no Pallas kernel for it.  One hi-plane step of
-``blind_rotate_split`` is the decompose (``_rows_hi32``), this kernel, then
-K1 (ops/cuda/ntt_inverse.py), which takes the residues as the int8 limb
-planes this kernel writes ([P, B, 2(c), 2(q), 2(limb), N/2], viewed as
-[P, 2B, 2, 2, N/2] rows (b, c)).  The source is
+``blind_rotate_split`` is this kernel, then K1 (ops/cuda/ntt_inverse.py),
+which takes the residues as the int8 limb planes this kernel writes ([P,
+B, 2(c), 2(q), 2(limb), N/2], viewed as [P, 2B, 2, 2, N/2] rows (b, c,
+q)) and writes the next step's digits (``_rows_hi32`` of its output, the
+int8 half-rows; step 0's come from ``_rows_hi32`` itself).  The source is
 zig_tfhe_tpu_torch/csrc/split_step.cu (its header gives the bound on the
 card and the design); ops/cuda/_build.py compiles it at first use.  Its
 Barrett rounds by an f32 add of 1.5 * 2^23 instead of the f32 -> int32

@@ -32,12 +32,18 @@ the step is K2s (ops/cuda/split_step.py:split_step_fused, a hand kernel
 for Hopper: forward NTT, pointwise sums and combine in one launch, the
 residues written as int8 limb planes [P, B, 2(c), 2(q), 2(limb), Nh]) and
 the finish is K1 (ops/cuda/ntt_inverse.py:ntt_inverse_to_crt_acc) on the
-views [P, 2B, 2, 2, Nh] and [2B, 2, Nh], rows (b, c): every hi-plane step
-is the decompose, one K2s and one K1 launch on CUDA tensors.  K2s's plain
-version is the prime-batched chain below (``_forward``, ``_pointwise``,
-``rotate_combine_multi_split``; the primes on a leading axis with their
-constants broadcast, ``_barrett``), which the JAX package runs in XLA (no
-Pallas kernel covers the split step).  Group 1 and group 3 keys run that
+views [P, 2B, 2, 2, Nh] and [2B, 2, Nh], rows (b, c, q).  That loop is
+fused as the 32-bit engine's: step 0 decomposes the set-up's accumulator
+(``_rows_hi32``), and from then on K1 of step s also writes the int8
+half-rows of the accumulator it makes (at ``half_row_gadget``) into the
+buffer that K2s of step s read, for K2s of step s + 1; the last step
+writes none.  So a hi-plane step is one K2s and one K1 launch on CUDA
+tensors, and ``fused_steps`` of span ``blind_rotate.steps`` reads G - 1
+(0 on every other split path).  K2s's plain version is the prime-batched
+chain below (``_forward``, ``_pointwise``, ``rotate_combine_multi_split``;
+the primes on a leading axis with their constants broadcast,
+``_barrett``), which the JAX package runs in XLA (no Pallas kernel covers
+the split step).  Group 1 and group 3 keys run that
 chain on either device, and their hi-plane finish is K1 on the int32
 residues.  The decomposition and the combine are the JAX formulas element
 for element (bit-equal residues); the forward NTT takes the two-Barrett
@@ -64,7 +70,8 @@ import torch
 from zig_tfhe_tpu_torch.ops import ntt as _ntt
 from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows, modswitch
 from zig_tfhe_tpu_torch.ops.cuda import split_step as _k2s
-from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import ntt_inverse_to_crt_acc
+from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import (HalfRowGadget,
+                                                     ntt_inverse_to_crt_acc)
 from zig_tfhe_tpu_torch.ops.decomposition import gadget_offset
 from zig_tfhe_tpu_torch.ops.poly import matmul_i8, negacyclic_rotate
 from zig_tfhe_tpu_torch.params import SecurityParams
@@ -338,8 +345,9 @@ def _rows_hi32(acc_hi: torch.Tensor, params: SecurityParams, e: int,
     mask, half = (1 << e) - 1, 1 << (e - 1)
 
     def digs(x, off, lv):    # [B, 2, Nh] -> [B, lv, 2, Nh]
-        sh = torch.tensor([32 - (i + 1) * e for i in range(lv)],
-                          dtype=torch.int32, device=x.device).view(lv, 1, 1)
+        # shifts 32 - (i+1) e, made on the device: no host copy to wait for
+        sh = torch.arange(32 - e, 32 - (lv + 1) * e, -e, dtype=torch.int32,
+                          device=x.device).view(lv, 1, 1)
         # the arithmetic shift's sign bits lie above the mask: the logical
         # shift's digits
         return (((x + to_i32(off >> 32))[:, None] >> sh) & mask) - half
@@ -347,6 +355,14 @@ def _rows_hi32(acc_hi: torch.Tensor, params: SecurityParams, e: int,
     r = torch.cat([digs(acc_hi[:, 0], off_a, la), digs(acc_hi[:, 1], off_b, lb)],
                   dim=1)                                      # [B, R, 2, Nh]
     return r.reshape(r.shape[0], 2 * (la + lb), r.shape[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def half_row_gadget(params: SecurityParams, e: int, levels) -> HalfRowGadget:
+    """The ``HalfRowGadget`` of ``_rows_hi32(., params, e, levels)``: the
+    numbers K1 takes to write the hi-plane half-rows."""
+    return HalfRowGadget(params, e, tuple(levels), tuple(
+        off >> 32 for off in _hi32_offsets(params, e, levels)))
 
 
 def finish_int64(v_hat, acc: torch.Tensor, plan: _ntt.NTTPlan,
@@ -422,11 +438,19 @@ def blind_rotate_split(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
             return _forward(rows, plan)                       # [P, B, 2R, Nh]
         return torch.stack(_ntt.ntt_forward(rows, plan, e_limbs, dbound))
 
-    def finish(acc, v):       # v int32 [P, B, 2, 2, Nh] or int8 [P, B, 2, 2, 2, Nh]
+    # group 2 with one-limb digits on the hi planes: K2s, and K1 writes the
+    # next step's half-rows into the buffer K2s has just read (stream
+    # order), so only step 0 decomposes
+    fused = _k2s.supports(group, e_limbs, hi32)
+    gadget = half_row_gadget(params, e, levels) if fused else None
+
+    def finish(acc, v, digits=None):
+        # v int32 [P, B, 2, 2, Nh] or int8 [P, B, 2, 2, 2, Nh]
         if hi32:
             out = ntt_inverse_to_crt_acc(
                 v.reshape(plan.n_primes, 2 * B, *v.shape[3:]),
-                acc.reshape(2 * B, 2, Nh), plan, drop_bits - 32)
+                acc.reshape(2 * B, 2, Nh), plan, drop_bits - 32,
+                digits=digits, gadget=gadget)
             return out.reshape(B, 2, 2, Nh)
         return finish_int64(v, acc, plan, drop_bits)
 
@@ -441,14 +465,16 @@ def blind_rotate_split(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
         if n0 < group * G:            # ragged n0: a = 0 is the identity rotation
             t_cols = torch.cat([t_cols, t_cols.new_zeros(group * G - n0, B)])
         t_grps = t_cols.reshape(G, group, B)
-        fused = _k2s.supports(group, e_limbs, hi32)
         with profiling.span("blind_rotate.steps", device=acc.device,
-                            steps=G, fused_steps=0):
+                            steps=G, fused_steps=G - 1 if fused else 0):
+            rows = None
             for s in range(G):
                 if fused:
-                    rows = _rows_hi32(acc, params, e, levels).to(torch.int8)
+                    if rows is None:
+                        rows = _rows_hi32(acc, params, e, levels).to(torch.int8)
                     acc = finish(acc, _k2s.split_step_fused(
-                        rows, bsk_split[s], t_grps[s], plan, e))
+                        rows, bsk_split[s], t_grps[s], plan, e),
+                        rows if s < G - 1 else None)
                     continue
                 d_hat = fwd(acc)
                 us = [_pointwise(d_hat, bsk_split[s, m], plan)

@@ -48,7 +48,7 @@ gate path records:
 - span ``blind_rotate.steps`` (the step loop of each blind-rotation
   engine; attributes ``steps`` and ``fused_steps``, the steps whose K1
   also wrote the next step's digits: G - 1 on the NTT engine's one-limb
-  path, 0 on every other): the scan;
+  path and on the split ring's K2s path, 0 on every other): the scan;
 - span ``bootstrap.key_switch`` (``ops/keyswitch.py:identity_key_switch``).
 
 No range that the profiler itself records (``record_function``, NVTX) is
