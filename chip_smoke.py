@@ -53,7 +53,7 @@ K2's function at the split shape) then K1.  Phases:
      (bit-equal), also at B = 65 and 64 (one batch tile and a ragged
      second one); on the one-limb paths (g3, g2) K1's instance that also
      writes the next step's gadget digits, its digits bit-equal to the
-     plain version's (``_decompose_to_rows`` of its output, as int8) and
+     plain version's (``decompose_rows`` of its output, as int8) and
      its accumulator to the instance without them, at each B, and the two
      instances timed in turns at B = 2048;
   5. per path, B = 2048 heterogeneous gates with every launch count set to
@@ -171,7 +171,7 @@ K2's function at the split shape) then K1.  Phases:
      K1 on K2s's residues, bit-equal to its plain version and to the plain
      hi-plane finish at the same batches, timed beside its bound; K1's
      instance that also writes the half-rows, its half-rows bit-equal to
-     ``_rows_hi32`` of its output at the same batches, timed in turns with
+     ``rows_hi32`` of its output at the same batches, timed in turns with
      the instance without them from CUDA graphs at B = 2048;
      apply_gates on 512 lanes cycling the 10 gates, the launch counts set to
      0 just before and read just after (K2s = K1 = 384, 383 K1 launches
@@ -975,7 +975,7 @@ def _ms_phase(ct, s, P):
     coefficient 0 is tv[k] for k < N, -tv[k - N] above."""
     import torch
 
-    from zig_tfhe_tpu_torch.ops.blind_rotate import modswitch
+    from zig_tfhe_tpu_torch.ops.decomposition import modswitch
 
     n0 = P.n0
     ta = modswitch(ct[..., :n0], P).long()
@@ -1019,7 +1019,7 @@ def _lut_phase(g, uint_keys, counters, gpu) -> dict:
 
     from zig_tfhe_tpu_torch.models import lut
     from zig_tfhe_tpu_torch.ops import ntt
-    from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows
+    from zig_tfhe_tpu_torch.ops.decomposition import decompose_rows
     from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
     from zig_tfhe_tpu_torch.ops.cuda import ntt_step as k2
 
@@ -1167,12 +1167,12 @@ def _lut_phase(g, uint_keys, counters, gpu) -> dict:
                                pseudorandom_key=True)
     acc = torch.randint(-2**31, 2**31, (LUT_LANES, 2, N), generator=g,
                         device=dev, dtype=torch.int64).to(torch.int32)
-    rows = _decompose_to_rows(acc, P4, levels, bgbit=e)
+    rows = decompose_rows(acc, P4, levels, bgbit=e)
     planes = k2.digit_planes(rows, n_dl)
     ts = torch.randint(0, 2 * N, (2, LUT_LANES), generator=g, device=dev,
                        dtype=torch.int64).to(torch.int32)
     v = k2.ntt_step_fused(planes, ck4.bsk_ntt[0], ts, plan, e)
-    stage = {"decompose": lambda: _decompose_to_rows(acc, P4, levels, bgbit=e),
+    stage = {"decompose": lambda: decompose_rows(acc, P4, levels, bgbit=e),
              "limbs": lambda: k2.digit_planes(rows, n_dl),
              "K2": lambda: k2.ntt_step_fused(planes, ck4.bsk_ntt[0], ts, plan, e),
              "K1": lambda: k1.ntt_inverse_to_crt_acc(v, acc, plan,
@@ -1571,8 +1571,8 @@ def _t64_phase(g, counters, gpu):
 
     from zig_tfhe_tpu_torch import key, params, tlwe
     from zig_tfhe_tpu_torch.models import gates, integer, lut
-    from zig_tfhe_tpu_torch.ops import ntt, split_ring
-    from zig_tfhe_tpu_torch.ops.blind_rotate import modswitch
+    from zig_tfhe_tpu_torch.ops import decomposition, ntt, split_ring
+    from zig_tfhe_tpu_torch.ops.decomposition import modswitch
     from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
     from zig_tfhe_tpu_torch.ops.cuda import split_step as k2s
     from zig_tfhe_tpu_torch.ops.poly import negacyclic_rotate
@@ -1607,7 +1607,7 @@ def _t64_phase(g, counters, gpu):
     _check(cfg == (2, 8, (3, 2), 32) and got_shapes == want_shapes
            and ck.pksk_gadget == (8, 3) and plan.N == N // 2
            and plan.primes == (18433, 40961, 59393, 61441)
-           and split_ring._hi32_viable(P, 32, 8, (3, 2)),
+           and decomposition.hi32_viable(P, 32, 8, (3, 2)),
            f"{P.name} key {cfg}, arrays {got_shapes}, packing gadget "
            f"{ck.pksk_gadget}, plan {plan.primes}")
     print(f"keygen {P.name} (N = {N}, n0 = {n0}, 64-bit torus; group 2, Bg_e "
@@ -1630,7 +1630,7 @@ def _t64_phase(g, counters, gpu):
     acc = split_ring.split(negacyclic_rotate(tv_hi, b_t)).contiguous()
     ts = modswitch(a[:, :2].T.contiguous(), P)                    # [2, B]
     bsk0 = ck.bsk_ntt[0]
-    digits = split_ring._rows_hi32(acc, P, 8, (3, 2)).to(torch.int8)
+    digits = decomposition.rows_hi32(acc, P, 8, (3, 2)).to(torch.int8)
     errs2s = []
     for lanes in (B, RAGGED_LANES, 1):
         step = (digits[:lanes], bsk0, ts[:, :lanes].contiguous(), plan, 8)
@@ -1653,7 +1653,7 @@ def _t64_phase(g, counters, gpu):
                       KERNEL_ITERS)
     n_rows = int(torch.unique(ts >> 1).numel())
     bound2s, by2s, unit2s, l2_2s, cc2s = _k2s_bound_ms(
-        plan, B, digits.shape[1], n_rows, k2s.row_group(plan))
+        plan, B, digits.shape[1], n_rows, split_ring.row_group(plan))
     k2s_result = dict(max_abs_err=max(errs2s), ms=ms2s, plain_ms=plain2s,
                       bound_ms=bound2s, bound_by=by2s, bound_unit=unit2s,
                       b1_eager_ms=one2s, b1_device_ms=dev2s)
@@ -1712,13 +1712,13 @@ def _t64_phase(g, counters, gpu):
                f"plain hi-plane finish at B={lanes} (max |diff| {errs[-1]})")
     # K1 that also writes the next step's half-rows (every step of the scan
     # but the last): bit-equal to the plain decompose of its output
-    gadget = split_ring.half_row_gadget(P, 8, (3, 2))
+    gadget = decomposition.half_row_gadget(P, 8, (3, 2))
     for lanes in (B, RAGGED_LANES, 1):
         half_rows = torch.empty((lanes, 10, Nh), dtype=torch.int8, device=dev)
         out = k1.ntt_inverse_to_crt_acc(
             v8[:, :lanes].reshape(plan.n_primes, 2 * lanes, 2, 2, Nh),
             views(lanes)[1], plan, 0, digits=half_rows, gadget=gadget)
-        want = split_ring._rows_hi32(out.reshape(lanes, 2, 2, Nh), P, 8,
+        want = decomposition.rows_hi32(out.reshape(lanes, 2, 2, Nh), P, 8,
                                      (3, 2)).to(torch.int8)
         torch.cuda.synchronize()
         _check(torch.equal(out.reshape(lanes, 2, 2, Nh), finish[:lanes])
@@ -1758,7 +1758,7 @@ def _t64_phase(g, counters, gpu):
           f"{l2_1 / 1e6:.0f} MB/call); B=1 {dev1 * 1e3:.1f} us/call on the "
           f"device ({one1 * 1e3:.1f} us eager) [{gpu}]")
     print(f"t64: K1 writing the next step's half-rows [B, 10, {Nh}] == "
-          f"_rows_hi32 of its output for B = {B}, {RAGGED_LANES}, 1; B={B} "
+          f"rows_hi32 of its output for B = {B}, {RAGGED_LANES}, 1; B={B} "
           f"from CUDA graphs, in turns: " + ", ".join(
               f"{k} {' / '.join(f'{t * 1e3:.1f}' for t in ts)} us"
               for k, ts in k1_graph.items()) + f" [{gpu}]")
@@ -1817,7 +1817,7 @@ def _t64_phase(g, counters, gpu):
     stage_fns = {
         "K2s": lambda: k2s.split_step_fused(digits, bsk0, ts, plan, 8),
         "K1 + half-rows": k1_fns["half-rows"],
-        "step 0's decompose": lambda: split_ring._rows_hi32(
+        "step 0's decompose": lambda: decomposition.rows_hi32(
             acc, P, 8, (3, 2)).to(torch.int8)}
     split_us = {st: _cuda_ms(fn, KERNEL_ITERS) * 1e3
                 for st, fn in stage_fns.items()}
@@ -1941,7 +1941,7 @@ def _plain_split_calls(module):
     took K2s."""
     calls = []
     saved = {nm: getattr(module, nm) for nm in
-             ("_forward", "_pointwise", "rotate_combine_multi_split")}
+             ("forward", "pointwise", "rotate_combine_multi_split")}
 
     def counting(nm, fn):
         def counted(first, *args):
@@ -2326,9 +2326,9 @@ def main() -> int:
     from zig_tfhe_tpu_torch import key, params, tlwe
     from zig_tfhe_tpu_torch.models import gates
     from zig_tfhe_tpu_torch.ops import ntt
-    from zig_tfhe_tpu_torch.ops.blind_rotate import (_decompose_to_rows,
-                                                     _digit_limbs, modswitch,
-                                                     row_gadget)
+    from zig_tfhe_tpu_torch.ops.blind_rotate import _digit_limbs
+    from zig_tfhe_tpu_torch.ops.decomposition import (decompose_rows,
+                                                      modswitch, row_gadget)
     from zig_tfhe_tpu_torch.ops.cuda import _build
     from zig_tfhe_tpu_torch.ops.cuda import extprod as k3
     from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
@@ -2448,7 +2448,7 @@ def main() -> int:
         acc = uniform((B_GATES, 2, PK.N))
         v = k1.split_limbs(torch.stack(
             ntt.ntt_forward(c, plan, digit_limbs=4, digit_bound=128)))
-        digits = k2.digit_planes(_decompose_to_rows(acc, PK, levels, bgbit=e),
+        digits = k2.digit_planes(decompose_rows(acc, PK, levels, bgbit=e),
                                  n_dl)
         ts = modswitch(uniform((group, B_GATES)), PK)
         bsk_step = ck.bsk_ntt[0]
@@ -2491,7 +2491,7 @@ def main() -> int:
                     v[:, :lanes], acc[:lanes], plan, drop)),
                     f"K1 with digits changes the accumulator on {name} at "
                     f"B={lanes}")
-                want = _decompose_to_rows(out, PK, levels, bgbit=e)
+                want = decompose_rows(out, PK, levels, bgbit=e)
                 _check(torch.equal(buf, want.to(torch.int8)),
                        f"K1's digits differ from the plain version's on "
                        f"{name} at B={lanes}")

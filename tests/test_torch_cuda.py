@@ -37,7 +37,7 @@ import torch
 from zig_tfhe_tpu_torch import key, params, tlwe, trgsw
 from zig_tfhe_tpu_torch.models import (gates, integer, lut, netlists,
                                        proxy_reenc, scheduler)
-from zig_tfhe_tpu_torch.ops import ntt, split_ring
+from zig_tfhe_tpu_torch.ops import decomposition, ntt, split_ring
 from zig_tfhe_tpu_torch.ops.cuda import extprod as K3
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K
 from zig_tfhe_tpu_torch.ops.cuda import ntt_step as K2
@@ -99,7 +99,7 @@ def test_kernel_matches_plain_and_exact(dev, case, B):
 @pytest.mark.parametrize("case", ["128bit", "128bit_g2"])
 @pytest.mark.parametrize("B", [1, 200, 2048])
 def test_kernel_writes_digits_of_its_output(dev, case, B):
-    from zig_tfhe_tpu_torch.ops.blind_rotate import row_gadget
+    from zig_tfhe_tpu_torch.ops.decomposition import row_gadget
 
     P, drop, _, levels, bgbit = _CASES[case]
     plan, _ = _plan(case)
@@ -255,7 +255,7 @@ def _limb_step_inputs(dev, name, B, seed):
     """The limb planes of a real accumulator's digits (centred remainders
     with a carry into the top limb), one step of in-range key residues, the
     rotations and the accumulator."""
-    from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows
+    from zig_tfhe_tpu_torch.ops.decomposition import decompose_rows
 
     P = params.PARAMS_BY_NAME[name]
     bgbit, levels = ntt.default_engine_gadget(P, 2)
@@ -266,7 +266,7 @@ def _limb_step_inputs(dev, name, B, seed):
     rng = np.random.default_rng(seed)
     acc = torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, N))
                            .astype(np.int32)).to(dev)
-    digits = K2.digit_planes(_decompose_to_rows(acc, P, levels, bgbit=bgbit),
+    digits = K2.digit_planes(decompose_rows(acc, P, levels, bgbit=bgbit),
                              ntt.engine_digit_limbs(bgbit))
     rows = torch.from_numpy(rng.integers(-2**31, 2**31, (3, R, 2, N))
                             .astype(np.int32)).to(dev)
@@ -626,7 +626,7 @@ def test_kernel_writes_half_rows_of_its_output(dev, name, B):
     P = params.PARAMS_BY_NAME[name]
     plan = ntt.plan_for_params(P, 32, 2, (3, 2), bgbit=8,
                                pseudorandom_key=True)
-    gadget = split_ring.half_row_gadget(P, 8, (3, 2))
+    gadget = decomposition.half_row_gadget(P, 8, (3, 2))
     rng = np.random.default_rng(B + 65)
     c, acc = (torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, 2, plan.N))
                                .astype(np.int32)).to(dev) for _ in range(2))
@@ -649,7 +649,7 @@ def test_kernel_writes_half_rows_of_its_output(dev, name, B):
     K.ntt_inverse_to_crt_acc_reference(vv.cpu(), aa.cpu(), plan, 0, want,
                                        gadget)
     assert torch.equal(digits.cpu(), want)
-    assert torch.equal(want, split_ring._rows_hi32(
+    assert torch.equal(want, decomposition.rows_hi32(
         out.reshape(B, 2, 2, plan.N), P, 8, (3, 2)).to(torch.int8).cpu())
 
 
@@ -762,7 +762,7 @@ def _split_step_inputs(keys, name, B, seed):
     rng = np.random.default_rng(seed)
     acc = torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, 2, plan.N))
                            .astype(np.int32)).to(bsk.device)
-    digits = split_ring._rows_hi32(acc, P, 8, levels).to(torch.int8)
+    digits = decomposition.rows_hi32(acc, P, 8, levels).to(torch.int8)
     ts = torch.from_numpy(rng.integers(0, 4 * plan.N, (2, B))
                           .astype(np.int32)).to(bsk.device)
     return plan, acc, digits, bsk, ts
@@ -856,9 +856,9 @@ def test_int64_finish_raises_on_card(dev):
     c = torch.from_numpy(rng.integers(-2**40, 2**40, (3, 2, plan.N)))
     acc = torch.from_numpy(rng.integers(-2**62, 2**62, (3, 2, plan.N)))
     v = ntt.ntt_forward(c, plan, digit_limbs=8, digit_bound=128)
-    want = split_ring.finish_int64(v, acc, plan, 3)
+    want = ntt.finish_int64(v, acc, plan, 3)
     assert torch.equal(want, acc + (c << 3))
-    got = split_ring.finish_int64([t.to(dev) for t in v], acc.to(dev), plan, 3)
+    got = ntt.finish_int64([t.to(dev) for t in v], acc.to(dev), plan, 3)
     assert torch.equal(got.cpu(), want)
 
 

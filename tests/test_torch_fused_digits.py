@@ -1,9 +1,9 @@
 """The next step's gadget digits written by K1 (ops/cuda/ntt_inverse.py)
-and the fused step loops of ops/blind_rotate_ntt.py and
-ops/split_ring.py that read them.
+and the fused step loop of ops/blind_rotate_ntt.py that reads them, on
+both rings.
 
 K1's plain version with a ``digits`` buffer writes exactly
-``_decompose_to_rows(out, ...).to(torch.int8)`` of the accumulator it
+``decompose_rows(out, ...).to(torch.int8)`` of the accumulator it
 returns, and returns the same accumulator as without one; the engine's
 one-limb loop (every boolean key: groups 2 and 3) decomposes only for
 step 0 and equals, bit for bit, the loop that decomposes on every step;
@@ -13,10 +13,10 @@ group-1 split key), whose outputs do not change.  On the split ring's
 views, with a ``HalfRowGadget`` (the hi-plane gadgets of tfhers_2_2, with
 low offset words, of SECURITY_128_BIT_T64 and of TEST_TINY_SPLIT), K1's
 plain version and its wrapper on CPU tensors write exactly
-``split_ring._rows_hi32(out, ...).to(torch.int8)``, and the split ring's
+``rows_hi32(out, ...).to(torch.int8)``, and the split ring's
 group-2 scan (K2s then K1) decomposes only for step 0, with G - 1 K1
 calls that carry the buffer, equal bit for bit to the loop that calls
-``_rows_hi32`` on every step.  The kernel's own source is held to the
+``rows_hi32`` on every step.  The kernel's own source is held to the
 plain version in tests/test_torch_kernel_emulation.py and on the card in
 tests/test_torch_cuda.py.  The file imports no jax.
 """
@@ -31,8 +31,10 @@ from zig_tfhe_tpu_torch import key, params
 from zig_tfhe_tpu_torch.ops import ntt
 from zig_tfhe_tpu_torch.ops import blind_rotate_ntt as BRN
 from zig_tfhe_tpu_torch.ops import split_ring as SR
-from zig_tfhe_tpu_torch.ops.blind_rotate import (_decompose_to_rows, modswitch,
-                                                 row_gadget)
+from zig_tfhe_tpu_torch.ops.decomposition import (HalfRowGadget,
+                                                  decompose_rows,
+                                                  half_row_gadget, modswitch,
+                                                  row_gadget, rows_hi32)
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K1
 from zig_tfhe_tpu_torch.ops.cuda import ntt_step as K2
 from zig_tfhe_tpu_torch.ops.cuda import split_step as K2S
@@ -86,7 +88,7 @@ def test_reference_writes_the_rows_of_its_output(case):
     assert torch.equal(out, K1.ntt_inverse_to_crt_acc_reference(v, acc, plan,
                                                                 drop))
     assert torch.equal(out, acc + (c << drop))
-    want = _decompose_to_rows(out, P, levels, bgbit=bgbit)
+    want = decompose_rows(out, P, levels, bgbit=bgbit)
     assert int(want.abs().max()) <= 1 << (bgbit - 1)
     assert torch.equal(digits, want.to(torch.int8))
 
@@ -126,7 +128,7 @@ def _step_by_step(tlwe, tv, bsk, P, drop, group, levels, bgbit):
     ts = modswitch(a_cols.reshape(G, group, B), P)
     n_dl = ntt.engine_digit_limbs(bgbit)
     for s in range(G):
-        d = K2.digit_planes(_decompose_to_rows(acc, P, levels, bgbit=bgbit), n_dl)
+        d = K2.digit_planes(decompose_rows(acc, P, levels, bgbit=bgbit), n_dl)
         v = K2.ntt_step_fused(d, bsk[s], ts[s], plan, bgbit)
         acc = K1.ntt_inverse_to_crt_acc(v, acc, plan, drop)
     return acc
@@ -237,8 +239,8 @@ def test_reference_writes_the_half_rows_of_its_output(case, via):
     P, levels = _SPLIT_CASES[case]
     B = 3
     plan, v, acc, exact = _split_views(P, levels, B, len(case))
-    gadget = SR.half_row_gadget(P, 8, levels)
-    assert isinstance(gadget, K1.HalfRowGadget)
+    gadget = half_row_gadget(P, 8, levels)
+    assert isinstance(gadget, HalfRowGadget)
     assert (gadget.bits, gadget.levels) == (8, levels)
     digits = torch.from_numpy(np.random.default_rng(B).integers(
         -128, 128, (B, 2 * sum(levels), plan.N)).astype(np.int8))
@@ -252,7 +254,7 @@ def test_reference_writes_the_half_rows_of_its_output(case, via):
     assert torch.equal(out, K1.ntt_inverse_to_crt_acc_reference(v, acc, plan,
                                                                 0))
     assert torch.equal(out.reshape(B, 2, 2, plan.N), exact)
-    want = SR._rows_hi32(exact, P, 8, levels)
+    want = rows_hi32(exact, P, 8, levels)
     assert int(want.abs().max()) <= 128
     assert torch.equal(digits, want.to(torch.int8))
 
@@ -260,7 +262,7 @@ def test_reference_writes_the_half_rows_of_its_output(case, via):
 def test_wrapper_refuses_half_rows_it_cannot_write():
     P, levels = _SPLIT_CASES["tiny_split"]
     plan, v, acc, _ = _split_views(P, levels, 2, 0)
-    gadget = SR.half_row_gadget(P, 8, levels)
+    gadget = half_row_gadget(P, 8, levels)
     d = torch.zeros((2, 2 * sum(levels), plan.N), dtype=torch.int8)
     with pytest.raises(ValueError, match="HalfRowGadget"):
         K1.ntt_inverse_to_crt_acc(v, acc, plan, 0, digits=d)
@@ -286,12 +288,12 @@ def test_wrapper_refuses_half_rows_it_cannot_write():
 def _split_step_by_step(tlwe, tv, bsk, P, levels):
     """The split ring's group-2 hi-plane scan as it ran before the fusion:
     the set-up's rotation and carried low words, then on every step
-    ``_rows_hi32``, its int8 cast, K2s and K1 without digits."""
+    ``rows_hi32``, its int8 cast, K2s and K1 without digits."""
     n0, N, B = P.n0, P.N, tlwe.shape[0]
     Nh, G = N // 2, bsk.shape[0]
     plan = ntt.plan_for_params(P, 32, 2, levels, bgbit=8,
                                pseudorandom_key=True)
-    low = [off % (1 << 32) for off in SR._hi32_offsets(P, 8, levels)]
+    low = [off % (1 << 32) for off in row_gadget(P, levels, 8).offsets]
     acc = SR.split(negacyclic_rotate(tv[None].expand(B, 2, N),
                                      2 * N - modswitch(tlwe[:, n0], P)))
     for c in (0, 1):
@@ -302,7 +304,7 @@ def _split_step_by_step(tlwe, tv, bsk, P, levels):
     t_cols = torch.cat([t_cols, t_cols.new_zeros(2 * G - n0, B)])
     t_grps = t_cols.reshape(G, 2, B)
     for s in range(G):
-        rows = SR._rows_hi32(acc, P, 8, levels).to(torch.int8)
+        rows = rows_hi32(acc, P, 8, levels).to(torch.int8)
         v = K2S.split_step_fused(rows, bsk[s], t_grps[s], plan, 8)
         acc = K1.ntt_inverse_to_crt_acc(
             v.reshape(plan.n_primes, 2 * B, 2, 2, Nh),
@@ -326,15 +328,15 @@ def _split_key(P, n0, group, seed):
 
 
 def _k1_digit_calls(monkeypatch):
-    """Whether each K1 call of the split scan carried a digits buffer."""
+    """Whether each K1 call of the scan carried a digits buffer."""
     calls = []
-    k1 = SR.ntt_inverse_to_crt_acc
+    k1 = BRN.ntt_inverse_to_crt_acc
 
     def counted(*a, digits=None, **kw):
         calls.append(digits is not None)
         return k1(*a, digits=digits, **kw)
 
-    monkeypatch.setattr(SR, "ntt_inverse_to_crt_acc", counted)
+    monkeypatch.setattr(BRN, "ntt_inverse_to_crt_acc", counted)
     return calls
 
 
@@ -349,7 +351,7 @@ def test_split_scan_takes_the_fusion(case, n0, monkeypatch):
     G = ck.bsk_ntt.shape[0]
     assert G >= 3
     calls = _k1_digit_calls(monkeypatch)
-    got, attrs = _recorded_steps(lambda: BRN.blind_rotate_ntt(
+    got, attrs = _recorded_steps(lambda: SR.blind_rotate_split(
         tlwe, tv, ck.bsk_ntt, P, 32, group=2, levels=levels, bgbit=8))
     assert attrs == {"steps": G, "fused_steps": G - 1}
     assert calls == [True] * (G - 1) + [False]
@@ -364,11 +366,13 @@ def test_split_ring_bypasses_the_fusion(monkeypatch):
     P, ck, tlwe, tv = _split_key(params.TEST_TINY_SPLIT, None, 1, 43)
     calls = _k1_digit_calls(monkeypatch)
     kw = dict(group=1, levels=ck.bsk_levels, bgbit=ck.bsk_bgbit)
-    got, attrs = _recorded_steps(lambda: BRN.blind_rotate_ntt(
+    got, attrs = _recorded_steps(lambda: SR.blind_rotate_split(
         tlwe, tv, ck.bsk_ntt, P, ck.bsk_ntt_drop, **kw))
     assert attrs == {"steps": P.n0, "fused_steps": 0}
     assert calls == [False] * P.n0
-    monkeypatch.setattr(SR, "_hi32_planes", lambda *a: False)
-    assert torch.equal(got, BRN.blind_rotate_ntt(tlwe, tv, ck.bsk_ntt, P,
-                                                 ck.bsk_ntt_drop, **kw))
+    form = BRN.key_form      # the generic scan: the key's form without hi planes
+    monkeypatch.setattr(BRN, "key_form", lambda *a: dataclasses.replace(
+        form(*a), hi32=False))
+    assert torch.equal(got, SR.blind_rotate_split(tlwe, tv, ck.bsk_ntt, P,
+                                                  ck.bsk_ntt_drop, **kw))
     assert len(calls) == P.n0

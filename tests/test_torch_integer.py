@@ -42,7 +42,7 @@ from zig_tfhe_tpu_torch.models import gates as TG
 from zig_tfhe_tpu_torch.models import integer as TI
 from zig_tfhe_tpu_torch.models import lut as TL
 from zig_tfhe_tpu_torch.models import scheduler as TS
-from zig_tfhe_tpu_torch.ops import blind_rotate_ntt
+from zig_tfhe_tpu_torch.ops import blind_rotate
 
 JPAR, TPAR = JP.TEST_TINY_UINT, TP.TEST_TINY_UINT
 A = np.array([45, 5, 63, 0])           # 2-digit operands; lane 2 is equal
@@ -286,7 +286,7 @@ def test_blind_rotations_per_op(keys, monkeypatch, op, digits, want):
     is to_bools, the 3-bit ripple adder's 5 levels, from_bools."""
     _, _, tcks = keys
     calls = []
-    real = blind_rotate_ntt.blind_rotate_ntt
+    real = blind_rotate.blind_rotate_ntt
 
     def counted(*args, **kw):
         calls.append(args[0].shape[0])
@@ -303,7 +303,7 @@ def test_blind_rotations_per_op(keys, monkeypatch, op, digits, want):
           "mul": TI.radix_mul, "mul_classic": TI.radix_mul,
           "divmod": TI.radix_divmod,
           "bridge": lambda a, b, ck: _bridge_add(a, b, plan, ck)}[op]
-    monkeypatch.setattr(blind_rotate_ntt, "blind_rotate_ntt", counted)
+    monkeypatch.setattr(blind_rotate, "blind_rotate_ntt", counted)
     out = fn(a, b, ck)
     assert len(calls) == want, calls
     if op == "bridge":

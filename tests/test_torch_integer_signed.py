@@ -30,7 +30,7 @@ from zig_tfhe_tpu.models import integer as JI
 from zig_tfhe_tpu_torch import key as TK
 from zig_tfhe_tpu_torch import params as TP
 from zig_tfhe_tpu_torch.models import integer as TI
-from zig_tfhe_tpu_torch.ops import blind_rotate_ntt
+from zig_tfhe_tpu_torch.ops import blind_rotate
 
 JPAR, TPAR = JP.TEST_TINY_UINT, TP.TEST_TINY_UINT
 SA = np.array([-21, 13, -32, 5])       # 2 digits: [-32, 32)
@@ -224,8 +224,8 @@ def test_fheint_blind_rotations_per_op(port_keys, monkeypatch, op, want):
           "asr2": lambda: x >> 2, "asr_enc": lambda: x >> u,
           "abs": lambda: x.abs(), "div_rem": lambda: x.div_rem(y)}[op]
     calls = []
-    real = blind_rotate_ntt.blind_rotate_ntt
-    monkeypatch.setattr(blind_rotate_ntt, "blind_rotate_ntt",
+    real = blind_rotate.blind_rotate_ntt
+    monkeypatch.setattr(blind_rotate, "blind_rotate_ntt",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     fn()
     assert len(calls) == want

@@ -23,7 +23,7 @@ the fragments packed in Python by the PTX register layout.  This checks
 the kernels' indexing and arithmetic; their behaviour on the card is
 tests/test_torch_cuda.py's.  csrc/split_step.cu (K2s, the split-ring
 step of the 64-bit torus) is held equal to its plain version on the digits
-of real hi-plane accumulators (``_rows_hi32``) and one step of a real
+of real hi-plane accumulators (``rows_hi32``) and one step of a real
 split key, at SECURITY_128_BIT_T64's shape (N/2 = 1024, 4 primes, 10
 half-rows, 6 lanes a tile: a ragged last tile, B = 1 on wide and on
 narrow column tiles, one block walking every tile), TEST_TINY_SPLIT's (8
@@ -46,6 +46,7 @@ import torch
 
 from zig_tfhe_tpu_torch import key as TK
 from zig_tfhe_tpu_torch import params as TP
+from zig_tfhe_tpu_torch.ops import decomposition as D
 from zig_tfhe_tpu_torch.ops import ntt
 from zig_tfhe_tpu_torch.ops import split_ring as SR
 from zig_tfhe_tpu_torch.ops.cuda import extprod as K3
@@ -172,7 +173,7 @@ def test_step_kernel_source_matches_plain(emu, case):
     rows = torch.from_numpy(rng.integers(-2**31, 2**31, (S, R, 2, N)).astype(np.int32))
     bsk = ntt.to_ntt_form(rows, plan, 3).movedim(0, 1).contiguous()
     ts = torch.from_numpy(rng.integers(0, 2 * N + 1, (group, B)).astype(np.int32))
-    tabs = K2._device_tables(plan, torch.device("cpu"))
+    tabs = K2.device_tables(plan, torch.device("cpu"))
     primes, inv_p, groups, single = K2._host_scalars(plan, group, bgbit)
     if case == "n1024_g2_R4_bg8":
         assert not single.any()
@@ -207,7 +208,7 @@ _K2_LIMB_CASES = {
 def test_step_kernel_source_multi_limb_matches_plain(emu, case):
     """The limb planes of real accumulators' digits (centred remainders
     with a carry into the top limb), a step of in-range key residues."""
-    from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows
+    from zig_tfhe_tpu_torch.ops.decomposition import decompose_rows
 
     name, B, sms = _K2_LIMB_CASES[case]
     P = TP.PARAMS_BY_NAME[name]
@@ -219,12 +220,12 @@ def test_step_kernel_source_multi_limb_matches_plain(emu, case):
     N, R = plan.N, sum(levels)
     rng = np.random.default_rng(B)
     acc = torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, N)).astype(np.int32))
-    digits = K2.digit_planes(_decompose_to_rows(acc, P, levels, bgbit=bgbit),
+    digits = K2.digit_planes(decompose_rows(acc, P, levels, bgbit=bgbit),
                              n_dl)
     rows = torch.from_numpy(rng.integers(-2**31, 2**31, (3, R, 2, N)).astype(np.int32))
     bsk = ntt.to_ntt_form(rows, plan, 0).movedim(0, 1).contiguous()
     ts = torch.from_numpy(rng.integers(0, 2 * N + 1, (2, B)).astype(np.int32))
-    tabs = K2._device_tables(plan, torch.device("cpu"))
+    tabs = K2.device_tables(plan, torch.device("cpu"))
     primes, inv_p, groups, single = K2._host_scalars(plan, 2, bgbit)
     assert single.shape == (plan.n_primes, n_dl)
     if name == "uint4":     # lower limbs: single add at the two small primes only
@@ -294,13 +295,13 @@ def test_split_step_kernel_source_matches_plain(emu, split_keys, case):
     rng = np.random.default_rng(B + sms)
     acc = torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, 2, plan.N))
                            .astype(np.int32))
-    digits = SR._rows_hi32(acc, P, 8, levels).to(torch.int8)
+    digits = D.rows_hi32(acc, P, 8, levels).to(torch.int8)
     assert digits.shape[1] == 2 * sum(levels) == bsk.shape[2]
     if rows:
         digits = digits[:, :rows[0]].contiguous()
         bsk = bsk[:, :, :rows[0]].contiguous()
     ts = torch.from_numpy(rng.integers(0, 4 * plan.N, (2, B)).astype(np.int32))
-    tabs = K2._device_tables(plan, torch.device("cpu"))
+    tabs = K2.device_tables(plan, torch.device("cpu"))
     primes, inv_p = K2._host_scalars(plan, 2, 8)[:2]   # p and f32 1/p
     v = torch.full((plan.n_primes, B, 2, 2, 2, plan.N), 7, dtype=torch.int8)
     emu["split_step"].emu_set_sm_count(sms)
@@ -308,7 +309,7 @@ def test_split_step_kernel_source_matches_plain(emu, split_keys, case):
         digits.data_ptr(), bsk.data_ptr(), ts.data_ptr(),
         tabs.fwd_lo_t.data_ptr(), tabs.fwd_hi_t.data_ptr(), tabs.rot.data_ptr(),
         v.data_ptr(), _ptr(primes), _ptr(inv_p), plan.n_primes,
-        K2S.row_group(plan), B, digits.shape[1], plan.N, None)
+        SR.row_group(plan), B, digits.shape[1], plan.N, None)
     assert err == 0
     assert torch.equal(v, K2S.split_step_fused_reference(digits, bsk, ts, plan,
                                                          8))
@@ -412,7 +413,7 @@ _K1_DIGIT_CASES = {
 
 @pytest.mark.parametrize("case", sorted(_K1_DIGIT_CASES))
 def test_inverse_kernel_source_writes_digits(emu, case):
-    from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows, row_gadget
+    from zig_tfhe_tpu_torch.ops.decomposition import decompose_rows, row_gadget
 
     B, N, bits, drop, sms, name, levels, bgbit = _K1_DIGIT_CASES[case]
     P = _with_n(TP.PARAMS_BY_NAME[name], N)
@@ -444,7 +445,7 @@ def test_inverse_kernel_source_writes_digits(emu, case):
     assert torch.equal(out, ref) and torch.equal(out, plain_out)
     assert torch.equal(out, acc + (c << drop))
     assert torch.equal(digits, want)
-    assert torch.equal(digits, _decompose_to_rows(out, P, levels, bgbit=bgbit)
+    assert torch.equal(digits, decompose_rows(out, P, levels, bgbit=bgbit)
                        .to(torch.int8))
 
 
@@ -468,7 +469,7 @@ _K1_HALF_ROW_CASES = {
 def test_inverse_kernel_source_writes_half_rows(emu, case):
     lanes, N, bits, drop, sms, name, levels = _K1_HALF_ROW_CASES[case]
     P = TP.PARAMS_BY_NAME[name]
-    gadget = SR.half_row_gadget(P, 8, levels)
+    gadget = D.half_row_gadget(P, 8, levels)
     plan = ntt.make_plan(N, bits)
     rng = np.random.default_rng(lanes + N)
     rows = 4 * lanes
@@ -495,7 +496,7 @@ def test_inverse_kernel_source_writes_half_rows(emu, case):
     assert torch.equal(out, ref)
     assert torch.equal(out, acc + (c << drop))
     assert torch.equal(digits, want)
-    assert torch.equal(digits, SR._rows_hi32(out.reshape(lanes, 2, 2, N), P, 8,
+    assert torch.equal(digits, D.rows_hi32(out.reshape(lanes, 2, 2, N), P, 8,
                                              levels).to(torch.int8))
     # the entry refuses views that are not whole lanes (rows % 4)
     assert lib.ztfhe_ntt_inverse_crt_acc_half_rows(

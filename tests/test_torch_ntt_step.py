@@ -139,7 +139,7 @@ def test_group2_multi_limb_matches_xla_step2(name):
     The forward NTT is bit-equal per prime; the residues follow the group-2
     Pallas arithmetic, so they equal JAX's modulo p, within 0.55p."""
     from zig_tfhe_tpu.ops.blind_rotate import _decompose_to_rows as j_rows
-    from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows as t_rows
+    from zig_tfhe_tpu_torch.ops.decomposition import decompose_rows as t_rows
 
     jp, tp = JP.PARAMS_BY_NAME[name], TP.PARAMS_BY_NAME[name]
     bgbit, levels = tntt.default_engine_gadget(tp, 2)

@@ -19,7 +19,6 @@ from zig_tfhe_tpu.ops import poly as jpoly
 from zig_tfhe_tpu.utils import torus as jtorus
 from zig_tfhe_tpu_torch import params as TP
 from zig_tfhe_tpu_torch import trlwe as ttrlwe
-from zig_tfhe_tpu_torch.ops import blind_rotate as tbr
 from zig_tfhe_tpu_torch.ops import decomposition as tdec
 from zig_tfhe_tpu_torch.ops import keyswitch as tks
 from zig_tfhe_tpu_torch.ops import poly as tpoly
@@ -87,11 +86,11 @@ def test_decompose_to_rows_and_modswitch(levels, bgbit):
     ct = _full(rng, (3, 2, 1024))
     jp, tp = JP.SECURITY_128_BIT, TP.SECURITY_128_BIT
     want = jbr._decompose_to_rows(jnp.asarray(ct), jp, levels, bgbit)
-    got = tbr._decompose_to_rows(torch.from_numpy(ct), tp, levels, bgbit)
+    got = tdec.decompose_rows(torch.from_numpy(ct), tp, levels, bgbit)
     assert np.array_equal(np.asarray(want), got.numpy())
     a = _full(rng, 4096)
     assert np.array_equal(np.asarray(jbr.modswitch(jnp.asarray(a), jp)),
-                          tbr.modswitch(torch.from_numpy(a), tp).numpy())
+                          tdec.modswitch(torch.from_numpy(a), tp).numpy())
 
 
 @pytest.mark.parametrize("basebit,t", [(2, 9), (2, 8), (4, 3)])

@@ -56,7 +56,7 @@ from zig_tfhe_tpu_torch.models import gates as TG
 from zig_tfhe_tpu_torch.models import integer as TI
 from zig_tfhe_tpu_torch.models import lut as TL
 from zig_tfhe_tpu_torch.models import scheduler as TS
-from zig_tfhe_tpu_torch.ops import blind_rotate_ntt as TBN
+from zig_tfhe_tpu_torch.ops import blind_rotate as TBR
 from zig_tfhe_tpu_torch.ops import packing_keyswitch as TPK
 from zig_tfhe_tpu_torch.utils import serialization as tser
 
@@ -256,8 +256,8 @@ def _rotation_spies(monkeypatch, stub=False):
     monkeypatch.setattr(JSR, "blind_rotate_split", spy(
         "jax", JSR.blind_rotate_split,
         lambda tv, B: jnp.broadcast_to(tv, (B,) + tv.shape[-2:])))
-    monkeypatch.setattr(TBN, "blind_rotate_split", spy(
-        "port", TBN.blind_rotate_split,
+    monkeypatch.setattr(TBR, "blind_rotate_split", spy(
+        "port", TBR.blind_rotate_split,
         lambda tv, B: tv.expand(B, *tv.shape[-2:]).clone()))
     return counts
 

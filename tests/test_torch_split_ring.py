@@ -8,7 +8,7 @@ uniform torus rows) and go to both packages; JAX-made TEST_TINY_SPLIT keys
 (group 2 and group 1) go to the port through ``CloudKey.from_numpy``.
 Held bit-equal to JAX: ``split`` / ``unsplit``, ``fold_key_split``,
 ``rotate_minus1_split``, ``rotate_combine_multi_split`` (g = 1, 2, 3),
-``_rows_hi32``, ``_hi32_viable`` over a grid of configurations, and
+``rows_hi32``, ``hi32_viable`` over a grid of configurations, and
 ``blind_rotate_split`` at groups 1 and 2 on an arbitrary int64 testvec
 and on the gate testvec (the port's one start, the int64 rotation, against
 the JAX package's full start and its ``tv_lo_zero`` hi-plane start).  The
@@ -35,6 +35,8 @@ from zig_tfhe_tpu.ops import ntt as jntt
 from zig_tfhe_tpu.ops import split_ring as JSR
 from zig_tfhe_tpu_torch import key as TK
 from zig_tfhe_tpu_torch import params as TP
+from zig_tfhe_tpu_torch.ops import blind_rotate_ntt as BRN
+from zig_tfhe_tpu_torch.ops import decomposition as TD
 from zig_tfhe_tpu_torch.ops import ntt as tntt
 from zig_tfhe_tpu_torch.ops import split_ring as TSR
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K1
@@ -156,7 +158,7 @@ def test_hi32_viable_and_rows():
                 if max(levels) > (tp.L if e == tp.bgbit
                                   else tp.torus_bits // e):
                     continue
-                assert (TSR._hi32_viable(tp, drop, e, levels)
+                assert (TD.hi32_viable(tp, drop, e, levels)
                         == JSR._hi32_viable(jp, drop, e, levels)), (name, drop,
                                                                     e, levels)
     acc = np.random.default_rng(4).integers(-2**31, 2**31, (3, 2, 2, 1024),
@@ -165,7 +167,7 @@ def test_hi32_viable_and_rows():
                            (JP.SECURITY_128_BIT_T64, TP.SECURITY_128_BIT_T64,
                             (3, 2))):
         want = JSR._rows_hi32(jnp.asarray(acc), jp, 8, levels)
-        got = TSR._rows_hi32(_t(acc), tp, 8, levels)
+        got = TD.rows_hi32(_t(acc), tp, 8, levels)
         assert np.array_equal(got.numpy(), np.asarray(want))
 
 
@@ -198,16 +200,22 @@ def test_blind_rotate_split_bit_equal(keys, group):
 
 def test_hi32_scan_equals_generic(keys, monkeypatch):
     """The hi-plane scan is an exact rewrite of the generic int64 scan at
-    drop 32 (the generic scan reached by declaring the configuration not
-    viable: ``_hi32_planes``, the one predicate the scan reads)."""
+    drop 32 (the generic scan reached by resolving the key's form without
+    hi planes: ``blind_rotate_ntt.key_form``, the one place the scan is
+    routed), which finishes every step with ``finish_int64``."""
     sk, cks = keys
     tck = cks[2][1]
     rng = np.random.default_rng(20)
     ct, tv = _t(_full64(rng, (2, TPAR.n0 + 1))), _t(_full64(rng, (2, TPAR.N)))
     kw = dict(group=2, levels=(2, 2), bgbit=8)
     hi = TSR.blind_rotate_split(ct, tv, tck.bsk_ntt, TPAR, 32, **kw)
-    monkeypatch.setattr(TSR, "_hi32_planes", lambda *a: False)
+    form, finish, finishes = BRN.key_form, tntt.finish_int64, []
+    monkeypatch.setattr(BRN, "key_form", lambda *a: dataclasses.replace(
+        form(*a), hi32=False, path=BRN.Path.MULTI))
+    monkeypatch.setattr(tntt, "finish_int64",
+                        lambda *a: finishes.append(1) or finish(*a))
     generic = TSR.blind_rotate_split(ct, tv, tck.bsk_ntt, TPAR, 32, **kw)
+    assert len(finishes) == tck.bsk_ntt.shape[0]
     assert torch.equal(hi, generic)
 
 
@@ -224,7 +232,7 @@ def test_plain_k1_on_split_views(keys):
     B, Nh = 5, tplan.N
     acc = rng.integers(-2**31, 2**31, (B, 2, 2, Nh), dtype=np.int64).astype(
         np.int32)
-    rows = TSR._rows_hi32(_t(acc), TPAR, 8, (2, 2))
+    rows = TD.rows_hi32(_t(acc), TPAR, 8, (2, 2))
     d_hat = tntt.ntt_forward(rows, tplan, 1, 128)
     us = [torch.stack(tntt.pointwise_extprod(d_hat, tck.bsk_ntt[0, m], tplan))
           for m in range(3)]

@@ -3,10 +3,10 @@ core of the 64-bit torus (forward NTT, pointwise sums, Y-twisted combine;
 csrc/split_step.cu on the card).
 
 Held bit-equal: ``split_step_fused_reference`` to the prime-batched chain
-``_forward`` -> ``_pointwise`` -> ``rotate_combine_multi_split`` ->
+``forward`` -> ``pointwise`` -> ``rotate_combine_multi_split`` ->
 ``split_limbs`` written out; that chain finished by K1's wrapper (the
 hi-plane step of ``blind_rotate_split``) to the JAX package's hi-plane step
-(``_rows_hi32``, ``ntt_forward``, ``pointwise_extprod``,
+(``rows_hi32``, ``ntt_forward``, ``pointwise_extprod``,
 ``rotate_combine_multi_split``, ``acc + ntt_inverse_to_crt(v, plan, 32)``)
 on TEST_TINY_SPLIT and on two consecutive SECURITY_128_BIT_T64 steps at B
 <= 3, whose residues are congruent to the JAX package's mod p.  Inputs are
@@ -35,6 +35,7 @@ from zig_tfhe_tpu.ops import ntt as jntt
 from zig_tfhe_tpu.ops import split_ring as JSR
 from zig_tfhe_tpu_torch import key as TK
 from zig_tfhe_tpu_torch import params as TP
+from zig_tfhe_tpu_torch.ops import decomposition as TD
 from zig_tfhe_tpu_torch.ops import ntt as tntt
 from zig_tfhe_tpu_torch.ops import split_ring as TSR
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K1
@@ -105,7 +106,7 @@ def _port_step(tp, tplan, levels, acc, bsk_g, ts):
     decompose, the wrapper (its plain version on CPU tensors), K1's
     wrapper on the limb-plane views."""
     B, Nh = acc.shape[0], tplan.N
-    rows = TSR._rows_hi32(_t(acc), tp, 8, levels).to(torch.int8)
+    rows = TD.rows_hi32(_t(acc), tp, 8, levels).to(torch.int8)
     v8 = K2S.split_step_fused(rows, _t(bsk_g), _t(ts), tplan, 8)
     out = K1.ntt_inverse_to_crt_acc(
         v8.reshape(tplan.n_primes, 2 * B, 2, 2, Nh),
@@ -117,9 +118,9 @@ def _port_step(tp, tplan, levels, acc, bsk_g, ts):
                                      ("t64", 1)])
 def test_reference_is_the_plain_chain(name, B):
     jp, tp, levels, jplan, tplan, bsk, acc, ts = _setup(name, B, 1)
-    rows = TSR._rows_hi32(_t(acc), tp, 8, levels)
-    d_hat = TSR._forward(rows, tplan)
-    us = [TSR._pointwise(d_hat, _t(bsk[0, m]), tplan) for m in range(3)]
+    rows = TD.rows_hi32(_t(acc), tp, 8, levels)
+    d_hat = TSR.forward(rows, tplan)
+    us = [TSR.pointwise(d_hat, _t(bsk[0, m]), tplan) for m in range(3)]
     v = TSR.rotate_combine_multi_split(us, [_t(ts[0, 0]), _t(ts[0, 1])], tplan)
     got = K2S.split_step_fused_reference(rows.to(torch.int8), _t(bsk[0]),
                                          _t(ts[0]), tplan, 8)
@@ -147,7 +148,7 @@ def test_step_equals_jax_step(name, B):
 
 def test_wrapper_cpu_path_counts_no_launch():
     jp, tp, levels, jplan, tplan, bsk, acc, ts = _setup("t64", 1, 1)
-    rows = TSR._rows_hi32(_t(acc), tp, 8, levels).to(torch.int8)
+    rows = TD.rows_hi32(_t(acc), tp, 8, levels).to(torch.int8)
     args = (rows, _t(bsk[0]), _t(ts[0]), tplan, 8)
     before = K2S.split_step_fused.launches
     assert torch.equal(K2S.split_step_fused(*args),
@@ -157,7 +158,7 @@ def test_wrapper_cpu_path_counts_no_launch():
 
 def test_wrapper_refuses_what_it_cannot_take():
     jp, tp, levels, jplan, tplan, bsk, acc, ts = _setup("t64", 1, 1)
-    d = TSR._rows_hi32(_t(acc), tp, 8, levels).to(torch.int8)
+    d = TD.rows_hi32(_t(acc), tp, 8, levels).to(torch.int8)
     k, t = _t(bsk[0]), _t(ts[0])
     with pytest.raises(NotImplementedError, match="group 2"):     # group 1
         K2S.split_step_fused(d, k[:1], t[:1], tplan, 8)

@@ -5,7 +5,7 @@ The set is zama-ai/tfhe-rs 0.4.0's PARAM_MESSAGE_2_CARRY_2_KS_PBS; the JAX
 package has no such set.  Its published digit (2^23 x 1) is wider than one
 int8 limb, so ``ops/ntt.py:default_engine_gadget`` gives it the one-limb
 engine gadget 2^8 with (3, 2) levels, and its scan runs on the int32 hi
-planes with the offsets' low words carried in (``split_ring._hi32_planes``;
+planes with the offsets' low words carried in (``decomposition.hi32_planes``;
 the JAX package's ``_hi32_viable`` refuses such offsets) and on K2s.  Held
 here: the ten published constants; the default key form and that K2s
 takes it; every other set's default key form pinned to its values before
@@ -23,6 +23,8 @@ import torch
 
 from zig_tfhe_tpu_torch import key as TK
 from zig_tfhe_tpu_torch import params as TP
+from zig_tfhe_tpu_torch.ops import blind_rotate_ntt as BRN
+from zig_tfhe_tpu_torch.ops import decomposition as TD
 from zig_tfhe_tpu_torch.ops import ntt as tntt
 from zig_tfhe_tpu_torch.ops import split_ring as TSR
 from zig_tfhe_tpu_torch.ops.cuda import split_step as K2S
@@ -86,8 +88,8 @@ def test_default_key_form_takes_k2s():
     group, bgbit, levels, drop = _form(P)
     assert (group, bgbit, levels, drop) == (2, 8, (3, 2), 32)
     assert tntt.default_engine_gadget(P, 1) == (8, (3, 2))
-    assert not TSR._hi32_viable(P, drop, bgbit, levels)
-    assert TSR._hi32_planes(P, drop, bgbit, levels)
+    assert not TD.hi32_viable(P, drop, bgbit, levels)
+    assert TD.hi32_planes(P, drop, bgbit, levels)
     assert K2S.supports(group, tntt.engine_digit_limbs(bgbit), True)
     plan = tntt.plan_for_params(P, drop, group, levels, bgbit=bgbit,
                                 pseudorandom_key=True)
@@ -111,12 +113,12 @@ def test_hi32_planes_takes_low_offset_bits():
     for name in ("128bit_t64", "tiny_split"):
         p = TP.PARAMS_BY_NAME[name]
         lv = _form(p)[2]
-        assert TSR._hi32_viable(p, 32, 8, lv) and TSR._hi32_planes(p, 32, 8, lv)
-    assert TSR._hi32_planes(P, 32, 8, (3, 2))
-    assert not TSR._hi32_viable(P, 32, 8, (3, 2))
-    assert not TSR._hi32_planes(P, 31, 8, (3, 2))
-    assert not TSR._hi32_planes(P, 32, 11, (3, 2))    # 64 - 33 < 32
-    assert not TSR._hi32_planes(TP.SECURITY_128_BIT, 32, 7, (2, 2))
+        assert TD.hi32_viable(p, 32, 8, lv) and TD.hi32_planes(p, 32, 8, lv)
+    assert TD.hi32_planes(P, 32, 8, (3, 2))
+    assert not TD.hi32_viable(P, 32, 8, (3, 2))
+    assert not TD.hi32_planes(P, 31, 8, (3, 2))
+    assert not TD.hi32_planes(P, 32, 11, (3, 2))    # 64 - 33 < 32
+    assert not TD.hi32_planes(TP.SECURITY_128_BIT, 32, 7, (2, 2))
 
 
 @pytest.fixture(scope="module")
@@ -153,7 +155,9 @@ def test_every_step_takes_k2s(cut, monkeypatch):
                         lambda *a: calls.append(1) or k2s(*a))
     fused = _scan(p, ck, ct, tv)
     assert len(calls) == 2
-    monkeypatch.setattr(K2S, "supports", lambda *a: False)
+    form = BRN.key_form      # the plain chain: the key's form routed off K2s
+    monkeypatch.setattr(BRN, "key_form", lambda *a: dataclasses.replace(
+        form(*a), path=BRN.Path.MULTI))
     plain = _scan(p, ck, ct, tv)
     assert len(calls) == 2
     assert torch.equal(fused, plain)
@@ -168,7 +172,9 @@ def test_carried_scan_equals_generic(cut, monkeypatch):
     ct = torch.from_numpy(_full64(rng, (3, p.n0 + 1)))
     tvs = (torch.from_numpy(_full64(rng, (2, p.N))), ck.testvec)
     hi = [_scan(p, ck, ct, tv) for tv in tvs]
-    monkeypatch.setattr(TSR, "_hi32_planes", lambda *a: False)
+    form = BRN.key_form      # the generic scan: the key's form without hi planes
+    monkeypatch.setattr(BRN, "key_form", lambda *a: dataclasses.replace(
+        form(*a), hi32=False, path=BRN.Path.MULTI))
     generic = [_scan(p, ck, ct, tv) for tv in tvs]
     for h, g in zip(hi, generic, strict=True):
         assert h.dtype == torch.int64 and torch.equal(h, g)

@@ -10,7 +10,7 @@ bit-equal: the width-64 codecs (``to_carrier``, ``torus_constant_w``,
 ``f64_to_torus``, the message table), ``shift_right_logical`` and the
 8-limb int8 recoding, the binary negacyclic product, ``small_matmul_torus``
 and ``negacyclic_rotate`` on int64, ``gadget_decompose`` /
-``ks_decompose`` / ``_decompose_to_rows`` / ``modswitch`` at width 64,
+``ks_decompose`` / ``decompose_rows`` / ``modswitch`` at width 64,
 the TLWE and TRLWE phases and ``sample_extract``, the gadget scales, the
 key switch, and the gates (all ten, ``mux``) on a carried key.  The port's
 own RNG, encryption and key generation are held at the decrypt level (and
@@ -41,12 +41,10 @@ from zig_tfhe_tpu_torch import tlwe as TT
 from zig_tfhe_tpu_torch import trgsw as TG3
 from zig_tfhe_tpu_torch import trlwe as TR
 from zig_tfhe_tpu_torch.models import gates as TG
-from zig_tfhe_tpu_torch.ops import blind_rotate as tbr
 from zig_tfhe_tpu_torch.ops import decomposition as tdec
 from zig_tfhe_tpu_torch.ops import keyswitch as tks
 from zig_tfhe_tpu_torch.ops import ntt as tntt
 from zig_tfhe_tpu_torch.ops import poly as tpoly
-from zig_tfhe_tpu_torch.ops import split_ring as tsr
 from zig_tfhe_tpu_torch.utils import rng as trng
 from zig_tfhe_tpu_torch.utils import torus as ttorus
 
@@ -198,10 +196,10 @@ def test_decompose_64(name, levels, bgbit):
         assert got.dtype == torch.int32 and np.array_equal(got.numpy(),
                                                            np.asarray(want))
     want = jbr._decompose_to_rows(jnp.asarray(x), jp, levels, bgbit=bgbit)
-    got = tbr._decompose_to_rows(_t(x), tp, levels, bgbit=bgbit)
+    got = tdec.decompose_rows(_t(x), tp, levels, bgbit=bgbit)
     assert np.array_equal(got.numpy(), np.asarray(want))
     want = jbr.modswitch(jnp.asarray(x), jp)
-    got = tbr.modswitch(_t(x), tp)
+    got = tdec.modswitch(_t(x), tp)
     assert got.dtype == torch.int32 and np.array_equal(got.numpy(),
                                                        np.asarray(want))
     for basebit, t in ((jp.basebit, jp.iks_t), (8, 3)):
@@ -335,9 +333,9 @@ def test_int64_finish_has_no_kernel():
     c = rng.integers(-2**40, 2**40, (2, 2, plan.N))
     acc = _full64(rng, (2, 2, plan.N))
     v = tntt.ntt_forward(_t(c), plan, digit_limbs=8, digit_bound=128)
-    assert np.array_equal(tsr.finish_int64(v, _t(acc), plan, 3).numpy(),
+    assert np.array_equal(tntt.finish_int64(v, _t(acc), plan, 3).numpy(),
                           acc + (c << 3))
-    out = tsr.finish_int64([x.to("meta") for x in v], _t(acc).to("meta"),
+    out = tntt.finish_int64([x.to("meta") for x in v], _t(acc).to("meta"),
                            plan, 0)
     assert out.device.type == "meta" and out.dtype == torch.int64
     assert tuple(out.shape) == acc.shape

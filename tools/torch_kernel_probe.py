@@ -16,7 +16,7 @@ group 2, Bg_e 2^6, R = 5, drop 7, both with 3 primes; uint4: group 2,
 Bg_e 2^22, R = 2 rows of 3 digit limbs, drop 0, 5 primes; N = 1024; K3:
 2L = 6 digit rows, 1-4 key limbs of an ext-limb key step,
 ``--key-limbs``; t64, K2s only: SECURITY_128_BIT_T64's split step, N/2 =
-1024, 4 primes, 10 half-rows of the hi-plane digits (``_rows_hi32``) of
+1024, 4 primes, 10 half-rows of the hi-plane digits (``rows_hi32``) of
 a uniform accumulator, one step of a key made on the card with n0 cut to
 2; K1 there on the split views [P, 2B, 2, 2, 1024] of uniform hi planes,
 without and with the next step's half-rows) holds each kernel
@@ -74,7 +74,7 @@ def _digits(P, levels, e, B, g):
     import torch
 
     from zig_tfhe_tpu_torch.ops import ntt
-    from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows
+    from zig_tfhe_tpu_torch.ops.decomposition import decompose_rows
     from zig_tfhe_tpu_torch.ops.cuda import ntt_step as k2
 
     n_dl = ntt.engine_digit_limbs(e)
@@ -84,7 +84,7 @@ def _digits(P, levels, e, B, g):
                              device=g.device, dtype=torch.int32).to(torch.int8)
     acc = torch.randint(0, 1 << 32, (B, 2, P.N), dtype=torch.int64,
                         generator=g, device=g.device).to(torch.int32)
-    return k2.digit_planes(_decompose_to_rows(acc, P, levels, bgbit=e), n_dl)
+    return k2.digit_planes(decompose_rows(acc, P, levels, bgbit=e), n_dl)
 
 
 def _time_calls(label, name, kern, plain, iters, gpu) -> None:
@@ -171,12 +171,12 @@ def _k2s_inputs(key, B, g):
     accumulator, the key step, rotations in [0, 4 N/2)."""
     import torch
 
-    from zig_tfhe_tpu_torch.ops import split_ring
+    from zig_tfhe_tpu_torch.ops import decomposition
 
     P, plan, levels, bsk = key
     acc = torch.randint(0, 1 << 32, (B, 2, 2, plan.N), dtype=torch.int64,
                         generator=g, device=g.device).to(torch.int32)
-    digits = split_ring._rows_hi32(acc, P, 8, levels).to(torch.int8)
+    digits = decomposition.rows_hi32(acc, P, 8, levels).to(torch.int8)
     ts = torch.randint(0, 4 * plan.N, (2, B), generator=g, device=g.device,
                        dtype=torch.int32)
     return digits, bsk, ts, plan, 8
@@ -189,14 +189,14 @@ def _k1_split(args, batches, gpu) -> bool:
     import torch
 
     from zig_tfhe_tpu_torch import params
-    from zig_tfhe_tpu_torch.ops import ntt, split_ring
+    from zig_tfhe_tpu_torch.ops import decomposition, ntt
     from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
 
     dev = torch.device("cuda", 0)
     P = params.SECURITY_128_BIT_T64
     plan = ntt.plan_for_params(P, 32, 2, (3, 2), bgbit=8,
                                pseudorandom_key=True)
-    gadget = split_ring.half_row_gadget(P, 8, (3, 2))
+    gadget = decomposition.half_row_gadget(P, 8, (3, 2))
     g = torch.Generator(device=dev).manual_seed(args.seed)
     Nh, ok, turns = plan.N, True, None
     for B in batches:
@@ -210,13 +210,13 @@ def _k1_split(args, batches, gpu) -> bool:
         out = k1.ntt_inverse_to_crt_acc(vv, aa, plan, 0, digits=rows,
                                         gadget=gadget)
         plain = k1.ntt_inverse_to_crt_acc(vv, aa, plan, 0)
-        want = split_ring._rows_hi32(acc + c, P, 8, (3, 2)).to(torch.int8)
+        want = decomposition.rows_hi32(acc + c, P, 8, (3, 2)).to(torch.int8)
         torch.cuda.synchronize()
         same = (torch.equal(out, plain)
                 and torch.equal(out.reshape(B, 2, 2, Nh), acc + c)
                 and torch.equal(rows, want))
         print(f"t64 B={B}: K1 with half-rows == without == exact, half-rows "
-              f"== _rows_hi32: {same}")
+              f"== rows_hi32: {same}")
         ok &= same
         fns = {"K1": lambda a=(vv, aa, plan, 0): k1.ntt_inverse_to_crt_acc(*a),
                "K1 + half-rows": lambda a=(vv, aa, plan, 0), d=rows:

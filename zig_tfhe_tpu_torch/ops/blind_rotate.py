@@ -1,9 +1,11 @@
-"""Blind rotation entry point, the Toeplitz engine and their helpers.
+"""Blind rotation entry point and the Toeplitz engine.
 
-Counterpart of zig_tfhe_tpu/ops/blind_rotate.py.  ``blind_rotate`` picks
-the engine by the key's form, as the JAX package's default does: the
-matmul NTT (ops/blind_rotate_ntt.py) when the key holds ``bsk_ntt``, else
-the Toeplitz engine on the key's ``bsk_ext_limbs``.  The Toeplitz engine
+Counterpart of zig_tfhe_tpu/ops/blind_rotate.py.  ``blind_rotate`` is the
+one place that picks the engine, by the key's form as the JAX package's
+default does: the matmul NTT on a key with ``bsk_ntt``, on the split ring
+(ops/split_ring.py) for a set with N > 1024, else on the direct ring
+(ops/blind_rotate_ntt.py); the Toeplitz engine on ``bsk_ext_limbs``
+otherwise.  The Toeplitz engine
 (``blind_rotate_toeplitz``) is the reference's CMux loop with its exact
 gadget and per-bit key: each of the n0 steps rotates the accumulator by
 X^a, decomposes the difference and adds its external product with
@@ -17,69 +19,22 @@ original), give the same bits as this one path.
 
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple
-
 import torch
 
-from zig_tfhe_tpu_torch.ops.decomposition import gadget_base, gadget_decompose
-from zig_tfhe_tpu_torch.ops.ntt import norm_levels
+from zig_tfhe_tpu_torch.ops.blind_rotate_ntt import blind_rotate_ntt, rotations
+from zig_tfhe_tpu_torch.ops.cuda.extprod import extprod_matmul
+from zig_tfhe_tpu_torch.ops.decomposition import decompose_rows, modswitch
 from zig_tfhe_tpu_torch.ops.poly import negacyclic_rotate
+from zig_tfhe_tpu_torch.ops.split_ring import blind_rotate_split
 from zig_tfhe_tpu_torch.params import SecurityParams
 from zig_tfhe_tpu_torch.utils import profiling
-from zig_tfhe_tpu_torch.utils.torus import (carrier_dtype, i32_to_i8_limbs,
-                                            shift_right_logical, to_carrier)
-
-
-def _decompose_to_rows(ct: torch.Tensor, params: SecurityParams, levels=None,
-                       bgbit: int | None = None) -> torch.Tensor:
-    """[..., 2, N] -> signed digit rows [..., la+lb, N] (a-levels then
-    b-levels, the decompositionIntoStorage row order)."""
-    la, lb = norm_levels(params, levels, bgbit=bgbit)
-    if la == lb:
-        digs = gadget_decompose(ct, params, level_axis=-2, levels=la,
-                                bgbit=bgbit, center=True)  # [..., 2, la, N]
-        return digs.reshape(*digs.shape[:-3], 2 * la, params.N)
-    da = gadget_decompose(ct[..., 0, :], params, level_axis=-2, levels=la,
-                          bgbit=bgbit, center=True)
-    db = gadget_decompose(ct[..., 1, :], params, level_axis=-2, levels=lb,
-                          bgbit=bgbit, center=True)
-    return torch.cat([da, db], dim=-2)
-
-
-class RowGadget(NamedTuple):
-    """The decomposition ``_decompose_to_rows(ct, params, levels, bgbit)``
-    runs: base 2^bits, ``levels`` (la, lb) and each component's offset
-    mod 2^w (``gadget_decompose`` with center=True at that component's
-    levels), the numbers a kernel that writes these rows takes."""
-    params: SecurityParams
-    bits: int
-    levels: tuple
-    offsets: tuple
-
-
-@functools.lru_cache(maxsize=None)
-def row_gadget(params: SecurityParams, levels=None,
-               bgbit: int | None = None) -> RowGadget:
-    """``RowGadget`` of ``_decompose_to_rows`` with these arguments."""
-    la, lb = norm_levels(params, levels, bgbit=bgbit)
-    sides = [gadget_base(params, lv, bgbit, center=True) for lv in (la, lb)]
-    return RowGadget(params, sides[0][0], (la, lb),
-                     tuple(off for _, _, off in sides))
-
-
-def modswitch(x: torch.Tensor, params: SecurityParams) -> torch.Tensor:
-    """Torus carrier -> [0, 2N] rotation amount, int32 at every width
-    (trgsw.zig:297,312): (x + 2^(w-nbit-2)) >>u (w-nbit-1)."""
-    w = params.torus_bits
-    rounded = x + to_carrier(1 << (w - params.nbit - 2), w)
-    return shift_right_logical(rounded, w - params.nbit - 1).to(torch.int32)
+from zig_tfhe_tpu_torch.utils.torus import carrier_dtype, i32_to_i8_limbs
 
 
 def _digit_limbs(ct: torch.Tensor, params: SecurityParams) -> torch.Tensor:
     """[..., 2, N] -> the gadget digits' int8 limbs [..., 2L*N, digit_limbs]
     (a-levels then b-levels, each [N])."""
-    rows = _decompose_to_rows(ct, params)        # [..., 2L, N]
+    rows = decompose_rows(ct, params)            # [..., 2L, N]
     d = rows.reshape(*rows.shape[:-2], 2 * params.L * params.N)
     return i32_to_i8_limbs(d, params.digit_limbs)
 
@@ -91,8 +46,6 @@ def external_product(ext_limbs: torch.Tensor, ct: torch.Tensor,
     (externalProductWithFft, trgsw.zig:111-154, with matmuls in place of
     FFT/MAC/IFFT): one K3 call (ops/cuda/extprod.py) per digit limb, each
     partial shifted by 8*dl."""
-    from zig_tfhe_tpu_torch.ops.cuda.extprod import extprod_matmul
-
     d_limbs = _digit_limbs(ct, params)
     out = None
     for dl in range(params.digit_limbs):
@@ -115,9 +68,8 @@ def blind_rotate(tlwe_batch: torch.Tensor, testvec: torch.Tensor, ck,
     tlwe_batch: carrier [B, n0+1] (int32, int64 on the 64-bit torus);
     testvec: carrier [2, N] (shared) or [B, 2, N] (per lane); ck: CloudKey.
     Returns carrier [B, 2, N].  The NTT engine runs when the key holds
-    ``bsk_ntt``, else the Toeplitz engine."""
-    from zig_tfhe_tpu_torch.ops.blind_rotate_ntt import blind_rotate_ntt
-
+    ``bsk_ntt`` (its split ring on a split-ring set), else the Toeplitz
+    engine."""
     want = carrier_dtype(params.torus_bits)
     if tlwe_batch.dtype != want:
         # a width-mismatched ciphertext would modswitch garbage silently
@@ -125,11 +77,12 @@ def blind_rotate(tlwe_batch: torch.Tensor, testvec: torch.Tensor, ck,
             f"ciphertext dtype {tlwe_batch.dtype} does not match the "
             f"{params.torus_bits}-bit torus carrier {want}: encrypt with "
             f"width={params.torus_bits}")
-    if ck.bsk_ntt is not None:
-        return blind_rotate_ntt(tlwe_batch, testvec, ck.bsk_ntt, params,
-                                ck.bsk_ntt_drop, group=ck.bsk_group,
-                                levels=ck.bsk_levels, bgbit=ck.bsk_bgbit)
-    return blind_rotate_toeplitz(tlwe_batch, testvec, ck.bsk_ext_limbs, params)
+    if ck.bsk_ntt is None:
+        return blind_rotate_toeplitz(tlwe_batch, testvec, ck.bsk_ext_limbs,
+                                     params)
+    engine = blind_rotate_split if params.split_ring else blind_rotate_ntt
+    return engine(tlwe_batch, testvec, ck.bsk_ntt, params, ck.bsk_ntt_drop,
+                  group=ck.bsk_group, levels=ck.bsk_levels, bgbit=ck.bsk_bgbit)
 
 
 def blind_rotate_toeplitz(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
@@ -145,10 +98,10 @@ def blind_rotate_toeplitz(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
     if testvec.dim() == 2:
         testvec = testvec.expand(B, *testvec.shape)
     acc = negacyclic_rotate(testvec, b_tilda)
-    a_cols = tlwe_batch[:, :n0].T                               # [n0, B]
+    ts = rotations(tlwe_batch, params, 1, n0)                   # [n0, B]
     with profiling.span("blind_rotate.steps", device=acc.device, steps=n0,
                         fused_steps=0):
         for i in range(n0):
-            rotated = negacyclic_rotate(acc, modswitch(a_cols[i], params))
+            rotated = negacyclic_rotate(acc, ts[i])
             acc = cmux(bsk_ext_limbs[i], acc, rotated, params)
     return acc

@@ -1,4 +1,5 @@
-"""Blind rotation on the matmul-NTT engine.
+"""Blind rotation on the matmul-NTT engine: the direct ring's set-up, the
+key's resolved form, and the one step loop of both NTT rings.
 
 Counterpart of zig_tfhe_tpu/ops/blind_rotate_ntt.py.  Per step:
 
@@ -9,54 +10,171 @@ Counterpart of zig_tfhe_tpu/ops/blind_rotate_ntt.py.  Per step:
     acc   += CRT(invNTT(v_hat)) << drop_bits       # K1
 
 ``lax.scan`` becomes a Python loop over the steps (234 at the 128-bit
-default, group 3).  At multi-bit groups 2 and 3 with one-limb engine
-digits (every boolean key), and at group 2 with 2-3-limb engine digits
-(every uint key: Bg_e 2^10 to 2^23), a step is decompose -> limb planes
-(``digit_planes``; the digits themselves for one limb) -> the fused step
-core ops/cuda/ntt_step.py:ntt_step_fused (K2: forward NTT, pointwise
-products and subset combine) -> ops/cuda/ntt_inverse.py:
-ntt_inverse_to_crt_acc (K1).  Each is the hand-written kernel on CUDA
-tensors and its plain version on CPU tensors.  At group 2 K2 follows the
-JAX package's Pallas step kernel (``ZTFHE_PALLAS=1``), at group 3 its XLA
-``step_multi``; at group 2 the accumulator is also bit-equal to the JAX
-package's default XLA step (``step2``, which the JAX package runs for the
-uint keys), whose residues differ only by multiples of p.  Group 1,
-groups above 3 and group 3 with multi-limb digits run the plain ops of
-the JAX package's XLA step (the pointwise/rotate barrett fold for
-one-limb digits) and then K1.  The path is chosen from the key's
-configuration before any launch.
+default, group 3).  ``key_form`` resolves once a call what a key asks for
+(plan, engine gadget, digit format, ``Path``); ``scan`` runs the steps of
+every path on this module's direct ring (N <= 1024) and on
+ops/split_ring.py's split ring, which hands it K2s and its plain chain.
 
-With one-limb digits at groups 2 and 3 the loop is fused: step 0
-decomposes the set-up's accumulator, and from then on K1 of step s
-writes the digits of the accumulator it makes (``_decompose_to_rows`` at
-the key's engine gadget, as int8, ``row_gadget``) into the one buffer
-that K2 of step s read, for K2 of step s + 1; the last step writes none.  Stream order makes one
-buffer enough, and a step is two launches instead of thirteen.  The span
-``blind_rotate.steps`` carries ``fused_steps``, the steps whose K1 wrote
-digits: G - 1 here, 0 on the other paths of this module.  Multi-limb
-digits keep the decompose and ``digit_planes`` on every step.
-
-The 64-bit torus: a split-ring set (N > 1024) runs
-ops/split_ring.py:blind_rotate_split, whose hi-plane step finishes on
-K1 (at group 2, fused the same way: K1 writes the next step's half-rows
-for K2s).  The direct engine at width 64 (TEST_TINY64, N = 64) runs the plain
-ops at every group and finishes with K1's int64 variant
-(split_ring.py:finish_int64), plain PyTorch ops on the card as on the CPU.
+On a kernel path a step is the step core, then K1
+(ops/cuda/ntt_inverse.py:ntt_inverse_to_crt_acc).  The direct ring's
+core is K2 (ops/cuda/ntt_step.py:ntt_step_fused: forward NTT, pointwise
+products, subset combine) at groups 2 and 3 with one-limb engine digits
+(every boolean key) and at group 2 with 2-3-limb digits (every uint key);
+its residues follow the JAX package's Pallas step at group 2 and its XLA
+``step_multi`` at group 3 (module docstring there).  With one-limb digits
+the loop is fused: step 0 decomposes the set-up's accumulator, and K1 of
+step s writes the digits of the accumulator it makes (the form's gadget,
+as int8) into the one buffer the core of step s read, for step s + 1;
+the last step writes none.  Stream order makes one buffer enough, and a
+step is two launches.  Multi-limb digits are remade every step.  The span
+``blind_rotate.steps`` carries ``fused_steps``: G - 1 on the fused path,
+0 on the others.  Group 1, groups above 3, group 3 with multi-limb
+digits, split keys K2s does not take and the 64-bit direct engine
+(TEST_TINY64) run the plain ops of the JAX package's XLA step, then K1 on
+an int32 accumulator or ops/ntt.py:finish_int64 on an int64 one.  Each
+kernel is the hand-written one on CUDA tensors, its plain version on CPU
+tensors.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import enum
+import functools
+
 import torch
 
 from zig_tfhe_tpu_torch.ops import ntt as _ntt
-from zig_tfhe_tpu_torch.ops.blind_rotate import (_decompose_to_rows,
-                                                 modswitch, row_gadget)
+from zig_tfhe_tpu_torch.ops.cuda import ntt_step as _k2
+from zig_tfhe_tpu_torch.ops.cuda import split_step as _k2s
 from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import ntt_inverse_to_crt_acc
-from zig_tfhe_tpu_torch.ops.cuda.ntt_step import (digit_planes,
-                                                  ntt_step_fused, supports)
-from zig_tfhe_tpu_torch.ops.split_ring import blind_rotate_split, finish_int64
+from zig_tfhe_tpu_torch.ops.decomposition import (HalfRowGadget, RowGadget,
+                                                  half_row_gadget, hi32_planes,
+                                                  modswitch, row_gadget)
 from zig_tfhe_tpu_torch.params import SecurityParams
 from zig_tfhe_tpu_torch.utils import profiling
+
+
+class Path(enum.Enum):
+    """How a key's steps run."""
+    GROUP1 = "group 1 on the plain ops"
+    MULTI = "multi-bit on the plain ops"
+    FUSED = "step core and K1, K1 writing the next step's digits"
+    UNFUSED = "step core and K1, the multi-limb digits made every step"
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyForm:
+    """What a blind rotation derives from its key, once a call: ``hi32``
+    (the split ring's scan carries int32 hi planes) and ``path`` route it,
+    and ``drop`` and ``gadget`` follow from them."""
+    params: SecurityParams
+    plan: _ntt.NTTPlan
+    bits: int                 # the engine gadget's base 2^bits
+    levels: tuple             # (la, lb)
+    digit_limbs: int
+    digit_bound: int          # the top digit limb's
+    key_drop: int             # the bits the key's residues were rounded by
+    hi32: bool
+    path: Path
+
+    @functools.cached_property
+    def drop(self) -> int:
+        """The finish's shift: the hi planes take the key's less 32."""
+        return self.key_drop - 32 if self.hi32 else self.key_drop
+
+    @functools.cached_property
+    def gadget(self) -> RowGadget | HalfRowGadget:
+        """The digits the steps read: half-rows on the hi planes, else rows."""
+        if self.hi32:
+            return half_row_gadget(self.params, self.bits, self.levels)
+        return row_gadget(self.params, self.levels, self.bits)
+
+
+def key_form(params: SecurityParams, bsk: torch.Tensor, drop_bits: int,
+             group: int, levels, bgbit: int | None) -> KeyForm:
+    """The resolved form of a key: bsk int16 [n0, P, R, 2, N] (group 1) or
+    [G, 2^g - 1, P, R, 2, N] on the direct ring, the split ring's [..., P,
+    2R, 4, N/2]; (bgbit, levels) its engine gadget (None: the parameter
+    base, levels read off the key's row axis).  Checks the key's rows
+    against the levels and its primes against the plan, and routes it: the
+    only reader of the kernels' ``supports`` and of ``hi32_planes``."""
+    e = params.bgbit if bgbit is None else bgbit
+    split = params.split_ring
+    row_axis = 2 if group == 1 else 3
+    rows = bsk.shape[row_axis] // (2 if split else 1)
+    if levels is None:
+        levels = rows // 2
+    levels = _ntt.norm_levels(params, levels, bgbit=e)
+    if levels[0] + levels[1] != rows:
+        raise ValueError(f"levels {levels} do not match the key's "
+                         f"{bsk.shape[row_axis]} gadget rows")
+    plan = _ntt.plan_for_params(params, drop_bits, group, levels, bgbit=e,
+                                pseudorandom_key=True)
+    if bsk.shape[row_axis - 1] != plan.n_primes:
+        raise ValueError(f"BSK holds {bsk.shape[row_axis - 1]} CRT prime planes "
+                         f"but the plan selects {plan.n_primes}: the key was "
+                         "generated under another plan bound")
+    limbs = _ntt.engine_digit_limbs(e)
+    hi32 = split and hi32_planes(params, drop_bits, e, levels)
+    if group == 1:
+        path = Path.GROUP1
+    elif split:
+        path = Path.FUSED if _k2s.supports(group, limbs, hi32) else Path.MULTI
+    elif params.torus_bits == 32 and _k2.supports(group, limbs):
+        path = Path.FUSED if limbs == 1 else Path.UNFUSED
+    else:
+        path = Path.MULTI
+    return KeyForm(params, plan, e, levels, limbs,
+                   _ntt.top_limb_bound(1 << (e - 1), limbs), drop_bits, hi32,
+                   path)
+
+
+def rotations(tlwe_batch: torch.Tensor, params: SecurityParams, group: int,
+              steps: int) -> torch.Tensor:
+    """Every step's rotation amounts at once, int32: [n0, B] at group 1,
+    [G, g, B] at group g (a ragged last group padded with a = 0, the
+    identity rotation), contiguous."""
+    n0 = params.n0
+    t = modswitch(tlwe_batch[:, :n0].T, params)
+    if group > 1:
+        if n0 < group * steps:
+            t = torch.cat([t, t.new_zeros(group * steps - n0, t.shape[1])])
+        t = t.reshape(steps, group, -1)
+    return t.contiguous()
+
+
+def scan(acc: torch.Tensor, bsk: torch.Tensor, ts: torch.Tensor,
+         form: KeyForm, core, plain_step) -> torch.Tensor:
+    """The steps of a blind rotation on either NTT ring.
+
+    acc: int32 [B, 2, N] as K1 takes it (the split ring's hi planes as the
+    views [2B, 2, N/2]), or int64 for the plain int64 finish; bsk: one key
+    entry a step; ts: ``rotations``.  The ring's ``core(digits, bsk_step,
+    ts_step, plan, bits)`` (kernel paths) and ``plain_step(acc, bsk_step,
+    ts_step, form)`` (plain paths) return the residues as K1 takes them.
+    The span ``blind_rotate.steps`` closes on the last K1."""
+    steps = ts.shape[0]
+    fused = form.path is Path.FUSED
+    plan, drop, gadget = form.plan, form.drop, form.gadget
+    with profiling.span("blind_rotate.steps", device=acc.device, steps=steps,
+                        fused_steps=steps - 1 if fused else 0):
+        if form.path in (Path.GROUP1, Path.MULTI):
+            finish = (_ntt.finish_int64 if acc.dtype == torch.int64
+                      else ntt_inverse_to_crt_acc)
+            for s in range(steps):
+                acc = finish(plain_step(acc, bsk[s], ts[s], form), acc, plan,
+                             drop)
+            return acc
+        digits = None
+        for s in range(steps):
+            if digits is None or not fused:
+                digits = _k2.digit_planes(gadget.rows(acc), form.digit_limbs)
+            v = core(digits, bsk[s], ts[s], plan, form.bits)
+            acc = ntt_inverse_to_crt_acc(
+                v, acc, plan, drop, gadget=gadget,
+                digits=digits if fused and s < steps - 1 else None)
+    return acc
 
 
 def rotate_via_ntt(polys: torch.Tensor, t: torch.Tensor,
@@ -70,98 +188,41 @@ def rotate_via_ntt(polys: torch.Tensor, t: torch.Tensor,
     return _ntt.ntt_inverse_to_crt(r_hat, plan, width)
 
 
+def _plain_step(acc: torch.Tensor, bsk_step: torch.Tensor, t: torch.Tensor,
+                form: KeyForm) -> torch.Tensor:
+    """One direct-ring step on the plain ops: the residues int32 [P, B, 2,
+    N] of the JAX package's XLA step."""
+    plan = form.plan
+    d_hat = _ntt.ntt_forward(form.gadget.rows(acc), plan, form.digit_limbs,
+                             form.digit_bound)
+    if form.path is Path.GROUP1:
+        u_hat = _ntt.pointwise_extprod(d_hat, bsk_step, plan,
+                                       reduce_output=False)
+        return torch.stack(_ntt.rotate_diag(u_hat, t, plan))
+    fold = form.digit_limbs == 1
+    us = [_ntt.pointwise_extprod(d_hat, bsk_step[m], plan,
+                                 reduce_output=not fold)
+          for m in range(bsk_step.shape[0])]
+    return torch.stack(_ntt.rotate_combine_multi(us, list(t), plan,
+                                                 u_wide=fold))
+
+
 def blind_rotate_ntt(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
                      bsk_ntt: torch.Tensor, params: SecurityParams,
                      drop_bits: int, group: int = 1, levels=None,
                      bgbit: int | None = None) -> torch.Tensor:
-    """tlwe_batch carrier [B, n0+1]; testvec carrier [2, N] or [B, 2, N];
-    bsk_ntt int16 [n0, P, la+lb, 2, N] (group 1) or
-    [G, 2^g-1, P, la+lb, 2, N] (multi-bit, G = ceil(n0/g)), or the split
-    key's [.., P, 2R, 4, N/2] on a split-ring set.  Returns carrier
-    [B, 2, N].  (bgbit, levels) is the key's engine gadget (None: the
-    parameter base / levels read off the key's row axis)."""
-    if params.split_ring:
-        return blind_rotate_split(tlwe_batch, testvec, bsk_ntt, params,
-                                  drop_bits, group=group, levels=levels,
-                                  bgbit=bgbit)
-    w = params.torus_bits
-    e = params.bgbit if bgbit is None else bgbit
-    row_axis = 2 if group == 1 else 3
-    if levels is None:
-        levels = bsk_ntt.shape[row_axis] // 2
-    levels = _ntt.norm_levels(params, levels, bgbit=e)
-    if levels[0] + levels[1] != bsk_ntt.shape[row_axis]:
-        raise ValueError(f"levels {levels} do not match the key's "
-                         f"{bsk_ntt.shape[row_axis]} gadget rows")
-    plan = _ntt.plan_for_params(params, drop_bits, group, levels, bgbit=e,
-                                pseudorandom_key=True)
-    key_primes = bsk_ntt.shape[row_axis - 1]
-    if key_primes != plan.n_primes:
-        raise ValueError(
-            f"BSK holds {key_primes} CRT prime planes but the plan selects "
-            f"{plan.n_primes}: the key was generated under another plan bound")
-    n0, N = params.n0, params.N
-    B = tlwe_batch.shape[0]
-    e_limbs = _ntt.engine_digit_limbs(e)
-    dbound = _ntt.top_limb_bound(1 << (e - 1), e_limbs)
-    fold = e_limbs == 1
-
-    b_tilda = 2 * N - modswitch(tlwe_batch[:, n0], params)
+    """The direct ring (N <= 1024): tlwe_batch carrier [B, n0+1]; testvec
+    carrier [2, N] or [B, 2, N]; bsk_ntt int16 [n0, P, la+lb, 2, N]
+    (group 1) or [G, 2^g-1, P, la+lb, 2, N] (multi-bit, G = ceil(n0/g)).
+    Returns carrier [B, 2, N].  (bgbit, levels) is the key's engine gadget
+    (None: the parameter base / levels read off the key's row axis)."""
+    form = key_form(params, bsk_ntt, drop_bits, group, levels, bgbit)
+    N, B = params.N, tlwe_batch.shape[0]
+    b_tilda = 2 * N - modswitch(tlwe_batch[:, params.n0], params)
     if testvec.dim() == 2:
         testvec = testvec[None]          # [1, 2, N] broadcasts against [B]
-    acc = rotate_via_ntt(testvec, b_tilda, plan, w)
+    acc = rotate_via_ntt(testvec, b_tilda, form.plan, params.torus_bits)
     if acc.shape[0] != B:
         acc = acc.expand(B, 2, N).contiguous()
-    a_cols = tlwe_batch[:, :n0].T        # [n0, B]
-
-    def fwd(acc):
-        rows = _decompose_to_rows(acc, params, levels, bgbit=e)
-        return _ntt.ntt_forward(rows, plan, e_limbs, dbound)
-
-    def finish(acc, v_hat):
-        if w == 64:
-            return finish_int64(v_hat, acc, plan, drop_bits)
-        return ntt_inverse_to_crt_acc(torch.stack(v_hat), acc, plan, drop_bits)
-
-    if group == 1:
-        with profiling.span("blind_rotate.steps", device=acc.device,
-                            steps=n0, fused_steps=0):
-            for i in range(n0):
-                t = modswitch(a_cols[i], params)
-                u_hat = _ntt.pointwise_extprod(fwd(acc), bsk_ntt[i], plan,
-                                               reduce_output=False)
-                acc = finish(acc, _ntt.rotate_diag(u_hat, t, plan))
-        return acc
-
-    G = bsk_ntt.shape[0]
-    if n0 < group * G:                   # ragged n0: pad a = 0 (no rotation)
-        a_cols = torch.cat([a_cols, a_cols.new_zeros(group * G - n0, B)])
-    a_groups = a_cols.reshape(G, group, B)
-    if w == 32 and supports(group, e_limbs):
-        ts = modswitch(a_groups, params)     # every step's rotations at once
-        # one-limb digits: K1 writes the next step's digits into the buffer
-        # K2 has just read (stream order), so only step 0 decomposes
-        gadget = row_gadget(params, levels, e) if fold else None
-        with profiling.span("blind_rotate.steps", device=acc.device,
-                            steps=G, fused_steps=G - 1 if fold else 0):
-            digits = None
-            for s in range(G):
-                if digits is None or not fold:
-                    digits = digit_planes(_decompose_to_rows(
-                        acc, params, levels, bgbit=e), e_limbs)
-                v = ntt_step_fused(digits, bsk_ntt[s], ts[s], plan, e)
-                nxt = digits if fold and s < G - 1 else None
-                acc = ntt_inverse_to_crt_acc(v, acc, plan, drop_bits,
-                                             digits=nxt, gadget=gadget)
-        return acc
-    with profiling.span("blind_rotate.steps", device=acc.device, steps=G,
-                        fused_steps=0):
-        for s in range(G):
-            ts = [modswitch(a_groups[s, j], params) for j in range(group)]
-            d_hat = fwd(acc)
-            us = [_ntt.pointwise_extprod(d_hat, bsk_ntt[s, m], plan,
-                                         reduce_output=not fold)
-                  for m in range((1 << group) - 1)]
-            acc = finish(acc, _ntt.rotate_combine_multi(us, ts, plan,
-                                                        u_wide=fold))
-    return acc
+    ts = rotations(tlwe_batch, params, group, bsk_ntt.shape[0])
+    return scan(acc, bsk_ntt, ts, form, _k2.ntt_step_fused, _plain_step)

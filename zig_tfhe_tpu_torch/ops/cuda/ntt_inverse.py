@@ -12,17 +12,14 @@ limb planes [P, B, 2, 2, N] (``split_limbs``: v == lo + 256 * hi, every
 as it stands and half the bytes of int32 residues.  Both functions below
 also take int32 residues [P, B, 2, N] and split them first.
 
-Both also write, where given a ``digits`` buffer and the ``RowGadget``
-(ops/blind_rotate.py) of the key's engine gadget, the next step's gadget
-digits of the accumulator they return: int8 [B, la + lb, N], equal to
-``_decompose_to_rows(out, ...).to(torch.int8)``, the one-limb digit planes
-that K2 reads.  On the card that is a second instance of the kernel,
-which computes them in its final epilogue from the values it stores
-(csrc/ntt_inverse.cu); the instance without them is the kernel as it was.
-On the split ring's views (accumulator [2B, 2, N/2], rows (b, c, q)) a
-``HalfRowGadget`` instead asks for the next step's hi-plane half-rows,
-int8 [B, 2(la + lb), N/2], equal to ``split_ring._rows_hi32(out, ...)
-.to(torch.int8)``, the digits that K2s reads: a third instance.
+Both also write, where given a ``digits`` buffer and a gadget
+(ops/decomposition.py), the next step's digits of the accumulator they
+return, ``gadget.rows(out).to(torch.int8)``: at a ``RowGadget`` the
+one-limb rows int8 [B, la + lb, N] that K2 reads, at a ``HalfRowGadget``
+on the split ring's views (accumulator [2B, 2, N/2], rows (b, c, q)) the
+hi-plane half-rows int8 [B, 2(la + lb), N/2] that K2s reads.  On the card
+each is an instance of the kernel that computes them in its final
+epilogue from the values it stores (csrc/ntt_inverse.cu).
 
 ``ntt_inverse_to_crt_acc`` launches the kernel for CUDA tensors (or
 raises) and runs the plain PyTorch version,
@@ -34,44 +31,17 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from zig_tfhe_tpu_torch.ops.blind_rotate import RowGadget, _decompose_to_rows
 from zig_tfhe_tpu_torch.ops.cuda import _build
+from zig_tfhe_tpu_torch.ops.decomposition import HalfRowGadget, RowGadget
 from zig_tfhe_tpu_torch.ops.ntt import NTTPlan, ntt_inverse_to_crt
-from zig_tfhe_tpu_torch.params import SecurityParams
 
 SOURCE = _build.CSRC / "ntt_inverse.cu"
 _MAX_PRIMES = 8     # kMaxPrimes in the source
 _COL_TILE = 64      # N must be a multiple of the kernel's widest tile
-
-
-class HalfRowGadget(NamedTuple):
-    """The split-ring scan's hi-plane decomposition
-    (``split_ring._rows_hi32(acc_hi, params, bits, levels)``) as K1 writes
-    it on the split views: base 2^bits, ``levels`` (la, lb) and the hi word
-    of each component's offset mod 2^32 (its low word is carried in the
-    accumulator); made by ``split_ring.half_row_gadget``."""
-    params: SecurityParams
-    bits: int
-    levels: tuple
-    offsets: tuple
-
-
-def _gadget_digits(out: torch.Tensor, gadget) -> torch.Tensor:
-    """The plain digits of ``out`` at ``gadget``, int8."""
-    if isinstance(gadget, HalfRowGadget):
-        from zig_tfhe_tpu_torch.ops.split_ring import _rows_hi32
-
-        rows = _rows_hi32(out.reshape(-1, 2, *out.shape[1:]), gadget.params,
-                          gadget.bits, gadget.levels)
-    else:
-        rows = _decompose_to_rows(out, gadget.params, gadget.levels,
-                                  bgbit=gadget.bits)
-    return rows.to(torch.int8)
 
 
 def split_limbs(v: torch.Tensor) -> torch.Tensor:
@@ -90,15 +60,14 @@ def join_limbs(v8: torch.Tensor) -> torch.Tensor:
 def ntt_inverse_to_crt_acc_reference(v_stack: torch.Tensor, acc: torch.Tensor,
                                      plan: NTTPlan, drop: int,
                                      digits: torch.Tensor | None = None,
-                                     gadget: RowGadget | None = None
-                                     ) -> torch.Tensor:
+                                     gadget: RowGadget | HalfRowGadget
+                                     | None = None) -> torch.Tensor:
     """Plain PyTorch version: acc + (ntt_inverse_to_crt(v) << drop), the
     JAX package's XLA formulation of the same step (blind_rotate_ntt.py
     finish).  v_stack: int8 limb planes [P, B, 2, 2, N] or int32 residues
     [P, B, 2, N].  With ``digits`` also writes the output's gadget digits
-    there: ``_decompose_to_rows`` at a ``RowGadget`` (int8 [B, la + lb,
-    N]), ``split_ring._rows_hi32`` at a ``HalfRowGadget`` (int8 [B / 2,
-    2(la + lb), N])."""
+    there, ``gadget.rows(out)``: int8 [B, la + lb, N] at a ``RowGadget``,
+    [B / 2, 2(la + lb), N] at a ``HalfRowGadget``."""
     if v_stack.dtype == torch.int8:
         v_stack = join_limbs(v_stack)
     delta = ntt_inverse_to_crt(list(v_stack), plan)
@@ -106,7 +75,7 @@ def ntt_inverse_to_crt_acc_reference(v_stack: torch.Tensor, acc: torch.Tensor,
         delta = delta << drop
     out = acc + delta
     if digits is not None:
-        digits.copy_(_gadget_digits(out, gadget))
+        digits.copy_(gadget.rows(out))
     return out
 
 
@@ -192,18 +161,15 @@ def _require_digits(digits: torch.Tensor,
 def ntt_inverse_to_crt_acc(v_stack: torch.Tensor, acc: torch.Tensor,
                            plan: NTTPlan, drop: int,
                            digits: torch.Tensor | None = None,
-                           gadget: RowGadget | None = None) -> torch.Tensor:
+                           gadget: RowGadget | HalfRowGadget | None = None
+                           ) -> torch.Tensor:
     """acc + (CRT(invNTT(v)) << drop) mod 2^32.
 
     v_stack: the per-prime residues (|.| <= 0.55p), as int8 limb planes
     [P, B, 2, 2, N] (K2's output) or as int32 [P, B, 2, N], which is split
     here; acc: int32 [B, 2, N].  Any B.  With ``digits``, a contiguous
-    int8 [B, la + lb, N] buffer, and the ``RowGadget`` of one-limb digits
-    (Bg_e <= 2^8), also writes there the output's gadget digits
-    (``_decompose_to_rows(out, ...).to(torch.int8)``); on the split ring's
-    views (acc [2L, 2, N] for L lanes, rows (b, c, q)) a ``HalfRowGadget``
-    and an int8 [L, 2(la + lb), N] buffer take the hi-plane half-rows
-    (``split_ring._rows_hi32(out, ...).to(torch.int8)``).  CUDA tensors
+    int8 buffer, and the gadget of one-limb digits (Bg_e <= 2^8), also
+    writes the digits the module docstring gives there.  CUDA tensors
     launch the kernel (and count the launch in
     ``ntt_inverse_to_crt_acc.launches``, and one that wrote digits also in
     ``.digit_launches``); CPU tensors run the plain version."""
@@ -213,7 +179,7 @@ def ntt_inverse_to_crt_acc(v_stack: torch.Tensor, acc: torch.Tensor,
             "the kernel takes int32 residues or their int8 limb planes and "
             "an int32 accumulator (the split-ring scan's are its int32 hi "
             "planes; an int64 accumulator's finish is the plain "
-            f"ops/split_ring.py:finish_int64) (got {v_stack.dtype}, {acc.dtype})")
+            f"ops/ntt.py:finish_int64) (got {v_stack.dtype}, {acc.dtype})")
     if digits is not None:
         _require_digits(digits, gadget, acc)
     if v_stack.device.type == "cpu" and acc.device.type == "cpu":

@@ -29,7 +29,7 @@ they (and not only the accumulator) are bit-equal to the JAX package's:
 
 Multi-limb digits (group 2 only) enter as int8 limb planes [B, R * n_dl,
 N], plane r * n_dl + l holding limb l (little-endian, ``digit_planes`` of
-``_decompose_to_rows``).  Their forward NTT is ops/ntt.py:ntt_forward's
+``decompose_rows``).  Their forward NTT is ops/ntt.py:ntt_forward's
 limb loop (each limb's ``_limb_pair_combine``, then Horner from the top
 limb down), followed by the group-2 arithmetic above.  The JAX package
 runs these keys on its XLA ``step2`` (``pointwise_extprod`` +
@@ -74,7 +74,7 @@ _COL_TILE = 64      # N must be a multiple of the kernel's narrowest stage
 
 def supports(group: int, digit_limbs: int) -> bool:
     """Whether the fused step takes a key of this multi-bit group and
-    engine-digit limb count."""
+    engine-digit limb count (read by ops/blind_rotate_ntt.py:key_form)."""
     return group in GROUPS and (digit_limbs == 1 or (
         group == 2 and digit_limbs <= _MAX_LIMBS))
 
@@ -118,7 +118,7 @@ def row_groups(plan: _ntt.NTTPlan, group: int) -> tuple:
 
 
 def digit_planes(rows: torch.Tensor, digit_limbs: int) -> torch.Tensor:
-    """Gadget digit rows int32 [B, R, N] (``_decompose_to_rows``) -> the
+    """Gadget digit rows int32 [B, R, N] (``decompose_rows``) -> the
     kernel's int8 limb planes [B, R * n_dl, N], plane r * n_dl + l holding
     limb l of row r (utils/torus.py:i32_to_i8_limbs, little-endian)."""
     if digit_limbs == 1:
@@ -134,7 +134,7 @@ def _pointwise_combine2(d_hat, bsk_step: torch.Tensor, ts: torch.Tensor,
     (ntt_step.py:_fwd_pointwise_rotate)."""
     N = plan.N
     B = ts.shape[1]
-    rows = _ntt._rot_rows(torch.cat([ts[0], ts[1]]) & (2 * N - 1), plan)
+    rows = _ntt.rot_rows(torch.cat([ts[0], ts[1]]) & (2 * N - 1), plan)
     R = bsk_step.shape[2]
     rg = row_groups(plan, 2)[0]
     out = []
@@ -210,7 +210,9 @@ class _DeviceTables:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_tables(plan: _ntt.NTTPlan, device: torch.device) -> _DeviceTables:
+def device_tables(plan: _ntt.NTTPlan, device: torch.device) -> _DeviceTables:
+    """The forward matrices and psi rows the kernel reads (K2s's too), on
+    ``device`` once per plan."""
     def dev(mats, transpose):
         m = np.stack(mats)
         if transpose:
@@ -240,7 +242,7 @@ def _host_scalars(plan: _ntt.NTTPlan, group: int, bgbit: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _host_scalar_ptrs(plan: _ntt.NTTPlan, group: int, bgbit: int) -> tuple:
+def host_scalar_ptrs(plan: _ntt.NTTPlan, group: int, bgbit: int) -> tuple:
     """``_host_scalars`` as ctypes pointers (made once: the launch path is
     host-bound at small batches; the cached arrays stay alive)."""
     return tuple(a.ctypes.data_as(ctypes.c_void_p)
@@ -274,14 +276,14 @@ def ntt_step_fused(digits: torch.Tensor, bsk_step: torch.Tensor,
     digits, bsk_step, ts = (t.contiguous() for t in tensors)
     if digits.data_ptr() % 16 or bsk_step.data_ptr() % 16:
         raise ValueError("kernel operands must be 16-byte aligned")
-    tabs = _device_tables(plan, dev)
+    tabs = device_tables(plan, dev)
     v = torch.empty((P, B, 2, 2, N), dtype=torch.int8, device=dev)
     lib = _library()
     err = lib.ztfhe_ntt_step_fused(
         digits.data_ptr(), bsk_step.data_ptr(), ts.data_ptr(),
         tabs.fwd_lo_t.data_ptr(), tabs.fwd_hi_t.data_ptr(),
         tabs.rot.data_ptr(), v.data_ptr(),
-        *_host_scalar_ptrs(plan, group, bgbit), P, group, B, R, n_dl, N,
+        *host_scalar_ptrs(plan, group, bgbit), P, group, B, R, n_dl, N,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "ntt_step_fused")
     ntt_step_fused.launches += 1

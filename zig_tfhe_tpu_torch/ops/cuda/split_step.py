@@ -7,12 +7,12 @@ step's key residues -> multi-bit rotation combine -> residues) at the
 split-ring shape of ops/split_ring.py: 2R half-rows a batch element, the
 folded key's 4 output planes, the Y-twisted combine
 (``rotate_combine_multi_split``).  The JAX package runs this step in XLA
-and has no Pallas kernel for it.  One hi-plane step of
-``blind_rotate_split`` is this kernel, then K1 (ops/cuda/ntt_inverse.py),
-which takes the residues as the int8 limb planes this kernel writes ([P,
-B, 2(c), 2(q), 2(limb), N/2], viewed as [P, 2B, 2, 2, N/2] rows (b, c,
-q)) and writes the next step's digits (``_rows_hi32`` of its output, the
-int8 half-rows; step 0's come from ``_rows_hi32`` itself).  The source is
+and has no Pallas kernel for it.  One hi-plane step of the split ring's
+scan is this kernel, then K1 (ops/cuda/ntt_inverse.py), which takes the
+residues as the int8 limb planes this kernel writes ([P, B, 2(c), 2(q),
+2(limb), N/2], viewed as [P, 2B, 2, 2, N/2] rows (b, c, q)) and writes
+the next step's digits (``rows_hi32`` of its output, the int8 half-rows;
+step 0's come from ``rows_hi32`` itself).  The source is
 zig_tfhe_tpu_torch/csrc/split_step.cu (its header gives the bound on the
 card and the design); ops/cuda/_build.py compiles it at first use.  Its
 Barrett rounds by an f32 add of 1.5 * 2^23 instead of the f32 -> int32
@@ -23,8 +23,9 @@ the card (all 2^32 by default), and ``barrett_reference`` is the plain
 form in numpy.
 
 Its plain version, ``split_step_fused_reference``, is the chain the scan
-ran before the kernel existed: ``_forward`` -> ``_pointwise`` per subset
--> ``rotate_combine_multi_split`` -> ``split_limbs``, whose residues the
+ran before the kernel existed, ops/split_ring.py's ``forward`` ->
+``pointwise`` per subset -> ``rotate_combine_multi_split`` ->
+``split_limbs``, whose residues the
 CRT lift of K1 turns into the JAX package's accumulator bit for bit (the
 residues themselves are only congruent mod p to the JAX package's).  The
 kernel places every reduction where that chain does, and is held equal to
@@ -33,10 +34,12 @@ it bit for bit.
 ``split_step_fused`` launches the kernel for CUDA tensors (or raises) and
 runs the plain version for CPU tensors only.  It takes group 2 with
 one-limb engine digits (Bg_e <= 2^8) on the hi-plane scan: the defaults of
-every split-ring set.  ``supports`` is the routing test of
-``blind_rotate_split``; group 1 and group 3 split keys, multi-limb digits
-and the generic int64 scan stay on the plain ops (they raise
-``NotImplementedError`` here).
+every split-ring set.  ``supports`` is what the blind rotation reads to
+route a key here (ops/blind_rotate_ntt.py:key_form); group 1 and group 3
+split keys, multi-limb digits and the generic int64 scan stay on the
+plain ops (they raise ``NotImplementedError`` here).  The plain chain and
+the pointwise rule (``row_group``) live in ops/split_ring.py, which
+imports this module, so this module imports it at call time.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ import torch
 from zig_tfhe_tpu_torch.ops import ntt as _ntt
 from zig_tfhe_tpu_torch.ops.cuda import _build
 from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import split_limbs
-from zig_tfhe_tpu_torch.ops.cuda.ntt_step import _device_tables, _host_scalar_ptrs
+from zig_tfhe_tpu_torch.ops.cuda.ntt_step import device_tables, host_scalar_ptrs
 
 SOURCE = _build.CSRC / "split_step.cu"
 GROUP = 2
@@ -61,7 +64,7 @@ MIN_PRIME = 1 << 11  # kMinPrime: the kernel's Barrett rounds exactly above it
 
 def supports(group: int, digit_limbs: int, hi32: bool) -> bool:
     """Whether K2s takes a split key's step: group 2, one-limb engine
-    digits, on the int32 hi-plane scan (``split_ring._hi32_planes``)."""
+    digits, on the int32 hi-plane scan (``decomposition.hi32_planes``)."""
     return group == GROUP and digit_limbs == 1 and hi32
 
 
@@ -95,10 +98,13 @@ def _require_supported(digits: torch.Tensor, bsk_step: torch.Tensor,
             "2R, 4, N/2] and [2, B]")
 
 
-def row_group(plan: _ntt.NTTPlan) -> int:
-    """Rows summed unreduced in the pointwise sums: the plan's smallest
-    ``row_group`` (int32-exact for every prime), as ``_pointwise``."""
-    return min(plan.row_group(p) for p in plan.primes)
+@functools.lru_cache(maxsize=None)
+def _launch_scalars(plan: _ntt.NTTPlan, bgbit: int) -> tuple:
+    """The launch's scalars: p and f32 1/p as ctypes pointers (K2's
+    arrays) and the pointwise row group."""
+    from zig_tfhe_tpu_torch.ops.split_ring import row_group
+
+    return (*host_scalar_ptrs(plan, GROUP, bgbit)[:2], row_group(plan))
 
 
 def split_step_fused_reference(digits: torch.Tensor, bsk_step: torch.Tensor,
@@ -107,18 +113,18 @@ def split_step_fused_reference(digits: torch.Tensor, bsk_step: torch.Tensor,
     """Plain PyTorch version of the split step core.
 
     digits: int8 [B, 2R, N/2], the hi-plane gadget digits
-    (``_rows_hi32``, |d| <= 128) in (r, q_in) row order; bsk_step: int16
+    (``rows_hi32``, |d| <= 128) in (r, q_in) row order; bsk_step: int16
     [3, P, 2R, 4, N/2], one step of the folded split key; ts: int32 [2, B]
     rotation amounts in [0, 4 N/2).  Returns the residues v (|v| <=
     0.52p) as int8 limb planes [P, B, 2(c), 2(q), 2(limb), N/2], K1's
     input."""
-    from zig_tfhe_tpu_torch.ops import split_ring as _sr
+    from zig_tfhe_tpu_torch.ops import split_ring as sr
 
     _require_supported(digits, bsk_step, ts, plan, bgbit)
-    d_hat = _sr._forward(digits, plan)                        # [P, B, 2R, N/2]
-    us = [_sr._pointwise(d_hat, bsk_step[m], plan)
+    d_hat = sr.forward(digits, plan)                          # [P, B, 2R, N/2]
+    us = [sr.pointwise(d_hat, bsk_step[m], plan)
           for m in range(bsk_step.shape[0])]
-    return split_limbs(_sr.rotate_combine_multi_split(us, [ts[0], ts[1]], plan))
+    return split_limbs(sr.rotate_combine_multi_split(us, [ts[0], ts[1]], plan))
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -164,15 +170,15 @@ def split_step_fused(digits: torch.Tensor, bsk_step: torch.Tensor,
     digits, bsk_step, ts = (t.contiguous() for t in tensors)
     if digits.data_ptr() % 16 or bsk_step.data_ptr() % 16:
         raise ValueError("kernel operands must be 16-byte aligned")
-    tabs = _device_tables(plan, dev)
+    tabs = device_tables(plan, dev)
     v = torch.empty((P, B, 2, 2, 2, N), dtype=torch.int8, device=dev)
+    primes, inv_p, rg = _launch_scalars(plan, bgbit)
     lib = _library()
     err = lib.ztfhe_split_step_fused(
         digits.data_ptr(), bsk_step.data_ptr(), ts.data_ptr(),
         tabs.fwd_lo_t.data_ptr(), tabs.fwd_hi_t.data_ptr(),
-        tabs.rot.data_ptr(), v.data_ptr(),
-        *_host_scalar_ptrs(plan, GROUP, bgbit)[:2], P,
-        row_group(plan), B, R2, N, torch.cuda.current_stream(dev).cuda_stream)
+        tabs.rot.data_ptr(), v.data_ptr(), primes, inv_p, P, rg, B, R2, N,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "split_step_fused")
     split_step_fused.launches += 1
     return v

@@ -410,6 +410,15 @@ def ntt_inverse_to_crt(res_list, plan: NTTPlan, width: int = 32) -> torch.Tensor
     return crt_combine(ntt_inverse_residues(res_list, plan), plan, width)
 
 
+def finish_int64(v_hat, acc: torch.Tensor, plan: NTTPlan,
+                 drop_bits: int) -> torch.Tensor:
+    """acc + (CRT(invNTT(v)) << drop) mod 2^64 on an int64 accumulator:
+    K1's int64 variant (ops/cuda/ntt_inverse.py), plain PyTorch ops on any
+    device (the JAX package runs it as XLA ops, with no Pallas kernel)."""
+    delta = ntt_inverse_to_crt(v_hat, plan, 64)
+    return acc + (delta << drop_bits if drop_bits else delta)
+
+
 def ntt_inverse_residues(res_list, plan: NTTPlan) -> list:
     """Inverse NTT per prime, before the CRT lift: per prime int32 [..., N]
     centered residues x_p.  The ``concat`` form: [lo | hi] limbs @ limbs
@@ -496,7 +505,7 @@ def pointwise_extprod(d_hat, key_hat: torch.Tensor, plan: NTTPlan,
     return outs
 
 
-def _rot_rows(t: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
+def rot_rows(t: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
     """psi rows for rotation amounts t: int32 [T, n_primes*N]."""
     merged = plan_tables(plan, t.device).rot_merged
     return merged[t.long()].to(torch.int32)
@@ -523,7 +532,7 @@ def rotate_combine_multi(us, ts, plan: NTTPlan, u_wide: bool = False) -> list:
     N = plan.N
     t_cat = torch.cat([t & (2 * N - 1) for t in ts])
     B = ts[0].shape[0]
-    rows_all = _rot_rows(t_cat, plan)
+    rows_all = rot_rows(t_cat, plan)
     outs = []
     for i, p in enumerate(plan.primes):
         raw = rows_all[:, i * N:(i + 1) * N]
@@ -557,7 +566,7 @@ def rotate_diag(res_list, t: torch.Tensor, plan: NTTPlan,
     accepted); t: int32 [B].  Returns per-prime int32 residues
     (<= 0.52p)."""
     N = plan.N
-    rows_all = _rot_rows(t & (2 * N - 1), plan)       # X^(2N) == X^0
+    rows_all = rot_rows(t & (2 * N - 1), plan)       # X^(2N) == X^0
     outs = []
     for i, p in enumerate(plan.primes):
         row = rows_all[:, i * N:(i + 1) * N]

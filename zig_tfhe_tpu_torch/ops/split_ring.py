@@ -20,43 +20,30 @@ folded into the key planes at keygen (``fold_key_split``).  X^t rotations
 The scan (``blind_rotate_split``).  With the key rounded by drop >= 32
 bits every step's delta is a multiple of 2^32, so the accumulator's low
 word never changes; when also every digit shift sits at or above bit 32
-(``_hi32_planes``), the whole step is a function of the int32 hi planes
-once each decomposition offset's low word is added to the accumulator
-before the scan (and taken off after it; the set's own gadget at
-128bit_t64 and tiny_split has none, the engine gadget 2^8 of tfhers_2_2
-has): decompose at width 32 (``_rows_hi32``), forward NTT, the folded
-pointwise sums, the parity combine, and the finish
-acc_hi + (CRT(invNTT(v)) << (drop - 32)) mod 2^32.
-At group 2 with one-limb digits (every split set's defaults) the middle of
-the step is K2s (ops/cuda/split_step.py:split_step_fused, a hand kernel
-for Hopper: forward NTT, pointwise sums and combine in one launch, the
-residues written as int8 limb planes [P, B, 2(c), 2(q), 2(limb), Nh]) and
-the finish is K1 (ops/cuda/ntt_inverse.py:ntt_inverse_to_crt_acc) on the
-views [P, 2B, 2, 2, Nh] and [2B, 2, Nh], rows (b, c, q).  That loop is
-fused as the 32-bit engine's: step 0 decomposes the set-up's accumulator
-(``_rows_hi32``), and from then on K1 of step s also writes the int8
-half-rows of the accumulator it makes (at ``half_row_gadget``) into the
-buffer that K2s of step s read, for K2s of step s + 1; the last step
-writes none.  So a hi-plane step is one K2s and one K1 launch on CUDA
-tensors, and ``fused_steps`` of span ``blind_rotate.steps`` reads G - 1
-(0 on every other split path).  K2s's plain version is the prime-batched
-chain below (``_forward``, ``_pointwise``, ``rotate_combine_multi_split``;
-the primes on a leading axis with their constants broadcast,
-``_barrett``), which the JAX package runs in XLA (no Pallas kernel covers
-the split step).  Group 1 and group 3 keys run that
-chain on either device, and their hi-plane finish is K1 on the int32
-residues.  The decomposition and the combine are the JAX formulas element
-for element (bit-equal residues); the forward NTT takes the two-Barrett
-limb combine for every prime and the pointwise sums reduce in groups of
-the plan's smallest row group, so their residues equal the JAX package's
-mod p within the same bounds, and the CRT lift makes the accumulator
-bit-equal (as K2's residues are to the JAX package's XLA step).  The low
-word is re-attached once after the scan.  The generic scan (int64
-accumulator, reached by a configuration whose drop is below 32 or whose
-digits read bits below 32) runs the plain chain and finishes with K1's
-int64 variant, plain PyTorch ops on either device (``finish_int64``).
-The path is chosen from the key's configuration before any launch.  The
-JAX package's ``ZTFHE_SPLIT_HI32`` switch is not ported.
+(ops/decomposition.py:hi32_planes), the whole step is a function of the
+int32 hi planes once each decomposition offset's low word is added to the
+accumulator before the scan and taken off after it (tfhers_2_2's engine
+gadget 2^8 has such words, the own gadgets of 128bit_t64 and tiny_split
+none): decompose at width 32 (``rows_hi32``), forward NTT, the folded
+pointwise sums, the parity combine, and K1's finish acc_hi +
+(CRT(invNTT(v)) << (drop - 32)) mod 2^32 on the views [P, 2B, 2, 2, Nh]
+and [2B, 2, Nh], rows (b, c, q).  This module sets the scan up and takes
+it down (the gather rotation, the low word, ``unsplit``); the steps are
+ops/blind_rotate_ntt.py:scan's.  At group 2 with one-limb digits (every
+split set's defaults) the step's middle is K2s (ops/cuda/split_step.py),
+and K1 writes the next step's half-rows for it.  K2s's plain version is
+the prime-batched chain below (``forward``, ``pointwise``,
+``rotate_combine_multi_split``: the primes on a leading axis, their
+constants broadcast, ``_barrett``), which the JAX package runs in XLA;
+group 1 and group 3 keys run that chain on either device.  The
+decomposition and the combine are the JAX formulas element for element;
+the forward NTT takes the two-Barrett limb combine for every prime and
+the pointwise sums reduce in groups of ``row_group``, so their residues
+equal the JAX package's mod p within the same bounds, and the CRT lift
+makes the accumulator bit-equal.  The generic scan (int64 accumulator: a
+drop below 32, or digits reading bits below 32) runs the plain chain and
+ops/ntt.py:finish_int64.  The JAX package's ``ZTFHE_SPLIT_HI32`` switch
+is not ported.
 """
 
 from __future__ import annotations
@@ -67,16 +54,13 @@ import functools
 import numpy as np
 import torch
 
+from zig_tfhe_tpu_torch import trgsw as _trgsw
 from zig_tfhe_tpu_torch.ops import ntt as _ntt
-from zig_tfhe_tpu_torch.ops.blind_rotate import _decompose_to_rows, modswitch
+from zig_tfhe_tpu_torch.ops import blind_rotate_ntt as _brn
 from zig_tfhe_tpu_torch.ops.cuda import split_step as _k2s
-from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import (HalfRowGadget,
-                                                     ntt_inverse_to_crt_acc)
-from zig_tfhe_tpu_torch.ops.decomposition import gadget_offset
+from zig_tfhe_tpu_torch.ops.decomposition import modswitch, row_gadget
 from zig_tfhe_tpu_torch.ops.poly import matmul_i8, negacyclic_rotate
 from zig_tfhe_tpu_torch.params import SecurityParams
-from zig_tfhe_tpu_torch.utils import profiling
-from zig_tfhe_tpu_torch.utils.torus import shift_right_logical, to_i32
 
 
 def split(x: torch.Tensor) -> torch.Tensor:
@@ -126,7 +110,7 @@ def _barrett(v: torch.Tensor, tb: _Tables) -> torch.Tensor:
     return v - q * tb.p.view(shape)
 
 
-def _forward(rows: torch.Tensor, plan: _ntt.NTTPlan) -> torch.Tensor:
+def forward(rows: torch.Tensor, plan: _ntt.NTTPlan) -> torch.Tensor:
     """Forward NTT of one-limb digit rows int32 [B, 2R, Nh] (|d| <= 128) on
     every prime at once: two ``_int_mm`` against the side-by-side matrices
     and the two-Barrett limb combine.  Returns int32 [P, B, 2R, Nh], each
@@ -143,15 +127,22 @@ def _forward(rows: torch.Tensor, plan: _ntt.NTTPlan) -> torch.Tensor:
                     tb).contiguous()
 
 
-def _pointwise(d_hat: torch.Tensor, key: torch.Tensor,
-               plan: _ntt.NTTPlan) -> torch.Tensor:
+def row_group(plan: _ntt.NTTPlan) -> int:
+    """Rows summed unreduced in the pointwise sums (``pointwise``, and
+    K2s's, ops/cuda/split_step.py): the plan's smallest ``row_group``,
+    int32-exact for every prime."""
+    return min(plan.row_group(p) for p in plan.primes)
+
+
+def pointwise(d_hat: torch.Tensor, key: torch.Tensor,
+              plan: _ntt.NTTPlan) -> torch.Tensor:
     """sum over rows of d_hat[P, B, 2R, Nh] * key[P, 2R, 4, Nh] on every
     prime at once -> int32 [P, B, 4, Nh], |.| <= 0.55p: rows summed in
     groups of the plan's smallest ``row_group`` (int32-exact for every
     prime), each group Barrett-reduced, the group sums reduced once."""
     tb = _tables(plan, d_hat.device)
     P, B, R2, Nh = d_hat.shape
-    g = _k2s.row_group(plan)
+    g = row_group(plan)
     prod = d_hat[:, :, :, None, :] * key.to(torch.int32)[:, None]
     if R2 % g:
         prod = torch.cat([prod, prod.new_zeros(P, B, g - R2 % g, 4, Nh)], 2)
@@ -201,7 +192,7 @@ def rotate_minus1_split(us, t: torch.Tensor, plan: _ntt.NTTPlan) -> torch.Tensor
     tb = _tables(plan, t.device)
     t = t & (4 * Nh - 1)
     r = (t & 1)[None, :, None, None] != 0                     # [1, B, 1, 1]
-    row = _ntt._rot_rows(t >> 1, plan).view(-1, P, Nh).transpose(0, 1)[:, :, None]
+    row = _ntt.rot_rows(t >> 1, plan).view(-1, P, Nh).transpose(0, 1)[:, :, None]
     ue, uo = us[:, :, 0::2], us[:, :, 1::2]                   # [P, B, 2, Nh]
     m_o = _barrett(tb.psi1[:, None, None] * uo, tb)           # psi1 * u_o
     sel_e = torch.where(r, m_o, ue)
@@ -229,7 +220,7 @@ def rotate_combine_multi_split(us, ts, plan: _ntt.NTTPlan) -> torch.Tensor:
     t_all = [t & (4 * Nh - 1) for t in ts]
     B = t_all[0].shape[0]
     tb = _tables(plan, t_all[0].device)
-    rows = _ntt._rot_rows(torch.cat([t >> 1 for t in t_all]), plan)
+    rows = _ntt.rot_rows(torch.cat([t >> 1 for t in t_all]), plan)
     rows = rows.view(g, B, P, Nh).permute(2, 0, 1, 3)          # [P, g, B, Nh]
     psi1 = tb.psi1[:, None]                                   # [P, 1, Nh]
     d = {}
@@ -271,8 +262,6 @@ def gen_bootstrapping_key_ntt_split(gen: torch.Generator, values: torch.Tensor,
     Returns int16 [n0, P, 2R, 4, Nh] (group 1) or [G, 2^g - 1, P, 2R, 4, Nh].
     Encryption runs in the full X-ring (the exact int64 binary product);
     only the residues are taken half-wise on the N/2 plan."""
-    from zig_tfhe_tpu_torch import trgsw as _trgsw
-
     la, lb = levels
     plan = _ntt.plan_for_params(params, drop, group, levels, bgbit=bgbit,
                                 pseudorandom_key=True)
@@ -290,88 +279,41 @@ def gen_bootstrapping_key_ntt_split(gen: torch.Generator, values: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The hi-plane (int32) scan
+# The scan
 # ---------------------------------------------------------------------------
 
 
-def _hi32_offsets(params: SecurityParams, e: int, levels) -> tuple[int, int]:
-    """The full-width decomposition offsets of ``_decompose_to_rows``
-    (gadget_decompose with center=True), per component (a, b), as Python
-    ints mod 2^w."""
-    w = params.torus_bits
-
-    def off_for(lv):
-        if e == params.bgbit:
-            off = params.decomposition_offset
-            if lv == params.L and params.L * e < w:
-                off = (off + (1 << (w - params.L * e - 1))) % (1 << w)
-            return off
-        return gadget_offset(e, w // e, w)
-
-    return off_for(levels[0]), off_for(levels[1])
+def _k2s_step(digits: torch.Tensor, bsk_step: torch.Tensor, ts: torch.Tensor,
+              plan: _ntt.NTTPlan, bits: int) -> torch.Tensor:
+    """K2s's residues as K1 takes them on the split views: int8 [P, 2B, 2,
+    2, Nh], rows (b, c)."""
+    return _k2s.split_step_fused(digits, bsk_step, ts, plan, bits).flatten(1, 2)
 
 
-def _hi32_planes(params: SecurityParams, drop_bits: int, e: int,
-                 levels) -> bool:
-    """True when the scan runs on int32 hi planes: the 64-bit torus, drop
-    >= 32 (every step's delta a multiple of 2^32) and no digit shift
-    reading below bit 32.  An offset's bits below 32 are added to the
-    accumulator's scan-invariant low word before the scan, so that their
-    carry sits in the hi planes, and taken off after it."""
-    return (params.torus_bits == 64 and drop_bits >= 32
-            and params.torus_bits - max(levels) * e >= 32)
-
-
-def _hi32_viable(params: SecurityParams, drop_bits: int, e: int,
-                 levels) -> bool:
-    """The JAX package's hi-plane condition: ``_hi32_planes`` and no offset
-    bit below 32 (its scan carries no low word; a key at another gadget
-    runs its generic int64 scan)."""
-    if not _hi32_planes(params, drop_bits, e, levels):
-        return False
-    off_a, off_b = _hi32_offsets(params, e, levels)
-    return off_a % (1 << 32) == 0 and off_b % (1 << 32) == 0
-
-
-def _rows_hi32(acc_hi: torch.Tensor, params: SecurityParams, e: int,
-               levels) -> torch.Tensor:
-    """Hi-plane gadget decomposition: int32 [B, 2, 2, Nh] -> digit rows
-    int32 [B, 2R, Nh] in (r, q_in) order (the ``_decompose_to_rows`` +
-    ``fold_key_split`` layout); digit-exact against the 64-bit
-    decomposition under the ``_hi32_planes`` conditions, the offsets' low
-    words carried in the accumulator."""
-    la, lb = levels
-    off_a, off_b = _hi32_offsets(params, e, levels)
-    mask, half = (1 << e) - 1, 1 << (e - 1)
-
-    def digs(x, off, lv):    # [B, 2, Nh] -> [B, lv, 2, Nh]
-        # shifts 32 - (i+1) e, made on the device: no host copy to wait for
-        sh = torch.arange(32 - e, 32 - (lv + 1) * e, -e, dtype=torch.int32,
-                          device=x.device).view(lv, 1, 1)
-        # the arithmetic shift's sign bits lie above the mask: the logical
-        # shift's digits
-        return (((x + to_i32(off >> 32))[:, None] >> sh) & mask) - half
-
-    r = torch.cat([digs(acc_hi[:, 0], off_a, la), digs(acc_hi[:, 1], off_b, lb)],
-                  dim=1)                                      # [B, R, 2, Nh]
-    return r.reshape(r.shape[0], 2 * (la + lb), r.shape[-1])
-
-
-@functools.lru_cache(maxsize=None)
-def half_row_gadget(params: SecurityParams, e: int, levels) -> HalfRowGadget:
-    """The ``HalfRowGadget`` of ``_rows_hi32(., params, e, levels)``: the
-    numbers K1 takes to write the hi-plane half-rows."""
-    return HalfRowGadget(params, e, tuple(levels), tuple(
-        off >> 32 for off in _hi32_offsets(params, e, levels)))
-
-
-def finish_int64(v_hat, acc: torch.Tensor, plan: _ntt.NTTPlan,
-                 drop_bits: int) -> torch.Tensor:
-    """acc + (CRT(invNTT(v)) << drop) mod 2^64 on an int64 accumulator:
-    K1's int64 variant, plain PyTorch ops on any device (the JAX package
-    runs it as XLA ops, with no Pallas kernel)."""
-    delta = _ntt.ntt_inverse_to_crt(v_hat, plan, 64)
-    return acc + (delta << drop_bits if drop_bits else delta)
+def _plain_step(acc: torch.Tensor, bsk_step: torch.Tensor, t: torch.Tensor,
+                form: _brn.KeyForm) -> torch.Tensor:
+    """One step on the prime-batched chain: acc the split views [2B, 2,
+    Nh] (int32 hi planes or the int64 accumulator); returns the residues
+    int32 [P, 2B, 2, Nh] on the same rows."""
+    plan = form.plan
+    B2, _, Nh = acc.shape
+    if form.hi32:
+        rows = form.gadget.rows(acc)                          # [B, 2R, Nh]
+    else:   # coefficient-wise: the halves' order within a row is kept
+        rows = form.gadget.rows(acc.reshape(B2 // 2, 2, 2 * Nh)).reshape(
+            B2 // 2, -1, Nh)
+    if form.digit_limbs == 1:
+        d_hat = forward(rows, plan)                           # [P, B, 2R, Nh]
+    else:
+        d_hat = torch.stack(_ntt.ntt_forward(rows, plan, form.digit_limbs,
+                                             form.digit_bound))
+    if form.path is _brn.Path.GROUP1:
+        v = rotate_minus1_split(pointwise(d_hat, bsk_step, plan), t, plan)
+    else:
+        v = rotate_combine_multi_split(
+            [pointwise(d_hat, bsk_step[m], plan)
+             for m in range(bsk_step.shape[0])], list(t), plan)
+    return v.flatten(1, 2)
 
 
 def blind_rotate_split(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
@@ -387,101 +329,27 @@ def blind_rotate_split(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
     The initial X^(-b) rotation is a coefficient-domain gather on the int64
     testvec (a full-torus NTT rotation would need |conv| <= 2^75, past the
     plan pool); the hi-plane scan then carries its int32 hi planes and
-    re-attaches the scan-invariant low word at the end."""
-    e = params.bgbit if bgbit is None else bgbit
-    rows_ax = bsk_split.shape[2] if group == 1 else bsk_split.shape[3]
-    if levels is None:
-        levels = rows_ax // 4
-    levels = _ntt.norm_levels(params, levels, bgbit=e)
-    n_rows = levels[0] + levels[1]
-    if 2 * n_rows != rows_ax:
-        raise ValueError(f"levels {levels} do not match the split key's "
-                         f"{rows_ax} half-rows")
-    plan = _ntt.plan_for_params(params, drop_bits, group, levels, bgbit=e,
-                                pseudorandom_key=True)
-    key_primes = bsk_split.shape[1] if group == 1 else bsk_split.shape[2]
-    if key_primes != plan.n_primes:
-        raise ValueError(
-            f"split BSK holds {key_primes} CRT prime planes but the plan "
-            f"selects {plan.n_primes}: the key was generated under another "
-            "plan bound")
-    n0, N = params.n0, params.N
-    Nh = N // 2
-    B = tlwe_batch.shape[0]
-    e_limbs = _ntt.engine_digit_limbs(e)
-    dbound = _ntt.top_limb_bound(1 << (e - 1), e_limbs)
-
-    b_tilda = 2 * N - modswitch(tlwe_batch[:, n0], params)   # [B] in [1, 2N]
-    if testvec.dim() == 2:
-        testvec = testvec[None]
-    hi32 = _hi32_planes(params, drop_bits, e, levels)
+    re-attaches the scan-invariant low word at the end.  The steps are
+    ops/blind_rotate_ntt.py:scan's."""
+    form = _brn.key_form(params, bsk_split, drop_bits, group, levels, bgbit)
+    N, B = params.N, tlwe_batch.shape[0]
+    b_tilda = 2 * N - modswitch(tlwe_batch[:, params.n0], params)  # in [1, 2N]
     acc = split(negacyclic_rotate(testvec.expand(B, 2, N), b_tilda))
-    if hi32:
+    if form.hi32:
         # the low word is scan-invariant (every delta is a multiple of
         # 2^32): carry the int32 hi planes only, with each component's
         # offset below bit 32 added first (none on the set's own gadget)
-        low = [off % (1 << 32) for off in _hi32_offsets(params, e, levels)]
+        low = [off % (1 << 32)
+               for off in row_gadget(params, form.levels, form.bits).offsets]
         for c in (0, 1):
             if low[c]:
                 acc[:, c] += low[c]
         acc_lo = acc & 0xFFFFFFFF
         acc = (acc >> 32).to(torch.int32)
-    t_cols = modswitch(tlwe_batch[:, :n0].T, params)          # [n0, B] int32
-
-    def fwd(acc):
-        if hi32:
-            rows = _rows_hi32(acc, params, e, levels)         # [B, 2R, Nh]
-        else:
-            rows = _decompose_to_rows(acc.reshape(B, 2, N), params, levels,
-                                      bgbit=e).reshape(B, 2 * n_rows, Nh)
-        if e_limbs == 1:
-            return _forward(rows, plan)                       # [P, B, 2R, Nh]
-        return torch.stack(_ntt.ntt_forward(rows, plan, e_limbs, dbound))
-
-    # group 2 with one-limb digits on the hi planes: K2s, and K1 writes the
-    # next step's half-rows into the buffer K2s has just read (stream
-    # order), so only step 0 decomposes
-    fused = _k2s.supports(group, e_limbs, hi32)
-    gadget = half_row_gadget(params, e, levels) if fused else None
-
-    def finish(acc, v, digits=None):
-        # v int32 [P, B, 2, 2, Nh] or int8 [P, B, 2, 2, 2, Nh]
-        if hi32:
-            out = ntt_inverse_to_crt_acc(
-                v.reshape(plan.n_primes, 2 * B, *v.shape[3:]),
-                acc.reshape(2 * B, 2, Nh), plan, drop_bits - 32,
-                digits=digits, gadget=gadget)
-            return out.reshape(B, 2, 2, Nh)
-        return finish_int64(v, acc, plan, drop_bits)
-
-    if group == 1:
-        with profiling.span("blind_rotate.steps", device=acc.device,
-                            steps=n0, fused_steps=0):
-            for i in range(n0):
-                u = _pointwise(fwd(acc), bsk_split[i], plan)
-                acc = finish(acc, rotate_minus1_split(u, t_cols[i], plan))
-    else:
-        G = bsk_split.shape[0]
-        if n0 < group * G:            # ragged n0: a = 0 is the identity rotation
-            t_cols = torch.cat([t_cols, t_cols.new_zeros(group * G - n0, B)])
-        t_grps = t_cols.reshape(G, group, B)
-        with profiling.span("blind_rotate.steps", device=acc.device,
-                            steps=G, fused_steps=G - 1 if fused else 0):
-            rows = None
-            for s in range(G):
-                if fused:
-                    if rows is None:
-                        rows = _rows_hi32(acc, params, e, levels).to(torch.int8)
-                    acc = finish(acc, _k2s.split_step_fused(
-                        rows, bsk_split[s], t_grps[s], plan, e),
-                        rows if s < G - 1 else None)
-                    continue
-                d_hat = fwd(acc)
-                us = [_pointwise(d_hat, bsk_split[s, m], plan)
-                      for m in range((1 << group) - 1)]
-                acc = finish(acc, rotate_combine_multi_split(
-                    us, [t_grps[s, j] for j in range(group)], plan))
-    if hi32:
+    ts = _brn.rotations(tlwe_batch, params, group, bsk_split.shape[0])
+    acc = _brn.scan(acc.reshape(2 * B, 2, N // 2), bsk_split, ts, form,
+                    _k2s_step, _plain_step).reshape(B, 2, 2, N // 2)
+    if form.hi32:
         acc = (acc.to(torch.int64) << 32) + acc_lo
         for c in (0, 1):
             if low[c]:

@@ -45,10 +45,11 @@ gate path records:
   to the card that waits for the stream to drain, a read of a device
   value): torch's sync debug mode is set to warn inside it and its
   warnings are counted, not shown;
-- span ``blind_rotate.steps`` (the step loop of each blind-rotation
-  engine; attributes ``steps`` and ``fused_steps``, the steps whose K1
-  also wrote the next step's digits: G - 1 on the NTT engine's one-limb
-  path and on the split ring's K2s path, 0 on every other): the scan;
+- span ``blind_rotate.steps`` (the step loop: ``ops/blind_rotate_ntt.py:
+  scan`` on both NTT rings, the Toeplitz scan of ``ops/blind_rotate.py``;
+  attributes ``steps`` and ``fused_steps``, the steps whose K1 also wrote
+  the next step's digits: G - 1 on the fused path, the direct ring's
+  one-limb K2 and the split ring's K2s, 0 on every other): the scan;
 - span ``bootstrap.key_switch`` (``ops/keyswitch.py:identity_key_switch``).
 
 No range that the profiler itself records (``record_function``, NVTX) is
