@@ -2639,6 +2639,7 @@ def main() -> int:
         for fn in counters.values():
             fn.launches = 0
         k1.ntt_inverse_to_crt_acc.digit_launches = 0
+        k2.ntt_step_fused.shape_launches = 0
         t0 = time.perf_counter()
         res = gates.apply_gates(ids, a, b, ck)
         torch.cuda.synchronize()
@@ -2647,6 +2648,14 @@ def main() -> int:
         _check(launches[name] == expect,
                f"{name}: launches {launches[name]} in one bootstrap, "
                f"expected {expect}")
+        # g3's steps (group 3, R = 4, row groups 4 and 2, 2048 lanes on
+        # wide tiles) take K2's instance compiled at that shape
+        shape = k2.ntt_step_fused.shape_launches
+        _check(shape == (expect["k2"] if name == "g3" else 0),
+               f"{name}: {shape} of {expect['k2']} K2 launches took the "
+               "shape instance")
+        print(f"{name}: K2 launches {launches[name]['k2']}, of them "
+              f"ntt_step_fused.shape_launches {shape}")
         # one-limb keys: every K1 but the last writes the next digits
         digit_launches = k1.ntt_inverse_to_crt_acc.digit_launches
         _check(digit_launches == max(expect["k1"] - 1, 0),

@@ -23,6 +23,8 @@ operation in the scan), and the int64 finish, which has no
 kernel and runs its plain version on the card, bit-equal to the CPU; K2s
 (the split-ring step core) bit-equal to its plain version at the t64 and
 TEST_TINY_SPLIT shapes, and one K2s and one K1 launch per hi-plane step.
+K2's instance compiled at g3's shape: the launches that take it, and its
+f32-add Barrett equal to the conversion form on every int32.
 Slice 5: the threefry mask expansion, the proxy re-encryption subset sum
 and key switch, and a one-rank NCCL gate runner, each equal to the CPU
 path.
@@ -221,15 +223,19 @@ def _step_inputs(dev, case, B, seed):
 
 
 # B = 1 and 33 take the narrow tile, 200 and 2049 end inside a 64-row tile
-# (16 lanes a tile at R = 4, 12 at R = 5)
+# (16 lanes a tile at R = 4, 12 at R = 5); g3 takes the instance compiled
+# at its shape where its wide tiles give all 132 SMs one (B >= 81)
 @pytest.mark.parametrize("case", sorted(_STEP_CASES))
 @pytest.mark.parametrize("B", [1, 33, 64, 200, 2048, 2049])
 def test_step_kernel_matches_plain(dev, case, B):
     plan, bgbit, digits, bsk, ts = _step_inputs(dev, case, B, B)
-    before = K2.ntt_step_fused.launches
+    before = (K2.ntt_step_fused.launches, K2.ntt_step_fused.shape_launches)
     out = K2.ntt_step_fused(digits, bsk, ts, plan, bgbit)
     torch.cuda.synchronize()
-    assert K2.ntt_step_fused.launches == before + 1
+    shape = int(case == "128bit_g3" and B >= 200)
+    assert (K2.ntt_step_fused.launches,
+            K2.ntt_step_fused.shape_launches) == (before[0] + 1,
+                                                  before[1] + shape)
     assert out.dtype == torch.int8
     assert tuple(out.shape) == (plan.n_primes, B, 2, 2, plan.N)
     assert torch.equal(out, K2.ntt_step_fused_reference(digits, bsk, ts, plan,
@@ -327,14 +333,17 @@ def test_128bit_launches_per_bootstrap(dev, knobs, steps):
     a = tlwe.encrypt_bool(g, x.to(dev), P.ksk_alpha, sk.key_lv0)
     b = tlwe.encrypt_bool(g, y.to(dev), P.ksk_alpha, sk.key_lv0)
     before = (K2.ntt_step_fused.launches, K.ntt_inverse_to_crt_acc.launches,
-              K.ntt_inverse_to_crt_acc.digit_launches)
+              K.ntt_inverse_to_crt_acc.digit_launches,
+              K2.ntt_step_fused.shape_launches)
     out = gates.apply_gates(ids.to(dev), a, b, ck)
     torch.cuda.synchronize()
-    # one-limb digits: every K1 but the last writes the next step's digits
+    # one-limb digits: every K1 but the last writes the next step's digits;
+    # 20 lanes take narrow tiles, so no step takes K2's shape instance
     assert (K2.ntt_step_fused.launches - before[0],
             K.ntt_inverse_to_crt_acc.launches - before[1],
-            K.ntt_inverse_to_crt_acc.digit_launches - before[2]) == (
-                steps, steps, steps - 1)
+            K.ntt_inverse_to_crt_acc.digit_launches - before[2],
+            K2.ntt_step_fused.shape_launches - before[3]) == (
+                steps, steps, steps - 1, 0)
     assert np.array_equal(tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy(), want)
 
 
@@ -813,6 +822,22 @@ def test_split_barrett_exhaustive_on_card(dev, p):
         K2S.barrett_mismatches(K2S.MIN_PRIME - 1, dev, 0, 16)
     with pytest.raises(ValueError, match="CUDA device"):
         K2S.barrett_mismatches(p, "cpu", 0, 16)
+
+
+@pytest.mark.parametrize("p", (40961, 59393, 61441))
+def test_step_barrett_exhaustive_on_card(dev, p):
+    """K2's shape instance's Barrett (the rounding by an f32 add) equals
+    the general instance's __float2int_rn form on all 2^32 int32, for each
+    prime of g3's plan, run by the kernel's own device functions; the
+    check refuses a prime below ``MIN_PRIME`` and a CPU device."""
+    plan = ntt.plan_for_params(params.SECURITY_128_BIT, 5, 3, (2, 2), bgbit=7,
+                               pseudorandom_key=True)
+    assert p in plan.primes
+    assert K2.barrett_mismatches(p, dev) == 0
+    with pytest.raises(ValueError, match="not exact"):
+        K2.barrett_mismatches(K2.MIN_PRIME - 1, dev, 0, 16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K2.barrett_mismatches(p, "cpu", 0, 16)
 
 
 def test_split_step_kernel_rejects_what_it_cannot_take(split_step_keys):

@@ -13,7 +13,11 @@ batch tiles, B = 1, every column-tile width the entry points pick (forced
 through the emulated SM count), 1 to 4 primes, 3 to 10 digit rows,
 pointwise sums of up to 5 row groups, and both branches of the forward
 limb combine; multi-limb digit planes (the uint sets' 2 and 3 limbs, a
-ragged row tile at uint4's 10 lanes a tile); for K3, 1 to 4 key limbs, one- and two-limb gadgets, batch
+ragged row tile at uint4's 10 lanes a tile); K2's instance compiled at
+g3's shape (group 3, R = 4, row groups 4 and 2) on an N = 128 plan walked
+by one block and on g3's own plan with a ragged last tile, its Barrett
+(an f32-add rounding) held to the conversion form like K2s's, and a
+group-3 launch at R = 3 that keeps the general instance; for K3, 1 to 4 key limbs, one- and two-limb gadgets, batch
 tiles of 64 lanes (full, ragged, several), both stage widths (64- and
 128-byte digit chunks), blocks whose two column tiles straddle the two
 components (N = 64, 192), and the 128-bit shape (N = 1024, 6 rows: every
@@ -113,7 +117,11 @@ def emu(tmp_path_factory):
                         str(cpp)], check=True, capture_output=True)
         libs[stem] = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    libs["ntt_step"].ztfhe_ntt_step_fused.argtypes = [p] * 11 + [i] * 6 + [p]
+    libs["ntt_step"].ztfhe_ntt_step_fused.argtypes = [p] * 11 + [i] * 7 + [p]
+    libs["ntt_step"].ztfhe_ntt_step_barrett.argtypes = [p, p, i, i,
+                                                       ctypes.c_float, p]
+    libs["ntt_step"].ztfhe_ntt_step_barrett_mismatches.argtypes = [
+        i, ctypes.c_longlong, i, ctypes.c_float, p, p]
     libs["ntt_inverse"].ztfhe_ntt_inverse_crt_acc.argtypes = [p] * 9 + [i] * 5 + [p]
     for entry in ("ztfhe_ntt_inverse_crt_acc_digits",
                   "ztfhe_ntt_inverse_crt_acc_half_rows"):
@@ -139,7 +147,10 @@ def _ptr(a: np.ndarray):
 # The entry point takes 64 x 128 tiles when N % 128 == 0 and they give
 # every SM a tile, else 64 x 32 (N = 64: with 64-byte stages); one block
 # per SM walks the tiles: a producer thread, a product warpgroup and the
-# pointwise warpgroups, two d_hat buffers between the last two.
+# pointwise warpgroups, two d_hat buffers between the last two.  The wide
+# tiles of group 3 at R = 4 with row groups 4 or 2 take the instance
+# compiled at g3's shape (``shape_instance``; _K2_SHAPE_CASES), every
+# other launch the general one.
 _K2_CASES = {
     "tiny_g2": (lambda: ntt.plan_for_params(TP.TEST_TINY, 0, 2, (2, 2), bgbit=6,
                                             pseudorandom_key=True), 2, 4, 6, 5, 4),
@@ -155,11 +166,23 @@ _K2_CASES = {
     # one block walks all 9 wide tiles (12 lanes each at R = 5): several
     # rounds of the ring and of the two d_hat buffers
     "n128_g2_R5_one_block": (lambda: ntt.make_plan(128, 40), 2, 5, 6, 30, 1),
-    # narrow tiles forced at a batch of three row tiles; 7 blocks, 36 tiles
-    "n128_g3_R4_narrow": (lambda: ntt.make_plan(128, 40), 3, 4, 7, 40, 7),
+    # narrow tiles forced at a batch of three row tiles (9 wide tiles for
+    # 10 SMs); 10 blocks, 36 tiles
+    "n128_g3_R4_narrow": (lambda: ntt.make_plan(128, 40), 3, 4, 7, 40, 10),
     "tiny_g3_one_block": (lambda: ntt.plan_for_params(
         TP.TEST_TINY, 0, 3, (2, 2), bgbit=6, pseudorandom_key=True), 3, 4, 6, 37, 1),
+    # the shape instance: one block walks all 9 wide tiles (row group 2 at
+    # every prime); g3's own plan (row groups 4, 2, 2) on 48 tiles, the
+    # last row tile 5 lanes, so one thread of a column runs 5 live lanes and
+    # 3 past the tile, the other none
+    "n128_g3_shape_one_block": (lambda: ntt.make_plan(128, 40), 3, 4, 7, 40, 1),
+    "g3_shape_ragged": (lambda: ntt.plan_for_params(
+        TP.SECURITY_128_BIT, 5, 3, (2, 2), bgbit=7, pseudorandom_key=True),
+        3, 4, 7, 21, 4),
+    # group 3 on wide tiles at R = 3: the general instance
+    "n128_g3_R3_general": (lambda: ntt.make_plan(128, 40), 3, 3, 7, 30, 4),
 }
+_K2_SHAPE_CASES = {"n128_g3_R4_bg7", "n128_g3_shape_one_block", "g3_shape_ragged"}
 
 
 @pytest.mark.parametrize("case", sorted(_K2_CASES))
@@ -177,13 +200,15 @@ def test_step_kernel_source_matches_plain(emu, case):
     primes, inv_p, groups, single = K2._host_scalars(plan, group, bgbit)
     if case == "n1024_g2_R4_bg8":
         assert not single.any()
+    shape = K2.shape_instance(plan, group, R, 1, B, sms)
+    assert shape == (case in _K2_SHAPE_CASES)
     v = torch.full((plan.n_primes, B, 2, 2, N), 7, dtype=torch.int8)
     emu["ntt_step"].emu_set_sm_count(sms)
     err = emu["ntt_step"].ztfhe_ntt_step_fused(
         digits.data_ptr(), bsk.data_ptr(), ts.data_ptr(),
         tabs.fwd_lo_t.data_ptr(), tabs.fwd_hi_t.data_ptr(), tabs.rot.data_ptr(),
         v.data_ptr(), _ptr(primes), _ptr(inv_p), _ptr(groups), _ptr(single),
-        plan.n_primes, group, B, R, 1, N, None)
+        plan.n_primes, group, B, R, 1, N, int(shape), None)
     assert err == 0
     assert torch.equal(v, K2.ntt_step_fused_reference(digits, bsk, ts, plan,
                                                       bgbit))
@@ -236,7 +261,7 @@ def test_step_kernel_source_multi_limb_matches_plain(emu, case):
         digits.data_ptr(), bsk.data_ptr(), ts.data_ptr(),
         tabs.fwd_lo_t.data_ptr(), tabs.fwd_hi_t.data_ptr(), tabs.rot.data_ptr(),
         v.data_ptr(), _ptr(primes), _ptr(inv_p), _ptr(groups), _ptr(single),
-        plan.n_primes, 2, B, R, n_dl, N, None)
+        plan.n_primes, 2, B, R, n_dl, N, 0, None)
     assert err == 0
     assert torch.equal(v, K2.ntt_step_fused_reference(digits, bsk, ts, plan,
                                                       bgbit))
@@ -363,6 +388,49 @@ def test_split_barrett_matches_conversion_form(emu, split_keys):
                                    1.0 / small, None) != 0
     assert lib.ztfhe_split_barrett_mismatches(0, 16, small, 1.0 / small,
                                               _ptr(n_diff), None) != 0
+
+
+def test_step_barrett_matches_conversion_form(emu):
+    """K2's shape instance's Barrett (the rounding as an f32 add of 1.5 *
+    2^23) equals the general instance's conversion form on the edge
+    values, the ties and 10^6 seeded int32, at each prime of g3's plan;
+    the kernel's own mismatch counter finds none over the 2^21 int32
+    around 0; both entries refuse a prime below 2^11, and the step entry
+    refuses the shape instance where the launch lacks its shape."""
+    plan = ntt.plan_for_params(TP.SECURITY_128_BIT, 5, 3, (2, 2), bgbit=7,
+                               pseudorandom_key=True)
+    assert plan.primes == (40961, 59393, 61441)
+    rng = np.random.default_rng(2**21)
+    lib = emu["ntt_step"]
+    lib.emu_set_sm_count(4)
+    for p in plan.primes:
+        edges = _barrett_edges(p)
+        inv = np.float32(1.0 / p)
+        f = edges.astype(np.float32) * inv
+        assert (f - np.floor(f) == np.float32(0.5)).any()   # real ties
+        x = np.concatenate([edges, rng.integers(-2**31, 2**31, 10**6)
+                            .astype(np.int32)])
+        r = np.empty_like(x)
+        assert lib.ztfhe_ntt_step_barrett(_ptr(x), _ptr(r), x.size, p,
+                                          float(inv), None) == 0
+        assert np.array_equal(r, K2S.barrett_reference(x, p)), p
+        n_diff = np.zeros(1, dtype=np.uint64)
+        assert lib.ztfhe_ntt_step_barrett_mismatches(
+            -2**20, 2**21, p, float(inv), _ptr(n_diff), None) == 0
+        assert n_diff[0] == 0, p
+    small = K2.MIN_PRIME - 1
+    assert lib.ztfhe_ntt_step_barrett(_ptr(x), _ptr(r), 16, small,
+                                      1.0 / small, None) != 0
+    assert lib.ztfhe_ntt_step_barrett_mismatches(0, 16, small, 1.0 / small,
+                                                 _ptr(n_diff), None) != 0
+    # the shape instance on a launch without its shape: refused, nothing run
+    primes, inv_p, groups, single = K2._host_scalars(plan, 3, 7)
+    args = [None] * 7 + [_ptr(primes), _ptr(inv_p), _ptr(groups), _ptr(single),
+                         plan.n_primes, 3]
+    for B, R, N, rg in ((16, 5, 1024, groups), (16, 4, 64, groups),
+                        (16, 4, 1024, np.array([3, 2, 2], np.int32))):
+        args[9] = _ptr(rg)
+        assert lib.ztfhe_ntt_step_fused(*args, B, R, 1, N, 1, None) != 0
 
 
 # (B, N, bits, drop, emulated SM count): the entry point takes 64-wide column

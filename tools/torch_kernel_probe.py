@@ -32,8 +32,10 @@ times.  Needs a CUDA device.
 
 ``--split`` also times K2 (paths g3, g2, uint4) and K2s (path t64) built
 with one stage switched off (the sources' ZTFHE_PROBE_* switches: no
-product stage, no pointwise stage, K2s also with each Barrett's
-conversions and multiply replaced by a shift), prints how many of the
+product stage, no pointwise stage, each Barrett's conversions and
+multiply replaced by a shift; K2 also without one part of its pointwise
+stage: the sums against the key, the subset DP and apply, the psi-row
+gather, the limb-plane stores), prints how many of the
 conversion instructions (I2F, I2FP, F2I) and of the other opcodes a
 Barrett is made of are in each kernel's SASS (``cuobjdump -sass``), and
 measures, with tools/cvt_rate.cu, the card's throughput per SM clock of
@@ -46,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import os
 import re
 import shutil
@@ -66,6 +69,12 @@ K2S_PATHS = ("t64",)      # the split-ring paths: K2s, not K2
 # the opcodes a Barrett is made of, counted in the SASS
 SASS_OPS = ("I2F", "I2FP", "F2I", "FMUL", "FADD", "IMAD", "IADD3", "LOP3",
             "SHF", "LDS", "STS")
+# K2 built without one part of its pointwise stage (csrc/ntt_step.cu's
+# switches; each keeps the results of the rest live)
+K2_PARTS = {"no sums": ("-DZTFHE_PROBE_NO_SUMS",),
+            "no combine": ("-DZTFHE_PROBE_NO_COMBINE",),
+            "no gather": ("-DZTFHE_PROBE_NO_GATHER",),
+            "no stores": ("-DZTFHE_PROBE_NO_STORES",)}
 
 
 def _digits(P, levels, e, B, g):
@@ -337,6 +346,7 @@ def _stage_split(args, gpu) -> bool:
     kernels = args.kernels.split(",")
     variants = {"whole": (), "no pointwise": ("-DZTFHE_PROBE_NO_POINTWISE",),
                 "no product": ("-DZTFHE_PROBE_NO_PRODUCT",)}
+    barrett_shift = {"Barretts as shifts": ("-DZTFHE_PROBE_BARRETT_IMAD",)}
     for path in args.paths.split(","):
         name, group, e, levels, drop = PATHS[path]
         if path in K2S_PATHS:
@@ -345,8 +355,7 @@ def _stage_split(args, gpu) -> bool:
             mod, label = k2s, "K2s"
             a = _k2s_inputs(_k2s_key(dev, args.seed), B, g)
             call = lambda a=a: k2s.split_step_fused(*a)
-            paths_variants = dict(variants, **{
-                "Barretts as shifts": ("-DZTFHE_PROBE_BARRETT_IMAD",),
+            paths_variants = dict(variants, **barrett_shift, **{
                 "no product, Barretts as shifts": (
                     "-DZTFHE_PROBE_NO_PRODUCT", "-DZTFHE_PROBE_BARRETT_IMAD")})
         else:
@@ -365,8 +374,12 @@ def _stage_split(args, gpu) -> bool:
             ts = torch.randint(0, 2 * N + 1, (group, B), generator=g,
                                device=dev, dtype=torch.int32)
             call = lambda a=(digits, bsk, ts, plan, e): k2.ntt_step_fused(*a)
-            paths_variants = variants
+            paths_variants = dict(variants, **K2_PARTS, **barrett_shift)
         _build.build(mod.SOURCE)
+        with concurrent.futures.ThreadPoolExecutor(len(paths_variants)) as pool:
+            for f in [pool.submit(_build.build, mod.SOURCE, defines=d)
+                      for d in paths_variants.values() if d]:
+                f.result()
         _print_sass(label, _build.library_path(mod.SOURCE), "_kernel")
         times = {vname: cs._variant_ms(mod, defines, call, args.iters) * 1e3
                  for vname, defines in paths_variants.items()}

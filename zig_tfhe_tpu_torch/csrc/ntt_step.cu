@@ -126,11 +126,48 @@
 // the product warpgroup keeps its 128 sums in registers through setmaxnreg
 // (168 or 232 registers against 96 or 128 for the others).
 //
+// The shape instance (template argument RC = 4).  g3's steps -- group 3,
+// R = 4 one-limb rows, row groups 4 at p = 40,961 and 2 at 59,393 and
+// 61,441, 64 x 128 tiles -- run an instance of their own whose pointwise
+// stage is K2s's design (csrc/split_step.cu) at K2's arithmetic.  Measured
+// before it (tools/torch_kernel_probe.py --split, g3, B = 2048, NVIDIA H100
+// 80GB HBM3 at 700 W), the general instance took 354.3 us, 118.8 without
+// its pointwise stage; without one part of that stage: the sums against
+// the key 172.7, the subset DP and apply 319.0, the psi-row gather 307.5,
+// the limb-plane stores 349.3; every Barrett as a shift 319.0.  The sums,
+// 56 int16 key loads and a run-time row loop a lane, carried the time.
+// So each pointwise thread runs kLanes = 8 lanes of its column (a tile's
+// 16 lanes in its two threads; 4 lanes read 188.9 us, 2 lanes 196.0); the
+// key tile is stored transposed, [S][BN][R][2] int16, so that one 16-byte
+// load gives a subset's 8 residues of the column for all 8 lanes; R and
+// the row group are compile-time (a body per row group,
+// picked per tile from its prime), so the fold has no run-time branch; the
+// lanes' psi rows are gathered before the key tile is staged; each subset's
+// sums go straight into its term of the apply; every Barrett of the stage
+// rounds by an f32 add (barrett_add); and the product warpgroup is capped
+// at 168 registers, which gives the pointwise threads 160 (ptxas: 128 at
+// launch, no spills).  Measured the same way, it takes 182.2 us: 108.2
+// without its pointwise stage, 130.9 without its product stage; without
+// the sums 153.1, the DP and apply 164.8, the gather 169.3, the stores
+// 176.7; every Barrett as a shift 162.6.  The stages now overlap only in
+// part, and the product stage alone (its ~1 GB of L2 -> SM traffic a
+// call) is the next floor: the cluster multicast above.  Every other
+// launch (group 2, multi-limb digits, group 3 at another R or row group,
+// the narrow tiles) runs the general instance (RC = 0), whose code is
+// unchanged.  Tried and slower on the same card (CUDA graphs, g3, B =
+// 2048): the forward combine's Barretts by the f32 add (196 against 183
+// us); the next tile's psi values fetched into registers during this
+// tile's (198 against 181), also with its key tile by cp.async into the
+// other buffer, untransposed (196 against 183).
+//
 // Exactness.  Barrett is round(f32(x) * f32(1/p)) half to even
 // (__float2int_rn(__fmul_rn(__int2float_rn(x), inv_p))), like jnp.round;
-// every wrapping sum and product is uint32 (signed overflow is undefined in
-// C++); the build passes -fmad=false.  Since every Barrett sees the same
-// int32 as in the plain version, the two are compared for equality.
+// the shape instance's pointwise stage computes the same function with the
+// rounding as an f32 add (barrett_add, exact for p >= 2^11; the check
+// kernels hold the two equal on every int32); every wrapping sum and
+// product is uint32 (signed overflow is undefined in C++); the build passes
+// -fmad=false.  Since every Barrett sees the same int32 as in the plain
+// version, the two are compared for equality.
 
 
 #include "hopper_prims.cuh"
@@ -163,6 +200,19 @@ __host__ __device__ constexpr int base_regs(int group) {
 __host__ __device__ constexpr int product_regs(int group) {
   return 2 * base_regs(group) - 24 > 232 ? 232 : 2 * base_regs(group) - 24;
 }
+// The instance compiled at g3's shape (group 3, R = kShapeRows one-limb
+// digit rows, row groups 4 or 2, 64 x 128 tiles): the product warpgroup
+// takes the 168 registers its 128 sums and epilogue need (K2s's at the
+// same tile), the pointwise warpgroups share the rest of what the
+// producer frees; each pointwise thread runs kLanes lanes of its column.
+constexpr int kShapeRows = 4;
+constexpr int kLanes = 8;
+constexpr int kShapeProductRegs = 168;
+constexpr int kShapePointwiseRegs =
+    base_regs(3) + ((base_regs(3) - 24) - (kShapeProductRegs - base_regs(3))) *
+                       128 / (128 * pointwise_groups(3)) / 8 * 8;
+static_assert(kShapePointwiseRegs == 160, "registers");
+constexpr int kMinPrime = 2048;   // barrett_add's rounding is exact for p >= 2^11
 constexpr int kBuffers = 2;     // d_hat buffers between product and pointwise
 constexpr int kMaxStages = 8;
 constexpr int kSmemCap = 232448;   // bytes a block can use on this card
@@ -172,6 +222,13 @@ constexpr int kBarrierBytes = (2 * kMaxStages + 2 * kBuffers) * 8;
 // Stage switches for tools/torch_kernel_probe.py --split only (the results
 // are then wrong): -DZTFHE_PROBE_NO_PRODUCT drops the TMA loads and the
 // wgmmas, -DZTFHE_PROBE_NO_POINTWISE the per-(b, k) stage after d_hat.
+// One part of the pointwise stage each, its results kept live:
+// -DZTFHE_PROBE_NO_SUMS drops the sums against the key (u is a digit
+// row), -DZTFHE_PROBE_NO_COMBINE the subset DP and apply (v is the sum of
+// the u), -DZTFHE_PROBE_NO_GATHER the psi-row loads (a rotation amount
+// stands in), -DZTFHE_PROBE_NO_STORES the limb-plane stores (one store
+// left behind a test the values never pass); -DZTFHE_PROBE_BARRETT_IMAD
+// replaces each Barrett's conversions and multiply by a shift.
 #ifdef ZTFHE_PROBE_NO_PRODUCT
 constexpr bool kProduct = false;
 #else
@@ -182,6 +239,27 @@ constexpr bool kPointwise = false;
 #else
 constexpr bool kPointwise = true;
 #endif
+#ifdef ZTFHE_PROBE_NO_SUMS
+constexpr bool kSums = false;
+#else
+constexpr bool kSums = true;
+#endif
+#ifdef ZTFHE_PROBE_NO_COMBINE
+constexpr bool kCombine = false;
+#else
+constexpr bool kCombine = true;
+#endif
+#ifdef ZTFHE_PROBE_NO_GATHER
+constexpr bool kGather = false;
+#else
+constexpr bool kGather = true;
+#endif
+#ifdef ZTFHE_PROBE_NO_STORES
+constexpr bool kStores = false;
+#else
+constexpr bool kStores = true;
+#endif
+constexpr int kNever = 0x7ACE0000;   // no residue is this large
 
 struct StepParams {
   int p[kMaxPrimes];
@@ -196,8 +274,29 @@ __device__ __forceinline__ uint32_t u32(int x) { return static_cast<uint32_t>(x)
 
 // round(f32(x) * f32(1/p)) half to even, as jnp.round; r = x - q*p wraps
 __device__ __forceinline__ int barrett(uint32_t x, int p, float inv_p) {
+#ifdef ZTFHE_PROBE_BARRETT_IMAD
+  const uint32_t q = x >> 16;
+#else
   const int q = __float2int_rn(__fmul_rn(__int2float_rn(static_cast<int>(x)), inv_p));
+#endif
   return static_cast<int>(x - u32(q) * u32(p));
+}
+
+// The same function with the rounding off the conversion pipe (the shape
+// instance's pointwise stage): adding 1.5 * 2^23 rounds f = f32(x) *
+// f32(1/p) to an integer, half to even, in the mantissa of r, exactly
+// while |f| < 2^22; |x| <= 2^31 and p >= 2^11 (the entry point refuses
+// smaller primes for that instance) keep |f| <= 2^20.  The check kernels
+// below hold it to barrett() on every int32.
+__device__ __forceinline__ int barrett_add(uint32_t x, int p, float inv_p) {
+#ifdef ZTFHE_PROBE_BARRETT_IMAD
+  const uint32_t q = x >> 16;
+#else
+  const float r = __fadd_rn(__fmul_rn(__int2float_rn(static_cast<int>(x)), inv_p),
+                            12582912.0f);
+  const uint32_t q = u32(__float_as_int(r) - 0x4B400000);
+#endif
+  return static_cast<int>(x - q * u32(p));
 }
 
 // d_hat of one digit row from its n_dl limb planes' y_l (d[l * LDD]): the
@@ -227,6 +326,13 @@ __device__ __forceinline__ void pointwise(const int* d_col, const int16_t* k_col
                                           int (&u)[(1 << G) - 1][2]) {
   constexpr int S = (1 << G) - 1;
   constexpr int LDD = BN + 8;
+  if constexpr (!kSums) {
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) u[s][c] = d_col[0] ^ (2 * s + c);
+    return;
+  }
   uint32_t part[S][2], acc[S][2];  // acc: the partials' sum (group 2) or
   int pend[S][2];                  // the folded prefix (group 3)
 #pragma unroll
@@ -282,6 +388,86 @@ __device__ __forceinline__ void pointwise(const int* d_col, const int16_t* k_col
     }
 }
 
+// The shape instance's group-3 step for kLanes lanes (b, k), (b + 1, k), ...
+// of one column: the subset diagonals by the DP of the general instance,
+// then one subset at a time its pointwise sums (each key residue read once
+// for all the lanes: key[s][r][c] is k_col[s * BN * 8 + r * 2 + c], one
+// 16-byte load a subset) and its term of the apply, then the final
+// Barrett: pointwise_extprod(reduce_output=False) and rotate_combine_multi
+// (u_wide) with every reduction where they place it.  RG, the prime's row
+// group: 4, one partial, u its Barrett; 2, two partials, u the unreduced
+// sum of their Barretts.  d_col: the lanes' d_hat rows, lane l row r at
+// d_col[(l * R + r) * LDD]; raw: the lanes' psi values rot[t_j(b)][k].
+template <int BN, int RG>
+__device__ __forceinline__ void shape_lanes(const int* d_col, const int16_t* k_col,
+                                            const int (&raw)[kLanes][3], int p,
+                                            float inv_p, int (&out)[kLanes][2]) {
+  constexpr int R = kShapeRows, S = 7;
+  constexpr int LDD = BN + 8;
+  static_assert(RG == 4 || RG == 2, "row group");
+  int d[kLanes][R];
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l)
+#pragma unroll
+    for (int r = 0; r < R; ++r) d[l][r] = d_col[(l * R + r) * LDD];
+  // subset diagonals dm[m] = dm[m - low] * dm[low] (rotate_combine_multi)
+  int dm[kLanes][8];
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) {
+#pragma unroll
+    for (int jj = 0; jj < 3; ++jj) dm[l][1 << jj] = raw[l][jj] - 1;
+#pragma unroll
+    for (int m = 3; m < 8; ++m)
+      if (m & (m - 1)) {
+        const int low = m & -m;
+        dm[l][m] = kCombine ? barrett_add(u32(dm[l][m ^ low]) * u32(dm[l][low]),
+                                          p, inv_p)
+                            : dm[l][m ^ low] ^ dm[l][low];
+      }
+  }
+  uint32_t sum[kLanes][2];
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) sum[l][0] = sum[l][1] = 0u;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int4 kv = *reinterpret_cast<const int4*>(k_col + s * BN * 8);
+    const int w[R] = {kv.x, kv.y, kv.z, kv.w};
+    uint32_t key[R][2];   // word r: (r, c = 0) in the low half, (r, 1) high
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      key[r][0] = u32(static_cast<int>(u32(w[r]) << 16) >> 16);
+      key[r][1] = u32(w[r] >> 16);
+    }
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        int u;
+        if constexpr (!kSums) {
+          u = d[l][(s + c) % R];
+        } else if constexpr (RG == 4) {
+          uint32_t part = 0u;
+#pragma unroll
+          for (int r = 0; r < R; ++r) part += u32(d[l][r]) * key[r][c];
+          u = barrett_add(part, p, inv_p);
+        } else {
+          const uint32_t p0 = u32(d[l][0]) * key[0][c] + u32(d[l][1]) * key[1][c];
+          const uint32_t p1 = u32(d[l][2]) * key[2][c] + u32(d[l][3]) * key[3][c];
+          u = static_cast<int>(u32(barrett_add(p0, p, inv_p)) +
+                               u32(barrett_add(p1, p, inv_p)));
+        }
+        sum[l][c] += kCombine ? u32(barrett_add(u32(dm[l][s + 1]) * u32(u), p, inv_p))
+                              : u32(u) ^ u32(dm[l][s + 1]);
+      }
+  }
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      out[l][c] = kCombine ? barrett_add(sum[l][c], p, inv_p)
+                           : static_cast<int>(sum[l][c]);
+}
+
 // shared memory of one block: the ring, then two buffers of d_hat [BM][BN +
 // 8] int32, the key tile [S * R * 2][BN] int16 and the tile's rotation
 // amounts [G][TB] int32, then the barriers
@@ -310,7 +496,10 @@ __host__ __device__ constexpr int stages_that_fit(int group, int R, int bn, int 
 // ts:     int32 [G, B]          rotation amounts in [0, 2N]
 // rot:    int16 [P, 2N, N]      centered psi^{t(2k+1)}
 // v:      int8 [P, B, 2, 2, N]  limb planes (lo, hi) of the residues
-template <int G, int BN, int BK>
+// RC: 0 for the general instance (R and n_dl at run time), kShapeRows for
+// the shape instance (group 3, R = RC one-limb rows, BN = 128, every row
+// group 4 or 2, every prime >= kMinPrime; the entry point checks them)
+template <int G, int BN, int BK, int RC>
 __global__ void __launch_bounds__(threads(G), 1)
 ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
                       const __grid_constant__ CUtensorMap map_lo,
@@ -318,8 +507,11 @@ ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
                       const int16_t* __restrict__ bsk,
                       const int* __restrict__ ts,
                       const int16_t* __restrict__ rot, int8_t* __restrict__ v,
-                      StepParams sp, int n_primes, int B, int R, int n_dl,
-                      int N, int n_stages) {
+                      StepParams sp, int n_primes, int B, int R_arg,
+                      int n_dl_arg, int N, int n_stages) {
+  static_assert(RC == 0 || (G == 3 && RC == kShapeRows && BN == 128), "shape");
+  const int R = RC ? RC : R_arg;
+  const int n_dl = RC ? 1 : n_dl_arg;
   constexpr int S = (1 << G) - 1;
   constexpr int kPointwiseGroups = pointwise_groups(G);
   constexpr int kPointwiseThreads = 128 * kPointwiseGroups;
@@ -382,7 +574,7 @@ ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
     }
   } else if (wg == kPointwiseGroups) {
     // -- product warpgroup: forward NTT of every tile -> d_hat --------------
-    reg_inc<product_regs(G)>();
+    reg_inc<RC ? kShapeProductRegs : product_regs(G)>();
     const int wt = tid & 127;
     const int lane = wt & 31, warp = wt >> 5;
     const int g = lane >> 2, t = lane & 3;
@@ -459,6 +651,98 @@ ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
       }
       mbar_arrive(d_full + buf);   // all 128 threads: their stores are out
     }
+  } else if constexpr (RC != 0) {
+    // -- pointwise warpgroups at g3's shape: thread = column k and the
+    // kLanes lanes l0 .. l0 + kLanes - 1 of the tile, each key load serving
+    // them all ----------------------------------------------------------------
+    reg_inc<kShapePointwiseRegs>();
+    const int pt = tid;
+    const int k = pt % BN;
+    const int l0 = pt / BN * kLanes;
+    static_assert(kPointwiseThreads / BN * kLanes * RC == BM, "lanes");
+    int j = 0;
+    for (int id = blockIdx.x; id < n_tiles; id += gridDim.x, ++j) {
+      const int rt = id % nrt, ct = (id / nrt) % nct, pi = id / (nrt * nct);
+      const int b0 = rt * tb;
+      const int nb = min(tb, B - b0);        // live batch elements of the tile
+      const int col0 = ct * BN;
+      const int p = sp.p[pi];
+      const float inv_p = sp.inv_p[pi];
+      const int buf = j % kBuffers;
+      const int* d_s = reinterpret_cast<const int*>(bufs + buf * buffer_bytes(G, R, BN));
+      int16_t* k_s = reinterpret_cast<int16_t*>(
+          bufs + buf * buffer_bytes(G, R, BN) + BM * LDD * 4);
+      const int16_t* rot_k = rot + static_cast<size_t>(pi) * 2 * N * N + col0 + k;
+
+      // the psi values of the thread's lanes, in flight while the key tile
+      // is staged and d_hat finished (lanes past nb read lane 0's)
+      int raw[kLanes][3];
+#pragma unroll
+      for (int l = 0; l < kLanes; ++l) {
+        const int b = l0 + l < nb ? l0 + l : 0;
+#pragma unroll
+        for (int jj = 0; jj < 3; ++jj) {
+          const int t = ts[jj * B + b0 + b] & (2 * N - 1);
+          raw[l][jj] = kGather ? rot_k[static_cast<size_t>(t) * N] : t;
+        }
+      }
+      // the column tile's key residues, transposed to k_s[(s * BN + k) * 8 +
+      // r * 2 + c]: each (subset, 8 columns) read as the 8 (r, c) rows' 16
+      // bytes and stored as 8 columns' 16 bytes.  (Every thread is past its
+      // reads of this buffer's tile j - 2: it has passed the barrier below
+      // in tile j - 1.)
+      for (int idx = pt; idx < S * (BN / 8); idx += kPointwiseThreads) {
+        const int s = idx / (BN / 8), c8 = idx % (BN / 8);
+        const int16_t* src =
+            bsk + static_cast<size_t>(s * n_primes + pi) * 2 * RC * N + col0 + c8 * 8;
+        int4 w[2 * RC];
+#pragma unroll
+        for (int rc = 0; rc < 2 * RC; ++rc)
+          w[rc] = *reinterpret_cast<const int4*>(src + static_cast<size_t>(rc) * N);
+        const uint16_t* hw[2 * RC];
+#pragma unroll
+        for (int rc = 0; rc < 2 * RC; ++rc)
+          hw[rc] = reinterpret_cast<const uint16_t*>(&w[rc]);
+        int4* dst = reinterpret_cast<int4*>(k_s + (s * BN + c8 * 8) * 8);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          int q[RC];
+#pragma unroll
+          for (int r = 0; r < RC; ++r)
+            q[r] = static_cast<int>(hw[2 * r][e] | (u32(hw[2 * r + 1][e]) << 16));
+          dst[e] = make_int4(q[0], q[1], q[2], q[3]);
+        }
+      }
+      named_barrier_sync(1, kPointwiseThreads);   // key tile written
+      mbar_wait(d_full + buf, (j / kBuffers) & 1);
+
+      if (kPointwise && l0 < nb) {
+        const int* d_col = d_s + l0 * RC * LDD + k;
+        const int16_t* k_col = k_s + k * 8;
+        int out[kLanes][2];
+        if (sp.row_group[pi] == 4)
+          shape_lanes<BN, 4>(d_col, k_col, raw, p, inv_p, out);
+        else
+          shape_lanes<BN, 2>(d_col, k_col, raw, p, inv_p, out);
+        // v == lo + 256 hi with lo in [-128, 128): K1's int8 limb planes
+#pragma unroll
+        for (int l = 0; l < kLanes; ++l) {
+          if (l0 + l >= nb) break;
+          const int gb = b0 + l0 + l;
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int lo = ((out[l][c] + 128) & 255) - 128;
+            int8_t* dst = v + ((static_cast<size_t>(pi) * B + gb) * 2 + c) * 2 * N +
+                          col0 + k;
+            if (kStores || out[l][c] == kNever) {
+              dst[0] = static_cast<int8_t>(lo);
+              dst[N] = static_cast<int8_t>((out[l][c] - lo) >> 8);
+            }
+          }
+        }
+      }
+      mbar_arrive(d_empty + buf);   // all threads: the buffer's d_hat is read
+    }
   } else {
     // -- pointwise warpgroups: products with the key + subset combine -------
     const int pt = tid;                     // 0 .. kPointwiseThreads - 1
@@ -505,7 +789,9 @@ ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
       auto gather = [&](int b, int (&r)[G]) {
 #pragma unroll
         for (int jj = 0; jj < G; ++jj)
-          r[jj] = b < nb ? rot_k[static_cast<size_t>(ts_s[jj * tb + b]) * N] : 1;
+          r[jj] = b < nb ? (kGather ? rot_k[static_cast<size_t>(ts_s[jj * tb + b]) * N]
+                                    : ts_s[jj * tb + b])
+                         : 1;
       };
       int raw1[G], raw2[G];
       gather(pt / BN, raw1);
@@ -524,7 +810,15 @@ ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
                          inv_p, u);
 
         int out[2];
-        if constexpr (G == 2) {
+        if constexpr (!kCombine) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            uint32_t sum = u32(raw[G - 1]);
+#pragma unroll
+            for (int s = 0; s < S; ++s) sum += u32(u[s][c]);
+            out[c] = static_cast<int>(sum);
+          }
+        } else if constexpr (G == 2) {
           const int d1 = raw[0] - 1, d2 = raw[1] - 1;
           const int d12 = barrett(u32(d1) * u32(d2), p, inv_p);
 #pragma unroll
@@ -561,8 +855,10 @@ ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
           const int lo = ((out[c] + 128) & 255) - 128;
           int8_t* dst = v + ((static_cast<size_t>(pi) * B + gb) * 2 + c) * 2 * N +
                         col0 + k;
-          dst[0] = static_cast<int8_t>(lo);
-          dst[N] = static_cast<int8_t>((out[c] - lo) >> 8);
+          if (kStores || out[c] == kNever) {
+            dst[0] = static_cast<int8_t>(lo);
+            dst[N] = static_cast<int8_t>((out[c] - lo) >> 8);
+          }
         }
       }
       mbar_arrive(d_empty + buf);   // all threads: the buffer's d_hat is read
@@ -579,7 +875,7 @@ struct MatrixMaps {
   CUtensorMap map_lo, map_hi;
 };
 
-template <int G, int BN, int BK>
+template <int G, int BN, int BK, int RC>
 int launch(const int8_t* digits, const int16_t* bsk, const int* ts,
            const int8_t* f_lo, const int8_t* f_hi, const int16_t* rot,
            int8_t* v, const StepParams& sp, int n_primes, int B, int R,
@@ -617,7 +913,7 @@ int launch(const int8_t* digits, const int16_t* bsk, const int* ts,
   cudaGetDevice(&device);
   if (device != cap_device || bytes != cap_bytes) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ntt_step_fused_kernel<G, BN, BK>,
+        ntt_step_fused_kernel<G, BN, BK, RC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     cap_device = device;
@@ -626,7 +922,7 @@ int launch(const int8_t* digits, const int16_t* bsk, const int* ts,
   const int tb = BM / (R * n_dl);
   const int n_tiles = n_primes * (N / BN) * ((B + tb - 1) / tb);
   const dim3 grid(n_tiles < sm_count() ? n_tiles : sm_count());
-  ntt_step_fused_kernel<G, BN, BK><<<grid, threads(G), bytes, stream>>>(
+  ntt_step_fused_kernel<G, BN, BK, RC><<<grid, threads(G), bytes, stream>>>(
       map_d, m.map_lo, m.map_hi, bsk, ts, rot, v, sp, n_primes, B, R, n_dl,
       N, n_stages);
   return static_cast<int>(cudaGetLastError());
@@ -644,13 +940,38 @@ int dispatch(const int8_t* digits, const int16_t* bsk, const int* ts,
   const int row_tiles = (B + tb - 1) / tb;
   if (N % 128 == 0 && n_primes * (N / 128) * row_tiles >= sm_count() &&
       stages_that_fit(G, R, 128, 128) >= 3)
-    return launch<G, 128, 128>(digits, bsk, ts, f_lo, f_hi, rot, v, sp,
-                               n_primes, B, R, n_dl, N, stream);
+    return launch<G, 128, 128, 0>(digits, bsk, ts, f_lo, f_hi, rot, v, sp,
+                                  n_primes, B, R, n_dl, N, stream);
   if (N % 128 == 0)
-    return launch<G, 32, 128>(digits, bsk, ts, f_lo, f_hi, rot, v, sp,
-                              n_primes, B, R, n_dl, N, stream);
-  return launch<G, 32, 64>(digits, bsk, ts, f_lo, f_hi, rot, v, sp, n_primes,
-                           B, R, n_dl, N, stream);
+    return launch<G, 32, 128, 0>(digits, bsk, ts, f_lo, f_hi, rot, v, sp,
+                                 n_primes, B, R, n_dl, N, stream);
+  return launch<G, 32, 64, 0>(digits, bsk, ts, f_lo, f_hi, rot, v, sp, n_primes,
+                              B, R, n_dl, N, stream);
+}
+
+// r[i] = barrett_add(x[i]) for i < n: the shape instance's Barrett on
+// chosen inputs
+__global__ void barrett_kernel(const int* __restrict__ x, int* __restrict__ r,
+                               int n, int p, float inv_p) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    r[i] = barrett_add(u32(x[i]), p, inv_p);
+}
+
+// the inputs x = start + i (mod 2^32), 0 <= i < count, on which barrett_add
+// and barrett differ, counted into *n_diff
+__global__ void barrett_check_kernel(uint32_t start, unsigned long long count,
+                                     int p, float inv_p,
+                                     unsigned long long* n_diff) {
+  unsigned long long c = 0;
+  const unsigned long long stride =
+      static_cast<unsigned long long>(gridDim.x) * blockDim.x;
+  for (unsigned long long i = blockIdx.x * blockDim.x + threadIdx.x; i < count;
+       i += stride) {
+    const uint32_t x = start + static_cast<uint32_t>(i);
+    c += barrett_add(x, p, inv_p) != barrett(x, p, inv_p);
+  }
+  if (c) atomicAdd(n_diff, c);
 }
 
 }  // namespace
@@ -661,16 +982,22 @@ int dispatch(const int8_t* digits, const int16_t* bsk, const int* ts,
 // 16-byte aligned; N % 64 == 0; 1 <= n_primes <= 8; digits of 1 <= n_dl <= 3
 // limbs (more than one only at group 2) and 1 <= R * n_dl <= 10 limb planes
 // a batch element; single_add holds n_primes * n_dl flags, (prime, limb).
+// `shape` != 0 launches the instance compiled at g3's shape on 64 x 128
+// tiles, and is refused unless the launch has that shape: group 3, R =
+// kShapeRows one-limb rows, N % 128 == 0, every row group 4 or 2 and every
+// prime >= 2^11 (where its Barrett is exact).
 extern "C" int ztfhe_ntt_step_fused(
     const int8_t* digits, const int16_t* bsk, const int* ts,
     const int8_t* f_lo, const int8_t* f_hi, const int16_t* rot, int8_t* v,
     const int* primes, const float* inv_p, const int* row_group,
     const int* single_add, int n_primes, int group, int B, int R, int n_dl,
-    int N, void* stream) {
+    int N, int shape, void* stream) {
   if (n_primes < 1 || n_primes > kMaxPrimes || (group != 2 && group != 3) ||
       B < 1 || R < 1 || n_dl < 1 || n_dl > kMaxLimbs ||
       (group != 2 && n_dl != 1) || R * n_dl > kMaxRows || N < 64 ||
       N % 64 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (shape && (group != 3 || R != kShapeRows || N % 128 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   StepParams sp;
   for (int i = 0; i < kMaxPrimes; ++i) {
@@ -683,12 +1010,46 @@ extern "C" int ztfhe_ntt_step_fused(
           live && l < n_dl ? single_add[i * n_dl + l] : 1;
     if (sp.row_group[i] < 1)
       return static_cast<int>(cudaErrorInvalidValue);
+    if (shape && live && ((row_group[i] != 4 && row_group[i] != 2) ||
+                          primes[i] < kMinPrime))
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (shape) {
+    static_assert(stages_that_fit(3, kShapeRows, 128, 128) >= 3, "stages");
+    return launch<3, 128, 128, kShapeRows>(digits, bsk, ts, f_lo, f_hi, rot, v,
+                                           sp, n_primes, B, R, n_dl, N, s);
+  }
   return group == 2 ? dispatch<2>(digits, bsk, ts, f_lo, f_hi, rot, v, sp,
                                   n_primes, B, R, n_dl, N, s)
                     : dispatch<3>(digits, bsk, ts, f_lo, f_hi, rot, v, sp,
                                   n_primes, B, R, n_dl, N, s);
+}
+
+// r[i] = the shape instance's Barrett of x[i] modulo p, i < n (device
+// pointers).
+extern "C" int ztfhe_ntt_step_barrett(const int* x, int* r, int n, int p,
+                                      float inv_p, void* stream) {
+  if (n < 0 || p < kMinPrime) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(4 * sm_count());
+  barrett_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, r, n, p, inv_p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Adds to *n_diff (device) the count of x = start + i (mod 2^32), 0 <= i <
+// count, where the shape instance's Barrett differs from the general
+// instance's (__float2int_rn(__fmul_rn(__int2float_rn(x), inv_p))).
+extern "C" int ztfhe_ntt_step_barrett_mismatches(int start, long long count,
+                                                 int p, float inv_p,
+                                                 unsigned long long* n_diff,
+                                                 void* stream) {
+  if (count < 0 || p < kMinPrime) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(8 * sm_count());
+  barrett_check_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t>(start), static_cast<unsigned long long>(count), p,
+      inv_p, n_diff);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* ztfhe_cuda_error_string(int code) {

@@ -42,6 +42,16 @@ bound: the single add where N * bound * (128 + 256 (p // 512 + 1)) <
 bounded by ``top_limb_bound``), reduce-then-combine otherwise (Bg_e = 2^8;
 every lower limb, bounded by 128).
 
+The kernel has two instances.  g3's steps (group 3, R = 4 one-limb digit
+rows, every prime's row group 4 or 2, on the wide tiles of a large batch)
+take the one compiled at that shape, whose pointwise stage runs several
+lanes a thread against each key load, unrolled rows and a Barrett that
+rounds by an f32 add (exact for primes of at least ``MIN_PRIME``;
+``barrett_mismatches`` holds it to the conversion form on the card);
+``shape_instance`` is the choice, made from the launch's shape alone, and
+``ntt_step_fused.shape_launches`` counts it.  Every other launch takes the
+general instance.
+
 ``ntt_step_fused`` launches the kernel for CUDA tensors (or raises) and
 runs the plain PyTorch version, ``ntt_step_fused_reference``, for CPU
 tensors only.  Both take groups 2 and 3 with one-limb engine digits
@@ -70,6 +80,10 @@ _MAX_PRIMES = 8     # kMaxPrimes in the source
 _MAX_ROWS = 10      # kMaxRows in the source: limb planes R * n_dl
 _MAX_LIMBS = 3      # kMaxLimbs in the source: Bg_e <= 2^24
 _COL_TILE = 64      # N must be a multiple of the kernel's narrowest stage
+_ROW_TILE = 64      # BM in the source: wgmma rows a tile, R * n_dl per lane
+_SHAPE_ROWS = 4     # kShapeRows: digit rows of the instance compiled at g3's shape
+_SHAPE_ROW_GROUPS = (2, 4)
+MIN_PRIME = 1 << 11  # kMinPrime: that instance's Barrett rounds exactly above it
 
 
 def supports(group: int, digit_limbs: int) -> bool:
@@ -189,11 +203,35 @@ def ntt_step_fused_reference(digits: torch.Tensor, bsk_step: torch.Tensor,
     return split_limbs(torch.stack(v))
 
 
+@functools.lru_cache(maxsize=None)
+def shape_instance(plan: _ntt.NTTPlan, group: int, R: int, n_dl: int,
+                   B: int, sm_count: int) -> bool:
+    """Whether a launch takes the kernel's instance compiled at g3's shape:
+    group 3, R = 4 one-limb digit rows, every prime's row group 4 or 2 and
+    every prime >= ``MIN_PRIME``, on the 64 x 128 tiles that the entry
+    point takes when N % 128 == 0 and they give each of the card's
+    ``sm_count`` SMs one.  Every other launch runs the general instance."""
+    row_tiles = -(-B // (_ROW_TILE // (R * n_dl)))
+    return (group == 3 and R == _SHAPE_ROWS and n_dl == 1
+            and plan.N % 128 == 0
+            and plan.n_primes * (plan.N // 128) * row_tiles >= sm_count
+            and set(row_groups(plan, group)) <= set(_SHAPE_ROW_GROUPS)
+            and min(plan.primes) >= MIN_PRIME)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.ztfhe_ntt_step_fused.argtypes = [p] * 11 + [i] * 6 + [p]
+    lib.ztfhe_ntt_step_fused.argtypes = [p] * 11 + [i] * 7 + [p]
     lib.ztfhe_ntt_step_fused.restype = i
+    lib.ztfhe_ntt_step_barrett_mismatches.argtypes = [
+        i, ctypes.c_longlong, i, ctypes.c_float, p, p]
+    lib.ztfhe_ntt_step_barrett_mismatches.restype = i
     return lib
 
 
@@ -256,7 +294,9 @@ def ntt_step_fused(digits: torch.Tensor, bsk_step: torch.Tensor,
     as int8 limb planes [P, B, 2, 2, N] (arguments as
     ``ntt_step_fused_reference``).  Any
     B.  CUDA tensors launch the kernel (and count the launch in
-    ``ntt_step_fused.launches``); CPU tensors run the plain version."""
+    ``ntt_step_fused.launches``, and in ``ntt_step_fused.shape_launches``
+    when it takes the instance of ``shape_instance``); CPU tensors run the
+    plain version."""
     _require_supported(digits, bsk_step, ts, plan, bgbit)
     tensors = (digits, bsk_step, ts)
     if all(t.device.type == "cpu" for t in tensors):
@@ -276,18 +316,64 @@ def ntt_step_fused(digits: torch.Tensor, bsk_step: torch.Tensor,
     digits, bsk_step, ts = (t.contiguous() for t in tensors)
     if digits.data_ptr() % 16 or bsk_step.data_ptr() % 16:
         raise ValueError("kernel operands must be 16-byte aligned")
-    tabs = device_tables(plan, dev)
-    v = torch.empty((P, B, 2, 2, N), dtype=torch.int8, device=dev)
-    lib = _library()
+    return _launch(_library(), digits, bsk_step, ts, plan, bgbit,
+                   _sm_count(dev), torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _launch(lib, digits: torch.Tensor, bsk_step: torch.Tensor,
+            ts: torch.Tensor, plan: _ntt.NTTPlan, bgbit: int, sm_count: int,
+            stream) -> torch.Tensor:
+    """One launch on checked, contiguous operands, on the instance that
+    ``shape_instance`` picks for a card of ``sm_count`` SMs; counted."""
+    group, n_dl = ts.shape[0], _ntt.engine_digit_limbs(bgbit)
+    P, N = plan.n_primes, plan.N
+    B, R = digits.shape[0], bsk_step.shape[2]
+    shape = shape_instance(plan, group, R, n_dl, B, sm_count)
+    tabs = device_tables(plan, digits.device)
+    v = torch.empty((P, B, 2, 2, N), dtype=torch.int8, device=digits.device)
     err = lib.ztfhe_ntt_step_fused(
         digits.data_ptr(), bsk_step.data_ptr(), ts.data_ptr(),
         tabs.fwd_lo_t.data_ptr(), tabs.fwd_hi_t.data_ptr(),
         tabs.rot.data_ptr(), v.data_ptr(),
         *host_scalar_ptrs(plan, group, bgbit), P, group, B, R, n_dl, N,
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(shape), stream)
     _build.check(lib, err, "ntt_step_fused")
     ntt_step_fused.launches += 1
+    ntt_step_fused.shape_launches += int(shape)
     return v
 
 
 ntt_step_fused.launches = 0
+ntt_step_fused.shape_launches = 0
+
+
+def barrett_mismatches(p: int, device, start: int = -(1 << 31),
+                       count: int = 1 << 32) -> int:
+    """How many int32 x = start + i (mod 2^32), 0 <= i < count, the shape
+    instance's Barrett (its rounding by an f32 add of 1.5 * 2^23) reduces
+    otherwise than the general instance's conversion form modulo p,
+    counted on the CUDA ``device`` by the kernel's own device functions
+    (all 2^32 inputs take a few ms)."""
+    return count_barrett_mismatches(_library, "ztfhe_ntt_step_barrett_mismatches",
+                                    p, device, start, count)
+
+
+def count_barrett_mismatches(library, entry: str, p: int, device, start: int,
+                             count: int) -> int:
+    """Run the Barrett check ``entry`` of the kernel library that
+    ``library()`` loads (K2's or K2s's; both take start, count, p, f32 1/p,
+    a device counter and the stream) on ``device``."""
+    import numpy as np
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"device {device}: the check runs on a CUDA device")
+    if p < MIN_PRIME:
+        raise ValueError(f"p = {p} < {MIN_PRIME}: the rounding is not exact")
+    n_diff = torch.zeros(1, dtype=torch.int64, device=device)
+    lib = library()
+    err = getattr(lib, entry)(int(np.int64(start).astype(np.uint32).view(np.int32)), count,
+                p, float(np.float32(1.0 / p)), n_diff.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, err, "barrett_mismatches")
+    return int(n_diff.item())

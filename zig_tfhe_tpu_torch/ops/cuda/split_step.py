@@ -52,7 +52,9 @@ import torch
 from zig_tfhe_tpu_torch.ops import ntt as _ntt
 from zig_tfhe_tpu_torch.ops.cuda import _build
 from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import split_limbs
-from zig_tfhe_tpu_torch.ops.cuda.ntt_step import device_tables, host_scalar_ptrs
+from zig_tfhe_tpu_torch.ops.cuda.ntt_step import (count_barrett_mismatches,
+                                                   device_tables,
+                                                   host_scalar_ptrs)
 
 SOURCE = _build.CSRC / "split_step.cu"
 GROUP = 2
@@ -204,18 +206,5 @@ def barrett_mismatches(p: int, device, start: int = -(1 << 31),
     otherwise than the plain version's conversion form modulo p, counted
     on the CUDA ``device`` by the kernel's own device function (all 2^32
     inputs take a few ms)."""
-    import numpy as np
-
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"device {device}: the check runs on a CUDA device")
-    if p < MIN_PRIME:
-        raise ValueError(f"p = {p} < {MIN_PRIME}: the rounding is not exact")
-    n_diff = torch.zeros(1, dtype=torch.int64, device=device)
-    lib = _library()
-    err = lib.ztfhe_split_barrett_mismatches(
-        int(np.int64(start).astype(np.uint32).view(np.int32)), count, p,
-        float(np.float32(1.0 / p)), n_diff.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream)
-    _build.check(lib, err, "split_barrett_mismatches")
-    return int(n_diff.item())
+    return count_barrett_mismatches(_library, "ztfhe_split_barrett_mismatches",
+                                    p, device, start, count)
