@@ -1,9 +1,10 @@
 """Readings that a cell's limits are set from, in one process (the card's
-set-up paid once): the numbers the check compares, for the program over
-many seeds and for the control, the program with its configuration's
-``control_key`` (one gadget level fewer on the body: the precision below
-the one the configuration states).  The benchmark's own runs never run
-this.
+set-up paid once): the numbers the check compares (the traffic kind's
+count of wrong lanes and ``noise_sd``, whatever the kind), for the program
+over many seeds and for the control, the program with its configuration's
+``control_key`` (a key of the precision below the one the configuration
+states: on g3 and t64 one gadget level fewer on the body).  The
+benchmark's own runs never run this.
 
     python gpubench/calibrate.py --workload <cell> --seconds <s> --seeds 1 2 3 \
         [--control-seeds 4 5 6]

@@ -1,11 +1,16 @@
 """``BENCHMARK.json`` and the data files it names.
 
 Every piece is found by name, so that a later change adds a configuration,
-a traffic mix, a cell or a per-layer metric by adding files and entries:
+a traffic mix, a traffic kind, a cell or a per-layer metric by adding files
+and entries:
 
 * a configuration's sizes: the file its entry names (``configs/<name>.json``);
 * a traffic mix: ``gpubench/traffic/<traffic>.json``, the parameters that
-  the one generator in ``traffic.py`` reads;
+  the one generator in ``traffic.py`` reads, its ``kind`` among them;
+* a traffic kind: ``gpubench/kinds/<kind>.py``, with ``draw(mix, seed)``,
+  the program adapter ``Program``, ``judge``, ``WRONG`` (the name of its
+  count of wrong lanes), ``CALL_SPAN`` (the outermost span of one call)
+  and ``ENQUEUE`` (the host span of a call's enqueue);
 * a per-layer metric: ``gpubench/metrics/<name>.py``, a reader with
   ``read(trace) -> float | None``;
 * a cell: an entry of ``workloads``.
@@ -13,14 +18,17 @@ a traffic mix, a cell or a per-layer metric by adding files and entries:
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 METRICS_DIR = HERE / "metrics"
+KINDS_DIR = HERE / "kinds"
 
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 UNIT = re.compile(r"[A-Za-z0-9_/%.-]{1,16}")
@@ -93,17 +101,17 @@ def validate(m: dict) -> None:
     used = {w["config"] for w in m["workloads"]}
     _need(used == configs, f"configs no cell uses: {sorted(configs - used)}")
     names = set()
-    for kind in ("end_to_end", "per_layer"):
-        for x in m[kind]:
-            _need(set(x) - {"workloads"} == KEYS[kind],
-                  f"{kind} metric keys {sorted(x)}")
+    for part in ("end_to_end", "per_layer"):
+        for x in m[part]:
+            _need(set(x) - {"workloads"} == KEYS[part],
+                  f"{part} metric keys {sorted(x)}")
             _name(x["name"], "metric")
             _need(x["name"] not in names, f"metric {x['name']} repeated")
             names.add(x["name"])
             _need(UNIT.fullmatch(x["unit"]) is not None,
                   f"{x['name']}: unit {x['unit']!r}")
             _need(x["better"] in ("lower", "higher"), f"{x['name']}: better")
-            _need(x["source"] in (SOURCES_E2E if kind == "end_to_end"
+            _need(x["source"] in (SOURCES_E2E if part == "end_to_end"
                                   else SOURCES), f"{x['name']}: source")
             for cell in x.get("workloads", ()):
                 _need(cell in cells, f"{x['name']}: no cell {cell}")
@@ -153,11 +161,25 @@ class Bench:
                     else x["moves"] in e2e)]
 
 
+def _load(path: Path, prefix: str, name: str):
+    spec = importlib.util.spec_from_file_location(
+        prefix + name.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod    # dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(metric: str):
     """The ``read`` function of ``metrics/<metric>.py``."""
-    path = METRICS_DIR / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        "gpubench_metric_" + metric.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(METRICS_DIR / f"{metric}.py", "gpubench_metric_", metric).read
+
+
+@functools.cache
+def kind(name: str):
+    """The module ``kinds/<name>.py`` of a traffic kind (loaded once)."""
+    if not isinstance(name, str) or NAME.fullmatch(name) is None \
+            or not (KINDS_DIR / f"{name}.py").is_file():
+        have = sorted(p.stem for p in KINDS_DIR.glob("*.py"))
+        raise ValueError(f"traffic kind {name!r}: the generator draws {have}")
+    return _load(KINDS_DIR / f"{name}.py", "gpubench_kind_", name)

@@ -20,10 +20,13 @@ and every part of the call is placed that much early.  The calls' hand
 kernels are the records of the stretch in time order, an equal share a
 call (every call of a cell launches the same).
 
-Every reader returns None where the stretch holds no ``gates.apply`` span
-(a program without the recorder, a run with recording off, or one that
-made no gate call), where the calls cannot be placed, or where the
-recorder dropped spans.
+A call is found by its outermost span, the traffic kind's ``CALL_SPAN``
+(``Trace.call_span``): ``gates.apply`` for gates, the program's own span
+of ``apply_gates``; ``lut.call`` for LUTs, which the kind opens in the
+program's recorder around ``bootstrap_lut``.  Every reader returns None
+where the stretch holds no such span at the root (a program without the
+recorder, a run with recording off, or one that made no call), where the
+calls cannot be placed, or where the recorder dropped spans.
 """
 
 from __future__ import annotations
@@ -40,20 +43,25 @@ def _stretch(t):
     return t.host_spans[0][1], t.host_spans[-1][2]
 
 
+def _roots(t, found):
+    """The calls' outermost spans among ``found``."""
+    return [s for s in found if s.name == t.call_span and s.parent is None]
+
+
 def spans(t):
-    """The closed spans that lie in ``t``'s stretch, None without a
-    ``gates.apply`` among them or with spans dropped."""
+    """The closed spans that lie in ``t``'s stretch, None without a call's
+    span among them or with spans dropped."""
     read = getattr(profiling, "spans", None)
     if read is None or profiling.dropped() > 0:
         return None
     lo, hi = _stretch(t)
     out = [s for s in read()
            if s.end_ns is not None and lo <= s.start_ns and s.end_ns <= hi]
-    return out if any(s.name == "gates.apply" for s in out) else None
+    return out if _roots(t, out) else None
 
 
 def calls(t):
-    """Each ``gates.apply`` call's device intervals on the kernel records'
+    """Each call's device intervals on the kernel records'
     clock (ns): ``"call"`` the call's, and under each span name of the
     call the intervals of its spans.  None where a call has no event pair
     or no ``blind_rotate.steps``, or the hand kernels do not share out
@@ -61,7 +69,7 @@ def calls(t):
     found = spans(t)
     if found is None:
         return None
-    roots = [c for c in found if c.name == "gates.apply"]
+    roots = _roots(t, found)
     syms = [sym for _, _, sym in HAND_KERNELS.values()]
     hand = sorted((s, e) for nm, s, e in t.records
                   if any(x in nm for x in syms))
@@ -132,10 +140,10 @@ def busy_ms_per_call(t, name: str):
 
 
 def syncs_per_call(t):
-    """The synchronising CUDA operations the ``gates.apply`` spans
-    counted, a call; None where they were not counted (off a card)."""
+    """The synchronising CUDA operations the calls' spans counted, a call;
+    None where they were not counted (off a card)."""
     found = spans(t)
     if found is None:
         return None
-    n = [s.syncs for s in found if s.name == "gates.apply"]
+    n = [s.syncs for s in _roots(t, found)]
     return None if None in n else sum(n) / t.calls

@@ -59,26 +59,25 @@ def run_cell(bench, name: str, seed: int, seconds: float, trace: bool,
     import numpy as np
     import torch
 
-    from gpubench import traffic
-    from gpubench.reference import gates as ref
-    from gpubench.system import Gates, launches
+    from gpubench import manifest, traffic
+    from gpubench.system import launches
 
     device = torch.device(device)
     cell = bench.cell(name)
     cfg = bench.config(cell["config"])
-    mix = traffic.draw(bench.traffic(cell["traffic"]), seed)
+    params = bench.traffic(cell["traffic"])
+    kind = manifest.kind(params.get("kind"))
+    mix = traffic.draw(params, seed)
     log = []
     t_import = time.perf_counter()
-    prog = Gates(cfg, seed, device, key_form)
+    prog = kind.Program(cfg, seed, device, key_form)
     _sync(device)
     t_key = time.perf_counter()
-    a_pool, b_pool = prog.encrypt(mix.x), prog.encrypt(mix.y)
-    ids = torch.from_numpy(mix.gate_ids).to(device)
+    pool = prog.encrypt(mix)
     _sync(device)
     t_pool = time.perf_counter()
     for i in range(mix.warm_calls):
-        k = mix.batch(i)
-        prog.apply(ids[k], a_pool[k], b_pool[k])
+        prog.apply(pool, mix.batch(i))
         _sync(device)
     cuda = device.type == "cuda"
     setup_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
@@ -102,7 +101,7 @@ def run_cell(bench, name: str, seed: int, seconds: float, trace: bool,
         i = len(times)
         k = mix.batch(i)
         w0, c0 = time.time_ns(), time.perf_counter()
-        out = prog.apply(ids[k], a_pool[k], b_pool[k])
+        out = prog.apply(pool, k)
         w1 = time.time_ns()
         # the answer goes back to the client: copied to the host, which
         # waits for the call's kernels
@@ -115,34 +114,33 @@ def run_cell(bench, name: str, seed: int, seconds: float, trace: bool,
         if prof is not None and traced is None:
             if prev_end is not None:
                 host_spans.append(("harness loop", prev_end, w0))
-            host_spans += [("enqueue apply_gates", w0, w1),
-                           ("copy to host", w1, w2)]
+            host_spans += [(kind.ENQUEUE, w0, w1), ("copy to host", w1, w2)]
             prev_end = w2
             if i + 1 == mix.trace_calls:
-                traced = _stop(prof, before, host_spans, i + 1, cfg, mix.lanes)
+                traced = _stop(prof, before, host_spans, i + 1, cfg, mix.lanes,
+                               kind.CALL_SPAN)
         if c1 - t_start >= seconds:
             break
     window_s = c1 - t_start
     if prof is not None and traced is None:
-        traced = _stop(prof, before, host_spans, len(times), cfg, mix.lanes)
+        traced = _stop(prof, before, host_spans, len(times), cfg, mix.lanes,
+                       kind.CALL_SPAN)
     peak = max(setup_peak, torch.cuda.max_memory_allocated(device)) if cuda else 0
 
     # the program's state goes before the reference runs
     key_lv0 = prog.key_lv0
     prog.free()
-    del a_pool, b_pool, ids, prog
+    del pool, prog
     got = np.concatenate(outs)
     del outs
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    ks = np.arange(len(times)) % mix.pool
-    want = ref.expected_bits(mix.gate_ids[ks], mix.x[ks], mix.y[ks])
-    judged = ref.judge(got, key_lv0, cfg["torus_bits"], want)
+    judged = kind.judge(got, key_lv0, cfg, mix, len(times))
     t_done = time.perf_counter()
 
     limit = cfg["limits"]["noise_sd"]
-    check = {"wrong_bits": {"value": judged["wrong"], "limit": 0},
+    check = {kind.WRONG: {"value": judged["wrong"], "limit": 0},
              "noise_sd": {"value": judged["noise_sd"], "limit": limit}}
     correct = judged["wrong"] <= 0 and judged["noise_sd"] <= limit
     win = Window(times, mix.lanes, window_s, setup_s)
@@ -177,7 +175,7 @@ def run_cell(bench, name: str, seed: int, seconds: float, trace: bool,
     return result
 
 
-def _stop(prof, before, host_spans, calls, cfg, lanes):
+def _stop(prof, before, host_spans, calls, cfg, lanes, call_span):
     from gpubench.system import launches
     from gpubench.trace import Trace, kernel_records
 
@@ -187,7 +185,7 @@ def _stop(prof, before, host_spans, calls, cfg, lanes):
     return Trace(records=kernel_records(prof), launched=launched,
                  host_spans=list(host_spans), calls=calls,
                  window_ns=host_spans[-1][2] - host_spans[0][1],
-                 cfg=cfg, lanes=lanes)
+                 cfg=cfg, lanes=lanes, call_span=call_span)
 
 
 def _power_line() -> str:

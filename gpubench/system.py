@@ -1,12 +1,13 @@
 """The system under test: ``zig_tfhe_tpu_torch``, reached only through its
-public entry points (``params``, ``key``, ``tlwe``, ``models.gates``) and
-its hand kernels' launch counters.
+public entry points (``params``, ``key``, and what each traffic kind's file
+under ``kinds/`` calls) and its hand kernels' launch counters.
 
 The secret key is drawn here from the seed (NumPy); the cloud key is made
 on the device by the program's own ``CloudKey.generate`` from a
 ``torch.Generator`` seeded alike.  A configuration's ``key`` entry is
 passed to it as given, and the key that comes back is held to the
-configuration's stated form.
+configuration's stated form.  Each kind's program adapter is a ``Keys``
+with its own ``encrypt`` and ``apply``.
 """
 
 from __future__ import annotations
@@ -18,8 +19,6 @@ import torch
 
 from zig_tfhe_tpu_torch import key as _key
 from zig_tfhe_tpu_torch import params as _params
-from zig_tfhe_tpu_torch import tlwe as _tlwe
-from zig_tfhe_tpu_torch.models import gates as _gates
 
 from gpubench import traffic
 
@@ -43,8 +42,21 @@ def launches() -> dict:
     return {k: _wrapper(k).launches for k in HAND_KERNELS}
 
 
-class Gates:
-    """One configuration's keys and its gate batches on ``device``."""
+def secret_keys(seed: int, n0: int, n1: int):
+    """The binary lv0 and lv1 keys (int32 [n0], [n1]) that ``seed`` draws."""
+    r = traffic.rng(seed, traffic.STREAM_SECRET_KEY)
+    return (r.integers(0, 2, n0).astype(np.int32),
+            r.integers(0, 2, n1).astype(np.int32))
+
+
+class Keys:
+    """One configuration's keys on ``device``: ``sk``, ``ck``, ``gen``
+    (the device generator the client's encryptions draw from) and
+    ``key_lv0``, the secret key the reference decrypts with.
+
+    ``key_form`` (the configuration's ``control_key``) replaces the stated
+    key form; its key is held to the form it asks for, and takes the drop
+    and the primes that the program picks for it."""
 
     def __init__(self, cfg: dict, seed: int, device, key_form: dict | None = None):
         self.params = _params.PARAMS_BY_NAME[cfg["params"]]
@@ -59,9 +71,7 @@ class Gates:
                                f"{want} as the configuration states")
         self.width = p.torus_bits
         self.device = torch.device(device)
-        r = traffic.rng(seed, traffic.STREAM_SECRET_KEY)
-        self.key_lv0 = r.integers(0, 2, self.params.n0).astype(np.int32)
-        key_lv1 = r.integers(0, 2, self.params.n1).astype(np.int32)
+        self.key_lv0, key_lv1 = secret_keys(seed, p.n0, p.n1)
         self.sk = _key.SecretKey.from_numpy(self.key_lv0, key_lv1, device=self.device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed & (2 ** 64 - 1))
@@ -72,20 +82,12 @@ class Gates:
                self.ck.bsk_ntt_drop, self.ck.bsk_ntt.shape[-4])
         want = (form["group"], form["engine_bgbit"], form["decomp_levels"],
                 cfg["drop"], cfg["n_primes"])
+        if key_form is not None:
+            got, want = got[:3], want[:3]
         if got != want:
             raise RuntimeError(f"the key came out (group, Bg_e bits, levels, "
                                f"drop, primes) = {got}, not {want} as the "
                                f"configuration states")
-
-    def encrypt(self, bits: np.ndarray) -> torch.Tensor:
-        """Fresh encryptions of booleans [...] -> carriers [..., n0 + 1]."""
-        return _tlwe.encrypt_bool(self.gen, torch.from_numpy(bits).to(self.device),
-                                  self.params.tlwe_lv0.alpha, self.sk.key_lv0,
-                                  width=self.width)
-
-    def apply(self, gate_ids: torch.Tensor, a: torch.Tensor,
-              b: torch.Tensor) -> torch.Tensor:
-        return _gates.apply_gates(gate_ids, a, b, self.ck)
 
     def free(self) -> None:
         """Drop the program's keys (before the reference runs)."""

@@ -27,6 +27,22 @@ TINY64 = dict(TINY, params="tiny64", torus_bits=64, n_primes=6)
 # one gate a call, back to back
 ONE_LANE = {"kind": "gates", "lanes": 1, "gates": "all", "pool": 64,
             "warm_calls": 2, "trace_calls": 8}
+# TEST_TINY_UINT (N = 256, n0 = 8, noise-free encryptions, Bg 2^11: 2-limb
+# digits): the multi-limb path of the uint sets, in a second.  Its noise
+# limit sits between the readings of its key (0.00073-0.00089 on 13
+# seeds) and of its control key, Bg_e 2^6 with one b-level fewer
+# (0.0065-0.0117, and 0 to 58 wrong lanes a run).
+TINY_UINT = {
+    "params": "tiny_uint", "deployment": "test", "torus_bits": 32, "n0": 8,
+    "N": 256, "lwe_alpha": 0.0, "glwe_alpha": 0.0, "bg_bits": 11, "levels": 2,
+    "ks_base_bits": 4, "ks_levels": 3, "split_ring": False,
+    "key": {"group": 2, "engine_bgbit": 11, "decomp_levels": [2, 2]},
+    "drop": 0, "n_primes": 4,
+    "control_key": {"group": 2, "engine_bgbit": 6, "decomp_levels": [2, 1]},
+    "limits": {"noise_sd": 0.003}}
+# a programmable bootstrap a lane on Z_16, every function of the reference
+LUT_M16 = {"kind": "lut", "lanes": 64, "message_modulus": 16,
+           "functions": "all", "pool": 4, "warm_calls": 1, "trace_calls": 2}
 
 
 @pytest.fixture
@@ -41,14 +57,19 @@ def cuda_device():
 @pytest.fixture
 def tiny_root(tmp_path):
     """A checkout whose benchmark has gained, as data only, the
-    configurations ``tiny`` and ``tiny64``, the one-lane mix ``one_lane``
-    and a cell of each configuration under every mix."""
-    shutil.copytree(ROOT / "gpubench" / "traffic", tmp_path / "gpubench" / "traffic")
-    (tmp_path / "gpubench" / "traffic" / "one_lane.json").write_text(json.dumps(ONE_LANE))
+    configurations ``tiny``, ``tiny64`` and ``tiny_uint``, the one-lane
+    gate mix ``one_lane``, the LUT mix ``lut_m16``, a cell of ``tiny`` and
+    of ``tiny64`` under every gate mix and the cell ``tiny_uint.lut_m16``."""
+    traffic = tmp_path / "gpubench" / "traffic"
+    shutil.copytree(ROOT / "gpubench" / "traffic", traffic)
+    (traffic / "one_lane.json").write_text(json.dumps(ONE_LANE))
+    (traffic / "lut_m16.json").write_text(json.dumps(LUT_M16))
     (tmp_path / "gpubench" / "configs").mkdir()
     m = json.loads((ROOT / "BENCHMARK.json").read_text())
-    mixes = sorted({w["traffic"] for w in m["workloads"]} | {"one_lane"})
-    for name, cfg in (("tiny", TINY), ("tiny64", TINY64)):
+    gate_mixes = sorted({w["traffic"] for w in m["workloads"]} | {"one_lane"})
+    for name, cfg, mixes in (("tiny", TINY, gate_mixes),
+                             ("tiny64", TINY64, gate_mixes),
+                             ("tiny_uint", TINY_UINT, ["lut_m16"])):
         f = f"gpubench/configs/{name}.json"
         (tmp_path / f).write_text(json.dumps(cfg))
         m["configs"].append({"name": name, "source": "test", "file": f,

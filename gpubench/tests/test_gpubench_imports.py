@@ -42,7 +42,7 @@ def test_the_reference_imports_nothing_of_the_program(path):
 
 
 def test_loading_the_reference_loads_nothing_of_the_program():
-    code = ("import sys; sys.path.insert(0, %r); import gpubench.reference.gates;"
+    code = ("import sys; sys.path.insert(0, %r); import gpubench.reference.gates, gpubench.reference.lut;"
             "from gpubench import importcheck as c;"
             "print(c.refused(sys.modules, c.REFUSED_IN_REFERENCE))" % str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

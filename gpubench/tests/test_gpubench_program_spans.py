@@ -15,14 +15,15 @@ READERS = IDLE + ("key_switch_ms_per_call", "host_syncs_per_call")
 MS = 1_000_000          # ns
 
 
-def _call(first_id, t0, steps_host=(2, 8), steps_device=(2, 8)):
-    """One gate call's spans from host time ``t0`` (ms in the arguments):
-    gates.apply over 10 ms on both clocks, its steps on the host over
+def _call(first_id, t0, steps_host=(2, 8), steps_device=(2, 8),
+          root="gates.apply"):
+    """One call's spans from host time ``t0`` (ms in the arguments):
+    ``root`` over 10 ms on both clocks, its steps on the host over
     ``steps_host`` and on the device over ``steps_device`` (after the
     call's start), its key switch from 8.5 to 9.8 ms on both; 5 syncs."""
     h0, h1 = steps_host
     d0, d1 = steps_device
-    return [Span("gates.apply", first_id, None, first_id, t0, t0 + 10 * MS,
+    return [Span(root, first_id, None, first_id, t0, t0 + 10 * MS,
                  10.0, 0.0, 5, {}),
             Span("blind_rotate.steps", first_id + 1, first_id, first_id,
                  t0 + int(h0 * MS), t0 + int(h1 * MS), d1 - d0, d0, None,
@@ -38,10 +39,10 @@ HOST = [("enqueue apply_gates", 0, 10 * MS), ("copy to host", 10 * MS, 12 * MS),
 SPANS = _call(1, 0) + _call(4, 12 * MS)
 
 
-def _trace(records):
+def _trace(records, call_span="gates.apply"):
     return trace.Trace(records=records, launched={}, host_spans=HOST, calls=2,
                        window_ns=24 * MS, cfg=Bench(ROOT).config("g3"),
-                       lanes=2048)
+                       lanes=2048, call_span=call_span)
 
 
 @pytest.fixture
@@ -192,3 +193,31 @@ def test_the_five_entries_read_the_program():
         assert got[m]["source"] == ("program_counter" if m.startswith("host")
                                     else "program_span")
         assert got[m]["moves"] == "bootstraps_per_s"
+
+
+GAPS = [(0.5, 1.5), (4.75, 5.25), (8.875, 9.125), (12.75, 13.25), (20.75, 21.25)]
+
+
+def test_the_readers_find_a_lut_call_by_its_span(recorded):
+    """The same calls under the ``lut`` kind's span read as the gate
+    calls do, and the gate calls' span is then no call."""
+    want = {m: reader(m)(_trace(_kernels(GAPS))) for m in READERS}
+    recorded(_call(1, 0, root="lut.call") + _call(4, 12 * MS, root="lut.call"))
+    got = {m: reader(m)(_trace(_kernels(GAPS), "lut.call")) for m in READERS}
+    assert got == pytest.approx(want)
+    assert all(v is not None for v in got.values())
+    assert all(reader(m)(_trace(_kernels(GAPS))) is None for m in READERS)
+
+
+def test_a_span_of_the_calls_name_inside_a_call_is_no_call(recorded):
+    """A program span named as the kind's call span, nested in the call's
+    own (as ``gates.apply`` inside a ``lut.call``), is read as a part of
+    that call: the calls and their syncs are counted once."""
+    calls = _call(1, 0, root="lut.call") + _call(4, 12 * MS, root="lut.call")
+    recorded(calls)
+    want = {m: reader(m)(_trace(_kernels(GAPS), "lut.call")) for m in READERS}
+    inner = [Span("lut.call", 100 + i, c, c, t0, t0 + 10 * MS, 10.0, 0.0,
+                  None, {}) for i, (c, t0) in enumerate(((1, 0), (4, 12 * MS)))]
+    recorded(calls + inner)
+    got = {m: reader(m)(_trace(_kernels(GAPS), "lut.call")) for m in READERS}
+    assert got == pytest.approx(want)

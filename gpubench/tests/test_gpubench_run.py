@@ -155,5 +155,5 @@ def test_a_short_run_on_the_card(cuda_device):
     assert out.returncode == 0, out.stderr[-4000:]
     line = json.loads(out.stdout.strip().splitlines()[-1])
     assert line["correct"] and line["device"]["platform"] == "gpu"
-    assert set(line["metrics"]) == {"idle_share.batch", "k2_roofline",
-                                    "k1_roofline", "glue_us_per_step"}
+    want = manifest.Bench(ROOT).per_layer("g3.gates_b2048")
+    assert set(line["metrics"]) == {x["name"] for x in want}

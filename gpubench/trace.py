@@ -26,6 +26,9 @@ class Trace:
     window_ns: int       # host clock, first call's start to last call's end
     cfg: dict            # the configuration's file
     lanes: int           # lanes a call
+    # the outermost span of one call, the traffic kind's CALL_SPAN (the
+    # gates kind's where a caller names none, as the port's own tests do)
+    call_span: str = "gates.apply"
 
     def kept(self) -> dict:
         return {k: sum(1 for nm, _, _ in self.records if sym in nm)

@@ -2,14 +2,28 @@
 (``gpubench/traffic/<mix>.json``) and draws the plaintexts a cell's
 clients send, from the run's seed.
 
-Kind ``gates`` (closed loop, one client): each call is one heterogeneous
-gate batch of ``lanes`` lanes, each lane a gate drawn uniformly from
-``gates`` (``"all"``: the ten binary gates) on two random input bits.  The
-client encrypts a pool of ``pool`` distinct batches before the window;
-call i of the window sends batch i mod ``pool``.  Every seed gives the same
-sizes and the same number of bootstraps a call: only the bits and gates
-differ.  ``warm_calls`` calls run before the window, on the same shapes;
-a traced run profiles the window's first ``trace_calls`` calls.
+A mix names its ``kind``, and a kind is a file: ``gpubench/kinds/<kind>.py``
+(found by name, as the metric readers are) draws the mix, adapts the
+program to it and judges its outputs.  Every kind is closed loop, one
+client: the client encrypts a pool of ``pool`` distinct batches of
+``lanes`` lanes before the window, and call i of the window sends batch
+i mod ``pool``; ``warm_calls`` calls run before the window, on the same
+shapes, and a traced run profiles the window's first ``trace_calls``
+calls.  Every seed gives the same sizes and the same number of bootstraps
+a call: only the plaintexts differ.  The kinds:
+
+* ``gates`` (``lanes``, ``gates``: ``"all"`` or a list of the ten binary
+  gates): each lane a gate drawn uniformly from ``gates`` on two random
+  input bits, one heterogeneous ``apply_gates`` a call, judged by
+  ``reference/gates.py`` (the sign of each phase, its distance from
+  +-1/8);
+* ``lut`` (``lanes``, ``message_modulus`` m, a power of two, and
+  ``functions``: ``"all"`` or a list of names of
+  ``reference/lut.py:FUNCTIONS``): each lane an input drawn uniformly from
+  [0, m) and a function drawn uniformly from ``functions``, one
+  programmable bootstrap a lane with the lane's own test vector, judged by
+  ``reference/lut.py`` (each phase decoded as round(phase 2m / 2^w) mod m
+  against f(x), its distance from f(x) / (2m)).
 """
 
 from __future__ import annotations
@@ -18,9 +32,6 @@ import dataclasses
 
 import numpy as np
 
-from gpubench.reference.gates import GATE_NAMES
-
-KINDS = ("gates",)
 # the draws each seed makes, apart from each other
 STREAM_SECRET_KEY, STREAM_PLAINTEXTS = 0, 1
 
@@ -31,36 +42,29 @@ def rng(seed: int, stream: int) -> np.random.Generator:
 
 
 @dataclasses.dataclass(frozen=True)
-class GateMix:
+class Mix:
+    """What every kind's draw has; a kind's own draw adds its plaintexts."""
     lanes: int
     pool: int
     warm_calls: int
     trace_calls: int
-    gate_ids: np.ndarray   # int64 [pool, lanes], indices into GATE_NAMES
-    x: np.ndarray          # bool [pool, lanes]
-    y: np.ndarray          # bool [pool, lanes]
 
     def batch(self, call: int) -> int:
         """The pool batch that call ``call`` of the window sends."""
         return call % self.pool
 
 
-def draw(mix: dict, seed: int):
-    """The plaintexts of ``mix`` for ``seed``."""
-    kind = mix.get("kind")
-    if kind not in KINDS:
-        raise ValueError(f"traffic kind {kind!r}: the generator draws {KINDS}")
-    gates = GATE_NAMES if mix["gates"] == "all" else tuple(mix["gates"])
-    unknown = set(gates) - set(GATE_NAMES)
-    if unknown:
-        raise ValueError(f"unknown gates {sorted(unknown)}")
+def sizes(mix: dict) -> dict:
+    """A mix's ``lanes``, ``pool``, ``warm_calls`` and ``trace_calls``."""
     lanes, pool = int(mix["lanes"]), int(mix["pool"])
     if lanes < 1 or pool < 1:
         raise ValueError("lanes and pool must be at least 1")
-    r = rng(seed, STREAM_PLAINTEXTS)
-    ids = np.array([GATE_NAMES.index(g) for g in gates])
-    return GateMix(lanes=lanes, pool=pool, warm_calls=int(mix["warm_calls"]),
-                   trace_calls=int(mix["trace_calls"]),
-                   gate_ids=ids[r.integers(0, len(ids), (pool, lanes))],
-                   x=r.integers(0, 2, (pool, lanes)).astype(bool),
-                   y=r.integers(0, 2, (pool, lanes)).astype(bool))
+    return {"lanes": lanes, "pool": pool, "warm_calls": int(mix["warm_calls"]),
+            "trace_calls": int(mix["trace_calls"])}
+
+
+def draw(mix: dict, seed: int):
+    """The plaintexts of ``mix`` for ``seed``, drawn by its kind."""
+    from gpubench import manifest
+
+    return manifest.kind(mix.get("kind")).draw(mix, seed)
