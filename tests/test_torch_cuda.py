@@ -697,7 +697,8 @@ def test_tfhers_2_2_gates_on_card(dev):
     them writing the next step's half-rows, and no K2 or K3 (the hi-plane
     scan with the offsets' low words carried in), the first 4 lanes equal
     to the CPU path; the scan alone (span ``blind_rotate.steps``) makes no
-    synchronising CUDA operation and reads ``fused_steps`` 370."""
+    synchronising CUDA operation and reads ``fused_steps`` 370 and
+    ``plain_digit_steps`` 1."""
     from zig_tfhe_tpu_torch.utils import profiling
 
     P = params.SECURITY_TFHERS_2_2
@@ -726,8 +727,8 @@ def test_tfhers_2_2_gates_on_card(dev):
         steps = [sp for sp in profiling.spans()
                  if sp.name == "blind_rotate.steps"]
         profiling.clear()
-    assert len(steps) == 1 and steps[0].attrs == {"steps": 371,
-                                                  "fused_steps": 370}
+    assert len(steps) == 1 and steps[0].attrs == {
+        "steps": 371, "fused_steps": 370, "plain_digit_steps": 1}
     assert steps[0].syncs == 0
     assert out.dtype == torch.int64
     assert np.array_equal(tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy(), want)

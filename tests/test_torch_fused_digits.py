@@ -184,7 +184,8 @@ def test_fused_loop_equals_step_by_step(case):
     assert ntt.engine_digit_limbs(bgbit) == 1 and G >= 3
     got, attrs = _recorded_steps(lambda: BRN.blind_rotate_ntt(
         tlwe, tv, bsk, P, drop, group=group, levels=levels, bgbit=bgbit))
-    assert attrs == {"steps": G, "fused_steps": G - 1}
+    assert attrs == {"steps": G, "fused_steps": G - 1,
+                     "plain_digit_steps": 1}
     want = _step_by_step(tlwe, tv, bsk, P, drop, group, levels, bgbit)
     assert torch.equal(got, want)
 
@@ -203,7 +204,8 @@ def test_multi_limb_uint_key_bypasses_the_fusion():
     got, attrs = _recorded_steps(lambda: BRN.blind_rotate_ntt(
         tlwe, ck.testvec, ck.bsk_ntt, P, drop, group=group, levels=levels,
         bgbit=bgbit))
-    assert attrs == {"steps": ck.bsk_ntt.shape[0], "fused_steps": 0}
+    G = ck.bsk_ntt.shape[0]
+    assert attrs == {"steps": G, "fused_steps": 0, "plain_digit_steps": G}
     want = _step_by_step(tlwe, ck.testvec, ck.bsk_ntt, P, drop, group, levels,
                          bgbit)
     assert torch.equal(got, want)
@@ -353,7 +355,8 @@ def test_split_scan_takes_the_fusion(case, n0, monkeypatch):
     calls = _k1_digit_calls(monkeypatch)
     got, attrs = _recorded_steps(lambda: SR.blind_rotate_split(
         tlwe, tv, ck.bsk_ntt, P, 32, group=2, levels=levels, bgbit=8))
-    assert attrs == {"steps": G, "fused_steps": G - 1}
+    assert attrs == {"steps": G, "fused_steps": G - 1,
+                     "plain_digit_steps": 1}
     assert calls == [True] * (G - 1) + [False]
     want = _split_step_by_step(tlwe, tv, ck.bsk_ntt, P, levels)
     assert torch.equal(got, want)
@@ -368,7 +371,8 @@ def test_split_ring_bypasses_the_fusion(monkeypatch):
     kw = dict(group=1, levels=ck.bsk_levels, bgbit=ck.bsk_bgbit)
     got, attrs = _recorded_steps(lambda: SR.blind_rotate_split(
         tlwe, tv, ck.bsk_ntt, P, ck.bsk_ntt_drop, **kw))
-    assert attrs == {"steps": P.n0, "fused_steps": 0}
+    assert attrs == {"steps": P.n0, "fused_steps": 0,
+                     "plain_digit_steps": P.n0}
     assert calls == [False] * P.n0
     form = BRN.key_form      # the generic scan: the key's form without hi planes
     monkeypatch.setattr(BRN, "key_form", lambda *a: dataclasses.replace(

@@ -1,5 +1,5 @@
 """The port's own spans (``utils/profiling.py``): off outside a profiler,
-the gate path's spans and their ids under one, outputs unchanged, the host
+the gate and LUT paths' spans and their ids under one, outputs unchanged, the host
 clock they share with the profiler's records, and on a card the device
 clock that places them and the synchronising operations they count.
 
@@ -17,7 +17,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from zig_tfhe_tpu_torch import key, params, tlwe
-from zig_tfhe_tpu_torch.models import gates
+from zig_tfhe_tpu_torch.models import gates, lut
 from zig_tfhe_tpu_torch.ops import ntt
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K1
 from zig_tfhe_tpu_torch.utils import profiling
@@ -59,17 +59,22 @@ def tiny(one_thread):
 
 def _check_call(found, ck):
     by = {s.name: s for s in found}
-    assert sorted(by) == ["blind_rotate.steps", "bootstrap.key_switch",
-                          "gates.apply"] and len(found) == 3
+    assert sorted(by) == ["blind_rotate.steps", "blind_rotate.testvec",
+                          "bootstrap.key_switch", "gates.apply"]
+    assert len(found) == 4
     root = by["gates.apply"]
     assert root.parent is None and root.call == root.id
-    for name in ("blind_rotate.steps", "bootstrap.key_switch"):
+    for name in ("blind_rotate.testvec", "blind_rotate.steps",
+                 "bootstrap.key_switch"):
         s = by[name]
         assert s.parent == root.id and s.call == root.id
         assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
-    # a one-limb key: every step's K1 but the last writes the next digits
+    # a one-limb key: every step's K1 but the last writes the next digits,
+    # so only step 0's digits are made outside K1
     G = ck.bsk_ntt.shape[0]
-    assert by["blind_rotate.steps"].attrs == {"steps": G, "fused_steps": G - 1}
+    assert by["blind_rotate.steps"].attrs == {"steps": G, "fused_steps": G - 1,
+                                              "plain_digit_steps": 1}
+    assert by["blind_rotate.testvec"].end_ns <= by["blind_rotate.steps"].start_ns
     assert by["blind_rotate.steps"].end_ns <= by["bootstrap.key_switch"].start_ns
     return by
 
@@ -121,7 +126,7 @@ def test_a_gate_call_records_its_spans(tiny, how):
                and s.syncs is None for s in by.values())
     # a call after the stretch records nothing
     gates.apply_gates(ids, a, b, ck)
-    assert len(profiling.spans()) == 3
+    assert len(profiling.spans()) == 4
 
 
 def test_outputs_are_bit_equal_with_recording_on_and_off(tiny):
@@ -132,6 +137,62 @@ def test_outputs_are_bit_equal_with_recording_on_and_off(tiny):
         on = gates.apply_gates(ids, a, b, ck)
     assert torch.equal(on, off)
     assert profiling.spans()
+
+
+@pytest.fixture(scope="module")
+def tiny_uint(one_thread):
+    """TEST_TINY_UINT (Bg 2^11: 2-limb digits, the UNFUSED path), 16 lanes
+    of Z_16, each with its own test vector (x + c mod 16 on lane c)."""
+    P_U, m = params.TEST_TINY_UINT, 16
+    g = torch.Generator().manual_seed(12)
+    sk = key.SecretKey.generate(g, P_U)
+    ck = key.CloudKey.generate(g, sk, P_U, packing_key=False)
+    ct = lut.encrypt_message(g, torch.arange(LANES) % m, m,
+                             P_U.tlwe_lv0.alpha, sk.key_lv0)
+    gen = lut.Generator.new(m, P_U)
+    tv = torch.stack([torch.from_numpy(gen.generate_lookup_table(
+        lambda x, c=c: (x + c) % m).poly) for c in range(LANES)])
+    return ct, tv, ck
+
+
+def test_a_lut_call_records_its_spans(tiny_uint):
+    """``lut.apply`` once a ``bootstrap_lut``: the call's root alone, and
+    inside an outer span (as the benchmark's ``lut.call``) a child of it,
+    which the call's id is then the outer span's; the test vectors'
+    rotation before the steps; every step's 2-limb digits made outside
+    K1."""
+    ct, tv, ck = tiny_uint
+    with profiling.recording(False):
+        off = lut.bootstrap_lut(ct, tv, ck)
+    for outer in (False, True):
+        profiling.clear()
+        with profiling.recording():
+            if outer:
+                with profiling.span("outer") as root:
+                    on = lut.bootstrap_lut(ct, tv, ck)
+            else:
+                on = lut.bootstrap_lut(ct, tv, ck)
+        assert torch.equal(on, off)
+        found = profiling.spans()
+        names = sorted(s.name for s in found)
+        assert names == sorted(["blind_rotate.steps", "blind_rotate.testvec",
+                                "bootstrap.key_switch", "lut.apply"]
+                               + ["outer"] * outer)
+        by = {s.name: s for s in found}
+        apply = by["lut.apply"]
+        if not outer:
+            root = apply
+        assert root.parent is None and apply.call == root.id
+        assert apply.parent == (root.id if outer else None)
+        for name in ("blind_rotate.testvec", "blind_rotate.steps",
+                     "bootstrap.key_switch"):
+            s = by[name]
+            assert s.parent == apply.id and s.call == root.id
+            assert apply.start_ns <= s.start_ns <= s.end_ns <= apply.end_ns
+        assert by["blind_rotate.testvec"].end_ns <= by["blind_rotate.steps"].start_ns
+        G = ck.bsk_ntt.shape[0]
+        assert by["blind_rotate.steps"].attrs == {"steps": G, "fused_steps": 0,
+                                                  "plain_digit_steps": G}
 
 
 def test_two_calls_have_their_own_call_ids():

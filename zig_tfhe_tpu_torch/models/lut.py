@@ -41,6 +41,7 @@ from zig_tfhe_tpu_torch.ops.keyswitch import identity_key_switch
 from zig_tfhe_tpu_torch.ops.packing_keyswitch import pack_tlwes_blocks
 from zig_tfhe_tpu_torch.ops.poly import negacyclic_rotate
 from zig_tfhe_tpu_torch.params import SecurityParams
+from zig_tfhe_tpu_torch.utils import profiling
 from zig_tfhe_tpu_torch.utils.torus import (carrier_dtype, require_width,
                                             torus_constant_w)
 
@@ -233,11 +234,14 @@ def bootstrap_lut(ct_batch: torch.Tensor, lut, ck: CloudKey) -> torch.Tensor:
     a LookupTable (shared), a [2, N] table, or [B, 2, N] per-lane test
     vectors.  Returns refreshed carrier [B, n0+1] encrypting f(message):
     blindRotateWithTestvec (trgsw.zig:336-400) -> sampleExtractIndex
-    (trlwe.zig:146) -> identityKeySwitching (trgsw.zig:471)."""
-    tv = (lut.as_torch(ct_batch.device) if isinstance(lut, LookupTable)
-          else torch.as_tensor(lut, dtype=carrier_dtype(ck.params.torus_bits),
-                               device=ct_batch.device))
-    return _bootstrap.bootstrap_with_testvec(ct_batch, tv, ck)
+    (trlwe.zig:146) -> identityKeySwitching (trgsw.zig:471).  Recorded
+    as span ``lut.apply``."""
+    with profiling.span("lut.apply", device=ct_batch.device):
+        tv = (lut.as_torch(ct_batch.device) if isinstance(lut, LookupTable)
+              else torch.as_tensor(lut,
+                                   dtype=carrier_dtype(ck.params.torus_bits),
+                                   device=ct_batch.device))
+        return _bootstrap.bootstrap_with_testvec(ct_batch, tv, ck)
 
 
 # ---------------------------------------------------------------------------

@@ -100,7 +100,7 @@ def blind_rotate_toeplitz(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
     acc = negacyclic_rotate(testvec, b_tilda)
     ts = rotations(tlwe_batch, params, 1, n0)                   # [n0, B]
     with profiling.span("blind_rotate.steps", device=acc.device, steps=n0,
-                        fused_steps=0):
+                        fused_steps=0, plain_digit_steps=n0):
         for i in range(n0):
             rotated = negacyclic_rotate(acc, ts[i])
             acc = cmux(bsk_ext_limbs[i], acc, rotated, params)

@@ -28,7 +28,10 @@ as int8) into the one buffer the core of step s read, for step s + 1;
 the last step writes none.  Stream order makes one buffer enough, and a
 step is two launches.  Multi-limb digits are remade every step.  The span
 ``blind_rotate.steps`` carries ``fused_steps``: G - 1 on the fused path,
-0 on the others.  Group 1, groups above 3, group 3 with multi-limb
+0 on the others; and ``plain_digit_steps``, the steps whose digits were
+made outside K1 (by ``digit_planes`` or inside the plain step): 1 on the
+fused path, every step on the others.  The test vector's rotation is span
+``blind_rotate.testvec``.  Group 1, groups above 3, group 3 with multi-limb
 digits, split keys K2s does not take and the 64-bit direct engine
 (TEST_TINY64) run the plain ops of the JAX package's XLA step, then K1 on
 an int32 accumulator or ops/ntt.py:finish_int64 on an int64 one.  Each
@@ -156,9 +159,11 @@ def scan(acc: torch.Tensor, bsk: torch.Tensor, ts: torch.Tensor,
     The span ``blind_rotate.steps`` closes on the last K1."""
     steps = ts.shape[0]
     fused = form.path is Path.FUSED
+    fused_steps = steps - 1 if fused else 0
     plan, drop, gadget = form.plan, form.drop, form.gadget
     with profiling.span("blind_rotate.steps", device=acc.device, steps=steps,
-                        fused_steps=steps - 1 if fused else 0):
+                        fused_steps=fused_steps,
+                        plain_digit_steps=steps - fused_steps):
         if form.path in (Path.GROUP1, Path.MULTI):
             finish = (_ntt.finish_int64 if acc.dtype == torch.int64
                       else ntt_inverse_to_crt_acc)
@@ -221,8 +226,9 @@ def blind_rotate_ntt(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
     b_tilda = 2 * N - modswitch(tlwe_batch[:, params.n0], params)
     if testvec.dim() == 2:
         testvec = testvec[None]          # [1, 2, N] broadcasts against [B]
-    acc = rotate_via_ntt(testvec, b_tilda, form.plan, params.torus_bits)
-    if acc.shape[0] != B:
-        acc = acc.expand(B, 2, N).contiguous()
+    with profiling.span("blind_rotate.testvec", device=tlwe_batch.device):
+        acc = rotate_via_ntt(testvec, b_tilda, form.plan, params.torus_bits)
+        if acc.shape[0] != B:
+            acc = acc.expand(B, 2, N).contiguous()
     ts = rotations(tlwe_batch, params, group, bsk_ntt.shape[0])
     return scan(acc, bsk_ntt, ts, form, _k2.ntt_step_fused, _plain_step)

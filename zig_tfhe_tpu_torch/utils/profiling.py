@@ -9,8 +9,8 @@ beyond wall-clock prints in its examples):
 - ``time_op(fn, *args)``: the median seconds per call of ``fn(*args)``
   after warm-up calls, timed with CUDA events when the result lives on
   the card and with the host clock on the CPU;
-- ``span(name)``: the program's own records at the gate path's layer
-  boundaries, read back with ``spans()``.
+- ``span(name)``: the program's own records at the gate and LUT paths'
+  layer boundaries, read back with ``spans()``.
 
 Spans are recorded while any ``torch.profiler`` session runs
 (``torch.autograd.profiler._is_profiler_enabled``, set by ``start()`` and
@@ -36,7 +36,7 @@ opened, the call's start event fell at its ``start_ns``, and every span of
 the call can be placed on the kernel records' clock from there: the host
 may run far ahead of the device, so a host span says what was enqueued
 when, and only the event pair says when the device reached it.  What the
-gate path records:
+gate and LUT paths record:
 
 - span ``gates.apply`` (``models/gates.py:apply_gates``, its whole body):
   one call; its id is the call id of every record made inside it.  On a
@@ -45,11 +45,18 @@ gate path records:
   to the card that waits for the stream to drain, a read of a device
   value): torch's sync debug mode is set to warn inside it and its
   warnings are counted, not shown;
+- span ``lut.apply`` (``models/lut.py:bootstrap_lut``, its whole body):
+  a programmable bootstrap, as ``gates.apply`` is a gate call;
+- span ``blind_rotate.testvec`` (``ops/blind_rotate_ntt.py:
+  blind_rotate_ntt``): the test vector's rotation by -b through the NTT,
+  one vector or one a lane, and its expansion over the batch;
 - span ``blind_rotate.steps`` (the step loop: ``ops/blind_rotate_ntt.py:
   scan`` on both NTT rings, the Toeplitz scan of ``ops/blind_rotate.py``;
-  attributes ``steps`` and ``fused_steps``, the steps whose K1 also wrote
+  attributes ``steps``; ``fused_steps``, the steps whose K1 also wrote
   the next step's digits: G - 1 on the fused path, the direct ring's
-  one-limb K2 and the split ring's K2s, 0 on every other): the scan;
+  one-limb K2 and the split ring's K2s, 0 on every other; and
+  ``plain_digit_steps``, the steps whose digits were made outside K1,
+  ``steps - fused_steps``): the scan;
 - span ``bootstrap.key_switch`` (``ops/keyswitch.py:identity_key_switch``).
 
 No range that the profiler itself records (``record_function``, NVTX) is
