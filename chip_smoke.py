@@ -51,11 +51,11 @@ K2's function at the split shape) then K1.  Phases:
      digits, R = 2 rows of 3 limbs; K1 at 5 primes and drop 0); K3 on the
      digits of an accumulator difference and a step of the real key
      (bit-equal), also at B = 65 and 64 (one batch tile and a ragged
-     second one); on the one-limb paths (g3, g2) K1's instance that also
-     writes the next step's gadget digits, its digits bit-equal to the
-     plain version's (``decompose_rows`` of its output, as int8) and
-     its accumulator to the instance without them, at each B, and the two
-     instances timed in turns at B = 2048;
+     second one); on every path K1's instance that also writes the next
+     step's gadget digit planes (one limb a digit on g3 and g2, three on
+     uint4), its planes bit-equal to the plain version's (``gadget.planes``
+     of its output) and its accumulator to the instance without them, at
+     each B, and the two instances timed in turns at B = 2048;
   5. per path, B = 2048 heterogeneous gates with every launch count set to
      0 just before and read just after: accuracy must be 1.0, each kernel
      of the path must have been launched once per step and the others not
@@ -99,7 +99,8 @@ K2's function at the split shape) then K1.  Phases:
      gate_pair outputs, and the product's ciphertext round-trips
      bit-equal;
   9. the LUT path (models/lut.py) on the uint keys, every blind-rotation
-     step K2 (3-limb digit planes) then K1, with the launch counts set to
+     step K2 (3-limb digit planes) then K1 (writing the next step's
+     planes on every step but the last), with the launch counts set to
      0 just before each run and read just after (410 steps a rotation on
      uint4, 580 on uint8; K3 never): bootstrap_lut at B = 2048 on uint4,
      m = 16, f(x) = (7x + 3) mod 16 on lanes cycling all 16 messages;
@@ -107,7 +108,9 @@ K2's function at the split shape) then K1.  Phases:
      bootstrap_lut_radix on uint8 at m = 256, f(x) = (5x + 1) mod 256, B =
      512 (a multi-value rotation of 512 lanes, then a per-family select of
      2 x 512); bootstrap_lut_bivariate, xy + 1 mod 16, on uint4 at B = 256.
-     Every lane of the uint4 runs must decrypt to what the test vector
+     uint4's bootstrap_lut must have had K1 write the planes on 409 of
+     its 410 steps (``digit_launches``).  Every lane of the uint4 runs must
+     decrypt to what the test vector
      holds at its modswitched input phase (computed here with the secret
      key from the rounded mask and body, as the rotation rounds them: an
      exact check that input noise cannot break); the accuracy against the
@@ -117,7 +120,7 @@ K2's function at the split shape) then K1.  Phases:
      their bins.  The first 16 uint4 lanes and the first 8 radix lanes are
      bit-equal to the port's CPU path.  Timed with CUDA events: LUT/s at
      B = 2048, B = 1 latency, the multi-value, radix and bivariate runs,
-     one uint4 step split into decompose / limb planes / K2 / K1; traced at
+     one uint4 step split into K2 / K1 writing the next limb planes; traced at
      B = 2048 and B = 1 (idle share);
  10. the integer layer (models/integer.py) on phase 3's uint4 key, every
      blind rotation 410 steps of K2 then K1, the launch counts set to 0
@@ -1019,7 +1022,8 @@ def _lut_phase(g, uint_keys, counters, gpu) -> dict:
 
     from zig_tfhe_tpu_torch.models import lut
     from zig_tfhe_tpu_torch.ops import ntt
-    from zig_tfhe_tpu_torch.ops.decomposition import decompose_rows
+    from zig_tfhe_tpu_torch.ops.decomposition import (decompose_rows,
+                                                      digit_planes, row_gadget)
     from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
     from zig_tfhe_tpu_torch.ops.cuda import ntt_step as k2
 
@@ -1042,9 +1046,14 @@ def _lut_phase(g, uint_keys, counters, gpu) -> dict:
     table = gen.generate_lookup_table(_lut_f)
     msgs = torch.arange(LUT_LANES, device=dev) % m
     ct = lut.encrypt_message(g, msgs, m, P4.tlwe_lv0.alpha, s4)
+    digit_launches = k1.ntt_inverse_to_crt_acc.digit_launches
     out, launches["uint4"], first = _counted_run(
         counters, "uint4 bootstrap_lut", lambda: lut.bootstrap_lut(ct, table, ck4),
         expect(1, steps4))
+    digit_launches = k1.ntt_inverse_to_crt_acc.digit_launches - digit_launches
+    _check(digit_launches == steps4 - 1, f"uint4 bootstrap_lut: "
+           f"{digit_launches} K1 launches wrote the next limb planes, "
+           f"expected {steps4 - 1}")
     _check(out.dtype == torch.int32 and tuple(out.shape) == (LUT_LANES, P4.n0 + 1),
            f"bootstrap_lut output {out.dtype} {tuple(out.shape)}")
     k = _ms_phase(ct, s4, P4)
@@ -1063,7 +1072,8 @@ def _lut_phase(g, uint_keys, counters, gpu) -> dict:
     print(f"uint4 bootstrap_lut B={LUT_LANES} m={m} f(x) = (7x + 3) mod 16: "
           f"every lane decrypts to f of its modswitched phase's bin; accuracy "
           f"against the messages {accuracy} ({off_bin} inputs modswitched out "
-          f"of their bin); launches {launches['uint4']}; first call "
+          f"of their bin); launches {launches['uint4']}, {digit_launches} "
+          f"K1 launches writing the next limb planes; first call "
           f"{first:.2f} s; first {CPU_LUT_LANES} lanes bit-equal to the CPU "
           f"path ({time.perf_counter() - t0:.1f} s on the host)")
 
@@ -1168,15 +1178,15 @@ def _lut_phase(g, uint_keys, counters, gpu) -> dict:
     acc = torch.randint(-2**31, 2**31, (LUT_LANES, 2, N), generator=g,
                         device=dev, dtype=torch.int64).to(torch.int32)
     rows = decompose_rows(acc, P4, levels, bgbit=e)
-    planes = k2.digit_planes(rows, n_dl)
+    planes = digit_planes(rows, n_dl)
     ts = torch.randint(0, 2 * N, (2, LUT_LANES), generator=g, device=dev,
                        dtype=torch.int64).to(torch.int32)
     v = k2.ntt_step_fused(planes, ck4.bsk_ntt[0], ts, plan, e)
-    stage = {"decompose": lambda: decompose_rows(acc, P4, levels, bgbit=e),
-             "limbs": lambda: k2.digit_planes(rows, n_dl),
-             "K2": lambda: k2.ntt_step_fused(planes, ck4.bsk_ntt[0], ts, plan, e),
-             "K1": lambda: k1.ntt_inverse_to_crt_acc(v, acc, plan,
-                                                    ck4.bsk_ntt_drop)}
+    gadget = row_gadget(P4, levels, e)
+    nxt = torch.empty_like(planes)
+    stage = {"K2": lambda: k2.ntt_step_fused(planes, ck4.bsk_ntt[0], ts, plan, e),
+             "K1 with the next limb planes": lambda: k1.ntt_inverse_to_crt_acc(
+                 v, acc, plan, ck4.bsk_ntt_drop, digits=nxt, gadget=gadget)}
     split = {name: _cuda_ms(fn, KERNEL_ITERS) for name, fn in stage.items()}
     print(f"uint4: one step at B={LUT_LANES}: " + ", ".join(
         f"{name} {t * 1e3:.1f} us" for name, t in split.items())
@@ -2328,7 +2338,8 @@ def main() -> int:
     from zig_tfhe_tpu_torch.ops import ntt
     from zig_tfhe_tpu_torch.ops.blind_rotate import _digit_limbs
     from zig_tfhe_tpu_torch.ops.decomposition import (decompose_rows,
-                                                      modswitch, row_gadget)
+                                                      digit_planes, modswitch,
+                                                      row_gadget)
     from zig_tfhe_tpu_torch.ops.cuda import _build
     from zig_tfhe_tpu_torch.ops.cuda import extprod as k3
     from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as k1
@@ -2448,8 +2459,7 @@ def main() -> int:
         acc = uniform((B_GATES, 2, PK.N))
         v = k1.split_limbs(torch.stack(
             ntt.ntt_forward(c, plan, digit_limbs=4, digit_bound=128)))
-        digits = k2.digit_planes(decompose_rows(acc, PK, levels, bgbit=e),
-                                 n_dl)
+        digits = digit_planes(decompose_rows(acc, PK, levels, bgbit=e), n_dl)
         ts = modswitch(uniform((group, B_GATES)), PK)
         bsk_step = ck.bsk_ntt[0]
         errs1, errs2 = [], []
@@ -2478,49 +2488,47 @@ def main() -> int:
               f"digit limb planes [B, {digits.shape[1]} = R {levels} x "
               f"{n_dl} limbs, 1024], key step {tuple(bsk_step.shape)}, for "
               f"B = {B_GATES}, {RAGGED_LANES}, 1")
-        digit_times = {}
-        if n_dl == 1:
-            gadget = row_gadget(PK, levels, e)
-            nxt = torch.empty_like(digits)
-            for lanes in (B_GATES, RAGGED_LANES, 1):
-                buf = nxt[:lanes]
-                out = k1.ntt_inverse_to_crt_acc(v[:, :lanes], acc[:lanes],
-                                                plan, drop, digits=buf,
-                                                gadget=gadget)
-                _check(torch.equal(out, k1.ntt_inverse_to_crt_acc(
-                    v[:, :lanes], acc[:lanes], plan, drop)),
-                    f"K1 with digits changes the accumulator on {name} at "
-                    f"B={lanes}")
-                want = decompose_rows(out, PK, levels, bgbit=e)
-                _check(torch.equal(buf, want.to(torch.int8)),
-                       f"K1's digits differ from the plain version's on "
-                       f"{name} at B={lanes}")
+        gadget = row_gadget(PK, levels, e)
+        nxt = torch.empty_like(digits)
+        for lanes in (B_GATES, RAGGED_LANES, 1):
+            buf = nxt[:lanes]
+            out = k1.ntt_inverse_to_crt_acc(v[:, :lanes], acc[:lanes],
+                                            plan, drop, digits=buf,
+                                            gadget=gadget)
+            _check(torch.equal(out, k1.ntt_inverse_to_crt_acc(
+                v[:, :lanes], acc[:lanes], plan, drop)),
+                f"K1 with digits changes the accumulator on {name} at "
+                f"B={lanes}")
+            _check(torch.equal(buf, gadget.planes(out)),
+                   f"K1's digit planes differ from the plain version's on "
+                   f"{name} at B={lanes}")
 
-            def k1_digits(buf=nxt, v=v, acc=acc, plan=plan, drop=drop,
-                          gadget=gadget):
-                k1.ntt_inverse_to_crt_acc(v, acc, plan, drop, digits=buf,
-                                          gadget=gadget)
+        def k1_digits(buf=nxt, v=v, acc=acc, plan=plan, drop=drop,
+                      gadget=gadget):
+            k1.ntt_inverse_to_crt_acc(v, acc, plan, drop, digits=buf,
+                                      gadget=gadget)
 
-            def k1_plain(v=v, acc=acc, plan=plan, drop=drop):
-                k1.ntt_inverse_to_crt_acc(v, acc, plan, drop)
+        def k1_plain(v=v, acc=acc, plan=plan, drop=drop):
+            k1.ntt_inverse_to_crt_acc(v, acc, plan, drop)
 
-            k1_digits()
-            k1_plain()
-            turns = {"without": [], "with": []}
-            for label in ("without", "with") * 4:
-                fn = k1_plain if label == "without" else k1_digits
-                turns[label].append(_cuda_ms(fn, KERNEL_ITERS))
-            ms_wo = statistics.median(turns["without"])
-            ms_w = statistics.median(turns["with"])
-            digit_times = dict(digits_ms=ms_w, digits_without_ms=ms_wo)
-            print(f"{name} B={B_GATES}: K1 with the next digits "
-                  f"{ms_w * 1e3:.2f} us/call, without {ms_wo * 1e3:.2f} us "
-                  f"(medians of 4 turns each, {KERNEL_ITERS} calls a turn; "
-                  f"with {', '.join(f'{t * 1e3:.2f}' for t in turns['with'])}"
-                  f"; without "
-                  f"{', '.join(f'{t * 1e3:.2f}' for t in turns['without'])}); "
-                  f"digits == plain and the accumulator unchanged at B = "
-                  f"{B_GATES}, {RAGGED_LANES}, 1 [{gpu}]")
+        k1_digits()
+        k1_plain()
+        turns = {"without": [], "with": []}
+        for label in ("without", "with") * 4:
+            fn = k1_plain if label == "without" else k1_digits
+            turns[label].append(_cuda_ms(fn, KERNEL_ITERS))
+        ms_wo = statistics.median(turns["without"])
+        ms_w = statistics.median(turns["with"])
+        digit_times = dict(digits_ms=ms_w, digits_without_ms=ms_wo)
+        print(f"{name} B={B_GATES}: K1 with the next digit planes ({n_dl} "
+              f"limb{'s' if n_dl > 1 else ''} a digit) "
+              f"{ms_w * 1e3:.2f} us/call, without {ms_wo * 1e3:.2f} us "
+              f"(medians of 4 turns each, {KERNEL_ITERS} calls a turn; "
+              f"with {', '.join(f'{t * 1e3:.2f}' for t in turns['with'])}"
+              f"; without "
+              f"{', '.join(f'{t * 1e3:.2f}' for t in turns['without'])}); "
+              f"planes == plain and the accumulator unchanged at B = "
+              f"{B_GATES}, {RAGGED_LANES}, 1 [{gpu}]")
 
         def run_k1(n=B_GATES, v=v, acc=acc, plan=plan, drop=drop):
             k1.ntt_inverse_to_crt_acc(v[:, :n], acc[:n], plan, drop)

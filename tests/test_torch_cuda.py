@@ -272,8 +272,9 @@ def _limb_step_inputs(dev, name, B, seed):
     rng = np.random.default_rng(seed)
     acc = torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, N))
                            .astype(np.int32)).to(dev)
-    digits = K2.digit_planes(decompose_rows(acc, P, levels, bgbit=bgbit),
-                             ntt.engine_digit_limbs(bgbit))
+    digits = decomposition.digit_planes(
+        decompose_rows(acc, P, levels, bgbit=bgbit),
+        ntt.engine_digit_limbs(bgbit))
     rows = torch.from_numpy(rng.integers(-2**31, 2**31, (3, R, 2, N))
                             .astype(np.int32)).to(dev)
     bsk = ntt.to_ntt_form(rows, plan, drop).movedim(0, 1).contiguous()
@@ -317,6 +318,82 @@ def test_kernel_five_primes_drop0_matches_plain_and_exact(dev, B):
     torch.cuda.synchronize()
     assert torch.equal(out, K.ntt_inverse_to_crt_acc_reference(v, acc, plan, 0))
     assert torch.equal(out, acc + c)
+
+
+# K1's instance that writes the uint keys' limb planes, at uint4's shapes
+# (Bg_e 2^22 (1, 1): 3 limbs, 6 planes a lane; 5 primes, drop 0)
+@pytest.mark.parametrize("B", [1, 200, 2048])
+def test_kernel_writes_limb_planes_of_its_output(dev, B):
+    P = params.PARAMS_BY_NAME["uint4"]
+    levels, bgbit = (1, 1), 22
+    plan = ntt.plan_for_params(P, 0, 2, levels, bgbit=bgbit,
+                               pseudorandom_key=True)
+    gadget = decomposition.row_gadget(P, levels, bgbit)
+    rng = np.random.default_rng(B + 22)
+    c, acc = (torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, plan.N))
+                               .astype(np.int32)).to(dev) for _ in range(2))
+    v = K.split_limbs(torch.stack(ntt.ntt_forward(c, plan, digit_limbs=4,
+                                                  digit_bound=128)))
+    digits = torch.from_numpy(rng.integers(-128, 128, (B, 6, plan.N))
+                              .astype(np.int8)).to(dev)   # all rewritten
+    before = (K.ntt_inverse_to_crt_acc.launches,
+              K.ntt_inverse_to_crt_acc.digit_launches)
+    out = K.ntt_inverse_to_crt_acc(v, acc, plan, 0, digits=digits,
+                                   gadget=gadget)
+    torch.cuda.synchronize()
+    assert (K.ntt_inverse_to_crt_acc.launches,
+            K.ntt_inverse_to_crt_acc.digit_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert torch.equal(out, K.ntt_inverse_to_crt_acc(v, acc, plan, 0))
+    assert torch.equal(out, acc + c)
+    want = torch.empty_like(digits).cpu()
+    K.ntt_inverse_to_crt_acc_reference(v.cpu(), acc.cpu(), plan, 0, want,
+                                       gadget)
+    assert torch.equal(digits.cpu(), want)
+    assert torch.equal(want, decomposition.digit_planes(
+        decomposition.decompose_rows(out, P, levels, bgbit=bgbit), 3).cpu())
+
+
+def _step_by_step_scan(acc, bsk, ts, form, core, plain_step):
+    """The direct ring's kernel loop as it ran on the uint keys before K1
+    wrote their limb planes: the planes made on every step, K1 without a
+    buffer (ops/blind_rotate_ntt.py:scan's kernel path)."""
+    for s in range(ts.shape[0]):
+        v = core(form.gadget.planes(acc), bsk[s], ts[s], form.plan, form.bits)
+        acc = K.ntt_inverse_to_crt_acc(v, acc, form.plan, form.drop)
+    return acc
+
+
+def test_uint4_bootstrap_lut_takes_the_limb_planes(dev, monkeypatch):
+    """A bootstrap_lut batch on a uint4 key made on the card: 410 steps of
+    K2 and K1, 409 of the K1 launches writing the next limb planes, the
+    output bit-equal to the loop that remakes the planes on every step,
+    and every lane decoding to f(x)."""
+    from zig_tfhe_tpu_torch.ops import blind_rotate_ntt
+
+    P = params.SECURITY_UINT4
+    g = torch.Generator(device=dev).manual_seed(25)
+    sk = key.SecretKey.generate(g, P)
+    ck = key.CloudKey.generate(g, sk, P, packing_key=False)
+    steps = ck.bsk_ntt.shape[0]
+    assert (steps, ck.bsk_bgbit, ck.bsk_levels) == (410, 22, (1, 1))
+    msgs = torch.arange(300, device=dev) % 16
+    ct = lut.encrypt_message(g, msgs, 16, P.tlwe_lv0.alpha, sk.key_lv0)
+    tab = lut.Generator.new(16, P).generate_lookup_table(
+        lambda x: (5 * x + 2) % 16)
+    before = (K2.ntt_step_fused.launches, K.ntt_inverse_to_crt_acc.launches,
+              K.ntt_inverse_to_crt_acc.digit_launches)
+    out = lut.bootstrap_lut(ct, tab, ck)
+    torch.cuda.synchronize()
+    assert (K2.ntt_step_fused.launches - before[0],
+            K.ntt_inverse_to_crt_acc.launches - before[1],
+            K.ntt_inverse_to_crt_acc.digit_launches - before[2]) == (
+                steps, steps, steps - 1)
+    monkeypatch.setattr(blind_rotate_ntt, "scan", _step_by_step_scan)
+    want = lut.bootstrap_lut(ct, tab, ck)
+    assert torch.equal(out, want)
+    assert torch.equal(lut.decrypt_message(out, 16, sk.key_lv0).long(),
+                       (5 * msgs + 2) % 16)
 
 
 @pytest.mark.parametrize("knobs, steps", [({}, 234),

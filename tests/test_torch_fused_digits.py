@@ -3,22 +3,24 @@ and the fused step loop of ops/blind_rotate_ntt.py that reads them, on
 both rings.
 
 K1's plain version with a ``digits`` buffer writes exactly
-``decompose_rows(out, ...).to(torch.int8)`` of the accumulator it
-returns, and returns the same accumulator as without one; the engine's
-one-limb loop (every boolean key: groups 2 and 3) decomposes only for
-step 0 and equals, bit for bit, the loop that decomposes on every step;
-the ``fused_steps`` attribute of span ``blind_rotate.steps`` reads G - 1
-there and 0 on the paths that bypass the fusion (a multi-limb uint key, a
-group-1 split key), whose outputs do not change.  On the split ring's
-views, with a ``HalfRowGadget`` (the hi-plane gadgets of tfhers_2_2, with
-low offset words, of SECURITY_128_BIT_T64 and of TEST_TINY_SPLIT), K1's
-plain version and its wrapper on CPU tensors write exactly
-``rows_hi32(out, ...).to(torch.int8)``, and the split ring's
-group-2 scan (K2s then K1) decomposes only for step 0, with G - 1 K1
-calls that carry the buffer, equal bit for bit to the loop that calls
-``rows_hi32`` on every step.  The kernel's own source is held to the
-plain version in tests/test_torch_kernel_emulation.py and on the card in
-tests/test_torch_cuda.py.  The file imports no jax.
+``digit_planes(decompose_rows(out, ...), n_dl)`` of the accumulator it
+returns (the int8 digits of a one-limb gadget, the 2-3 limb planes a row
+of the uint gadgets: TEST_TINY_UINT's Bg_e 2^11, uint4's 2^22), and
+returns the same accumulator as without one; the engine's loop on K2
+(every boolean key at groups 2 and 3, every uint key at group 2)
+decomposes only for step 0 and equals, bit for bit, the loop that
+decomposes on every step; the ``fused_steps`` attribute of span
+``blind_rotate.steps`` reads G - 1 there and 0 on the paths that bypass
+the fusion (a group-1 split key), whose outputs do not change. On the
+split ring's views, with a ``HalfRowGadget`` (the hi-plane gadgets of
+tfhers_2_2, with low offset words, of SECURITY_128_BIT_T64 and of
+TEST_TINY_SPLIT), K1's plain version and its wrapper on CPU tensors write
+exactly ``rows_hi32(out, ...).to(torch.int8)``, and the split ring's
+group-2 scan (K2s then K1) decomposes only for step 0, with G - 1 K1 calls
+that carry the buffer, equal bit for bit to the loop that calls
+``rows_hi32`` on every step. The kernel's own source is held to the plain
+version in tests/test_torch_kernel_emulation.py and on the card in
+tests/test_torch_cuda.py. The file imports no jax.
 """
 
 import dataclasses
@@ -32,7 +34,7 @@ from zig_tfhe_tpu_torch.ops import ntt
 from zig_tfhe_tpu_torch.ops import blind_rotate_ntt as BRN
 from zig_tfhe_tpu_torch.ops import split_ring as SR
 from zig_tfhe_tpu_torch.ops.decomposition import (HalfRowGadget,
-                                                  decompose_rows,
+                                                  decompose_rows, digit_planes,
                                                   half_row_gadget, modswitch,
                                                   row_gadget, rows_hi32)
 from zig_tfhe_tpu_torch.ops.cuda import ntt_inverse as K1
@@ -58,11 +60,14 @@ def _cut(P, n0):
 # (params, drop, group, levels, engine bgbit): TEST_TINY (L = 2, Bg 2^6)
 # at its own base, both components' offsets centred, and at Bg_e 2^7 (3,
 # 2); the 128-bit g3 gadget Bg_e 2^7 (2, 2) and the g2 one, 2^6 (3, 2),
-# whose a-offset is centred and b-offset not
+# whose a-offset is centred and b-offset not; the uint gadgets of 2 and 3
+# limbs, TEST_TINY_UINT's 2^11 (2, 2) and uint4's 2^22 (1, 1) (5 primes)
 _CASES = {"tiny_22": (params.TEST_TINY, 0, 3, (2, 2), 6),
           "tiny_32_bg7": (params.TEST_TINY, 0, 3, (3, 2), 7),
           "128bit_g3": (params.SECURITY_128_BIT, 5, 3, (2, 2), 7),
-          "128bit_g2_32": (params.SECURITY_128_BIT, 7, 2, (3, 2), 6)}
+          "128bit_g2_32": (params.SECURITY_128_BIT, 7, 2, (3, 2), 6),
+          "tiny_uint": (params.TEST_TINY_UINT, 0, 2, (2, 2), 11),
+          "uint4": (params.SECURITY_UINT4, 0, 2, (1, 1), 22)}
 
 
 @pytest.mark.parametrize("case", sorted(_CASES))
@@ -77,7 +82,9 @@ def test_reference_writes_the_rows_of_its_output(case):
                                .astype(np.int32)) for _ in range(2))
     v = K1.split_limbs(torch.stack(ntt.ntt_forward(c, plan, digit_limbs=4,
                                                    digit_bound=128)))
-    digits = torch.from_numpy(rng.integers(-128, 128, (B, sum(levels), N))
+    n_dl = ntt.engine_digit_limbs(bgbit)
+    digits = torch.from_numpy(rng.integers(-128, 128,
+                                           (B, sum(levels) * n_dl, N))
                               .astype(np.int8))
     before = (K1.ntt_inverse_to_crt_acc.launches,
               K1.ntt_inverse_to_crt_acc.digit_launches)
@@ -90,7 +97,11 @@ def test_reference_writes_the_rows_of_its_output(case):
     assert torch.equal(out, acc + (c << drop))
     want = decompose_rows(out, P, levels, bgbit=bgbit)
     assert int(want.abs().max()) <= 1 << (bgbit - 1)
-    assert torch.equal(digits, want.to(torch.int8))
+    assert torch.equal(digits, digit_planes(want, n_dl))
+    # the planes give the digits back: sum_l limb_l 2^(8l)
+    limbs = digits.reshape(B, sum(levels), n_dl, N).to(torch.int32)
+    assert torch.equal(sum(limbs[:, :, l] << (8 * l) for l in range(n_dl)),
+                       want)
 
 
 def test_wrapper_refuses_digits_it_cannot_write():
@@ -109,9 +120,18 @@ def test_wrapper_refuses_digits_it_cannot_write():
     with pytest.raises(ValueError, match="contiguous int8"):
         K1.ntt_inverse_to_crt_acc(v, acc, plan, drop, digits=d.int(),
                                   gadget=gadget)
-    with pytest.raises(NotImplementedError, match="one-limb"):
-        K1.ntt_inverse_to_crt_acc(v, acc, plan, drop, digits=d,
-                                  gadget=row_gadget(params.TEST_TINY_UINT))
+    # a 2-limb gadget (TEST_TINY_UINT's 2^11) takes 2 planes a row, not
+    # the one-limb plane count; a 25-bit gadget takes 4 limbs
+    uint = row_gadget(params.TEST_TINY_UINT)
+    assert (uint.bits, sum(uint.levels)) == (11, 4)
+    with pytest.raises(ValueError, match="contiguous int8"):
+        K1.ntt_inverse_to_crt_acc(v, acc, plan, drop, digits=d, gadget=uint)
+    for bits in (25, 32):
+        with pytest.raises(NotImplementedError, match="1-3 limbs"):
+            K1.ntt_inverse_to_crt_acc(
+                v, acc, plan, drop,
+                digits=torch.zeros((2, 4 * 4, plan.N), dtype=torch.int8),
+                gadget=uint._replace(bits=bits, levels=(1, 1)))
 
 
 def _step_by_step(tlwe, tv, bsk, P, drop, group, levels, bgbit):
@@ -128,7 +148,7 @@ def _step_by_step(tlwe, tv, bsk, P, drop, group, levels, bgbit):
     ts = modswitch(a_cols.reshape(G, group, B), P)
     n_dl = ntt.engine_digit_limbs(bgbit)
     for s in range(G):
-        d = K2.digit_planes(decompose_rows(acc, P, levels, bgbit=bgbit), n_dl)
+        d = digit_planes(decompose_rows(acc, P, levels, bgbit=bgbit), n_dl)
         v = K2.ntt_step_fused(d, bsk[s], ts[s], plan, bgbit)
         acc = K1.ntt_inverse_to_crt_acc(v, acc, plan, drop)
     return acc
@@ -164,8 +184,10 @@ def _recorded_steps(fn):
 # port-made TEST_TINY keys at groups 2 and 3 (the keys tests/
 # test_torch_gates.py and test_torch_ntt_step.py hold to JAX), and the
 # 128-bit shapes cut to n0 = 7 / 6: g3's gadget over 3 steps (the last
-# group padded), g2's (3, 2) gadget over 3 steps
-@pytest.mark.parametrize("case", ["tiny_g2", "tiny_g3", "128bit_g3", "128bit_g2_32"])
+# group padded), g2's (3, 2) gadget over 3 steps; uint4's 3-limb gadget
+# and 5 primes cut to n0 = 5 (3 steps, the last group padded)
+@pytest.mark.parametrize("case", ["tiny_g2", "tiny_g3", "128bit_g3",
+                                  "128bit_g2_32", "uint4"])
 def test_fused_loop_equals_step_by_step(case):
     if case.startswith("tiny"):
         P, group = params.TEST_TINY, int(case[-1])
@@ -178,10 +200,11 @@ def test_fused_loop_equals_step_by_step(case):
             -2**31, 2**31, (9, P.n0 + 1)).astype(np.int32))
     else:
         P0, drop, group, levels, bgbit = _CASES[case]
-        P = _cut(P0, 7 if group == 3 else 6)
+        P = _cut(P0, {"128bit_g3": 7, "128bit_g2_32": 6, "uint4": 5}[case])
         tlwe, tv, bsk = _random_key(P, drop, group, levels, bgbit, len(case))
     G = bsk.shape[0]
-    assert ntt.engine_digit_limbs(bgbit) == 1 and G >= 3
+    assert ntt.engine_digit_limbs(bgbit) == (3 if case == "uint4" else 1)
+    assert G >= 3
     got, attrs = _recorded_steps(lambda: BRN.blind_rotate_ntt(
         tlwe, tv, bsk, P, drop, group=group, levels=levels, bgbit=bgbit))
     assert attrs == {"steps": G, "fused_steps": G - 1,
@@ -190,9 +213,12 @@ def test_fused_loop_equals_step_by_step(case):
     assert torch.equal(got, want)
 
 
-def test_multi_limb_uint_key_bypasses_the_fusion():
-    """TEST_TINY_UINT's engine digits (Bg_e 2^11) are two limbs: the loop
-    decomposes on every step, as before."""
+def test_multi_limb_uint_key_bypasses_the_fusion(monkeypatch):
+    """TEST_TINY_UINT's engine digits (Bg_e 2^11) are two limbs, which K1
+    writes too: the loop decomposes for step 0 alone, every K1 but
+    the last carries the planes, and the output equals the loop that
+    decomposes on every step.  (The name predates K1's limb planes, when
+    such a key bypassed the fusion; the key now takes it.)"""
     P = params.TEST_TINY_UINT
     g = torch.Generator().manual_seed(41)
     ck = key.CloudKey.generate(g, key.SecretKey.generate(g, P), P)
@@ -201,11 +227,14 @@ def test_multi_limb_uint_key_bypasses_the_fusion():
     assert ntt.engine_digit_limbs(bgbit) == 2 and K2.supports(group, 2)
     tlwe = torch.from_numpy(np.random.default_rng(41).integers(
         -2**31, 2**31, (6, P.n0 + 1)).astype(np.int32))
+    calls = _k1_digit_calls(monkeypatch)
     got, attrs = _recorded_steps(lambda: BRN.blind_rotate_ntt(
         tlwe, ck.testvec, ck.bsk_ntt, P, drop, group=group, levels=levels,
         bgbit=bgbit))
     G = ck.bsk_ntt.shape[0]
-    assert attrs == {"steps": G, "fused_steps": 0, "plain_digit_steps": G}
+    assert G >= 3
+    assert attrs == {"steps": G, "fused_steps": G - 1, "plain_digit_steps": 1}
+    assert calls == [True] * (G - 1) + [False]
     want = _step_by_step(tlwe, ck.testvec, ck.bsk_ntt, P, drop, group, levels,
                          bgbit)
     assert torch.equal(got, want)

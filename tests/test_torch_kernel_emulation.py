@@ -6,35 +6,38 @@ tests/cuda_emu.h, an emulation of the CUDA they use (one std::thread per
 CUDA thread, a barrier for __syncthreads, and host versions of the
 functions of csrc/hopper_prims.cuh: mbarriers, TMA loads into swizzled
 shared memory, wgmma through its descriptors, and wgmma with A from
-registers, which gathers the warpgroup's fragments).  Their C entry points
+registers, which gathers the warpgroup's fragments). Their C entry points
 are called through ctypes on CPU tensors and must equal the plain PyTorch
 versions bit for bit, at shapes that cover several column tiles, ragged
 batch tiles, B = 1, every column-tile width the entry points pick (forced
 through the emulated SM count), 1 to 4 primes, 3 to 10 digit rows,
 pointwise sums of up to 5 row groups, and both branches of the forward
 limb combine; multi-limb digit planes (the uint sets' 2 and 3 limbs, a
-ragged row tile at uint4's 10 lanes a tile); K2's instance compiled at
-g3's shape (group 3, R = 4, row groups 4 and 2) on an N = 128 plan walked
-by one block and on g3's own plan with a ragged last tile, its Barrett
-(an f32-add rounding) held to the conversion form like K2s's, and a
-group-3 launch at R = 3 that keeps the general instance; for K3, 1 to 4 key limbs, one- and two-limb gadgets, batch
-tiles of 64 lanes (full, ragged, several), both stage widths (64- and
-128-byte digit chunks), blocks whose two column tiles straddle the two
-components (N = 64, 192), and the 128-bit shape (N = 1024, 6 rows: every
-key window wraps around 2N in some column tile).  The emulated wgmma with
-A from registers is also held against a numpy product on its own, with
-the fragments packed in Python by the PTX register layout.  This checks
-the kernels' indexing and arithmetic; their behaviour on the card is
-tests/test_torch_cuda.py's.  csrc/split_step.cu (K2s, the split-ring
-step of the 64-bit torus) is held equal to its plain version on the digits
-of real hi-plane accumulators (``rows_hi32``) and one step of a real
-split key, at SECURITY_128_BIT_T64's shape (N/2 = 1024, 4 primes, 10
-half-rows, 6 lanes a tile: a ragged last tile, B = 1 on wide and on
-narrow column tiles, one block walking every tile), TEST_TINY_SPLIT's (8
-half-rows, 8 lanes a tile) and at 6 and 5 half-rows (the instance that
-reads 2R at run time); its Barrett, which rounds by an f32 add, is held
-equal to the conversion form on edge values, ties and 10^6 int32 per
-prime.  Skips where no host C++ compiler is found.
+ragged row tile at uint4's 10 lanes a tile), which K1's fourth instance
+writes (TEST_TINY_UINT's and uint4's gadgets, on their own plans, a ragged
+row tile with one live warpgroup and B = 1 on the wide tile); K2's
+instance compiled at g3's shape (group 3, R = 4, row groups 4 and 2) on an
+N = 128 plan walked by one block and on g3's own plan with a ragged last
+tile, its Barrett (an f32-add rounding) held to the conversion form like
+K2s's, and a group-3 launch at R = 3 that keeps the general instance; for
+K3, 1 to 4 key limbs, one- and two-limb gadgets, batch tiles of 64 lanes
+(full, ragged, several), both stage widths (64- and 128-byte digit
+chunks), blocks whose two column tiles straddle the two components (N =
+64, 192), and the 128-bit shape (N = 1024, 6 rows: every key window wraps
+around 2N in some column tile). The emulated wgmma with A from registers
+is also held against a numpy product on its own, with the fragments packed
+in Python by the PTX register layout. This checks the kernels' indexing
+and arithmetic; their behaviour on the card is tests/test_torch_cuda.py's.
+csrc/split_step.cu (K2s, the split-ring step of the 64-bit torus) is held
+equal to its plain version on the digits of real hi-plane accumulators
+(``rows_hi32``) and one step of a real split key, at
+SECURITY_128_BIT_T64's shape (N/2 = 1024, 4 primes, 10 half-rows, 6 lanes
+a tile: a ragged last tile, B = 1 on wide and on narrow column tiles, one
+block walking every tile), TEST_TINY_SPLIT's (8 half-rows, 8 lanes a tile)
+and at 6 and 5 half-rows (the instance that reads 2R at run time); its
+Barrett, which rounds by an f32 add, is held equal to the conversion form
+on edge values, ties and 10^6 int32 per prime. Skips where no host C++
+compiler is found.
 """
 
 import ctypes
@@ -245,8 +248,7 @@ def test_step_kernel_source_multi_limb_matches_plain(emu, case):
     N, R = plan.N, sum(levels)
     rng = np.random.default_rng(B)
     acc = torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, N)).astype(np.int32))
-    digits = K2.digit_planes(decompose_rows(acc, P, levels, bgbit=bgbit),
-                             n_dl)
+    digits = D.digit_planes(decompose_rows(acc, P, levels, bgbit=bgbit), n_dl)
     rows = torch.from_numpy(rng.integers(-2**31, 2**31, (3, R, 2, N)).astype(np.int32))
     bsk = ntt.to_ntt_form(rows, plan, 0).movedim(0, 1).contiguous()
     ts = torch.from_numpy(rng.integers(0, 2 * N + 1, (2, B)).astype(np.int32))
@@ -515,6 +517,108 @@ def test_inverse_kernel_source_writes_digits(emu, case):
     assert torch.equal(digits, want)
     assert torch.equal(digits, decompose_rows(out, P, levels, bgbit=bgbit)
                        .to(torch.int8))
+
+
+# K1's instance that writes the uint keys' limb planes of the next step's
+# digits: (B, N, plan bits, drop, emulated SM count, params, levels, engine
+# bgbit).  uint4's Bg_e 2^22 (1, 1) at 3 limbs on its own plan (N = 1024,
+# 5 primes, drop 0); TEST_TINY_UINT's 2^11 (2, 2) at 2 limbs on its own
+# plan (N = 256, 4 primes); uint4's gadget on two row tiles whose second
+# holds 12 rows (one live warpgroup), with a drop, and at B = 1 on the
+# wide tile (one SM); Bg_e 2^24 (1, 1), the widest gadget the entry takes,
+# whose top digits wrap in their 3 limbs.  The planes depend on the gadget,
+# not on N.
+_K1_LIMB_CASES = {
+    "uint4": (3, 1024, None, 0, 4, "uint4", (1, 1), 22),
+    "tiny_uint": (5, 256, None, 0, 4, "tiny_uint", (2, 2), 11),
+    "uint4_ragged_one_warpgroup": (70, 128, 40, 3, 4, "uint4", (1, 1), 22),
+    "uint4_B1_wide": (1, 128, 40, 0, 1, "uint4", (1, 1), 22),
+    "bg24": (2, 128, 40, 0, 4, "uint4", (1, 1), 24),
+}
+
+
+def _wrap32(x: int) -> int:
+    return (x + 2**31) % 2**32 - 2**31
+
+
+@pytest.mark.parametrize("case", sorted(_K1_LIMB_CASES))
+def test_inverse_kernel_source_writes_limb_planes(emu, case):
+    B, N, bits, drop, sms, name, levels, bgbit = _K1_LIMB_CASES[case]
+    P = TP.PARAMS_BY_NAME[name]
+    n_dl = ntt.engine_digit_limbs(bgbit)
+    assert n_dl == (3 if name == "uint4" else 2)
+    if bits is None:
+        assert P.N == N
+        plan = ntt.plan_for_params(P, drop, 2, levels, bgbit=bgbit,
+                                   pseudorandom_key=True)
+        assert plan.n_primes == (5 if name == "uint4" else 4)
+    else:
+        P = _with_n(P, N)
+        plan = ntt.make_plan(N, bits)
+    gadget = D.row_gadget(P, levels, bgbit)
+    rng = np.random.default_rng(B + N)
+    c, acc = (torch.from_numpy(rng.integers(-2**31, 2**31, (B, 2, N))
+                               .astype(np.int32)) for _ in range(2))
+    # lane 0's first columns get level-0 digits at the ends of the range:
+    # -Bg/2, Bg/2 - 1, and the largest digit the limbs hold and the next
+    half = 1 << (bgbit - 1)
+    bias = sum(128 << (8 * k) for k in range(n_dl - 1))
+    exact_top = (1 << (8 * n_dl - 1)) - 1 - bias
+    edges = (-half, half - 1, min(half - 1, exact_top),
+             min(half - 1, exact_top + 1))
+    for comp in range(2):
+        for j, d in enumerate(edges):
+            u = ((d + half) << (32 - bgbit)) - gadget.offsets[comp]
+            acc[0, comp, j] = _wrap32(u - (int(c[0, comp, j]) << drop))
+    v = K1.split_limbs(torch.stack(ntt.ntt_forward(c, plan, digit_limbs=4,
+                                                   digit_bound=128)))
+    tabs = K1._kernel_tables(plan, torch.device("cpu"))
+    lib = emu["ntt_inverse"]
+    lib.emu_set_sm_count(sms)
+    args = (v.data_ptr(), acc.data_ptr(), None, tabs.m_lo.data_ptr(),
+            tabs.m_hi.data_ptr(), _ptr(tabs.primes), _ptr(tabs.crt_e),
+            _ptr(tabs.inv_p), _ptr(tabs.theta), plan.p_mod, plan.n_primes,
+            2 * B, N, drop)
+    out = torch.empty_like(acc)
+    R = sum(levels)
+    digits = torch.from_numpy(rng.integers(-128, 128, (B, R * n_dl, N))
+                              .astype(np.int8))
+    err = lib.ztfhe_ntt_inverse_crt_acc_digits(
+        *args[:2], out.data_ptr(), *args[3:], digits.data_ptr(),
+        *K1._digit_scalars(gadget), None)
+    assert err == 0
+    want = torch.empty_like(digits)
+    ref = K1.ntt_inverse_to_crt_acc_reference(v, acc, plan, drop, want, gadget)
+    assert torch.equal(out, ref)
+    assert torch.equal(out, acc + (c << drop))
+    assert torch.equal(digits, want)
+    rows = D.decompose_rows(out, P, levels, bgbit=bgbit)
+    assert torch.equal(digits, D.digit_planes(rows, n_dl))
+    # the limbs sum to the digit mod 2^(8 n_dl), and exactly below the top
+    # the limbs hold: a gadget of a whole number of bytes (Bg_e 2^24) wraps
+    # its top digits, as utils/torus.py:i32_to_i8_limbs does
+    assert sorted(int(d) for d in rows[0, [0, levels[0]], :4].flatten()) \
+        == sorted(edges * 2)
+    limbs = digits.view(B, R, n_dl, N).long()
+    total = sum(limbs[:, :, k] << (8 * k) for k in range(n_dl))
+    d = rows.long()
+    exact = d <= exact_top
+    assert torch.equal(total[exact], d[exact])
+    assert torch.equal(total[~exact], d[~exact] - (1 << (8 * n_dl)))
+    assert bool((~exact).any()) == (bgbit % 8 == 0)
+    # the digit entry refuses gadgets above 24 bits and odd row counts, the
+    # half-row entry any of more than one limb
+    scalars = K1._digit_scalars(gadget)
+    for bad_bits in (0, 25):
+        assert lib.ztfhe_ntt_inverse_crt_acc_digits(
+            *args[:2], out.data_ptr(), *args[3:], digits.data_ptr(),
+            *scalars[:2], bad_bits, *scalars[3:], None) != 0
+    assert lib.ztfhe_ntt_inverse_crt_acc_digits(
+        *args[:2], out.data_ptr(), *args[3:11], 2 * B - 1, N, drop,
+        digits.data_ptr(), *scalars, None) != 0
+    assert lib.ztfhe_ntt_inverse_crt_acc_half_rows(
+        *args[:2], out.data_ptr(), *args[3:11], 4 * B, N, drop,
+        digits.data_ptr(), *scalars, None) != 0
 
 
 # K1's instance that writes the split ring's hi-plane half-rows, on the

@@ -7,7 +7,7 @@ at 0.
 Both take the same secret keys, input ciphertexts and test vectors; each
 makes its own cloud key, the program at the configuration's key form
 (group 2, Bg_e 2^22 with (1, 1) levels, drop 0, 5 primes: 3-limb digits,
-the scan's UNFUSED path with K2's and K1's plain versions) and the
+the scan's fused path with K2's and K1's plain versions) and the
 reference at the published gadgets, one TRGSW a bit.
 
 The blind rotation, phase by phase: on 4 lanes, each with its own

@@ -140,6 +140,7 @@ def test_group2_multi_limb_matches_xla_step2(name):
     Pallas arithmetic, so they equal JAX's modulo p, within 0.55p."""
     from zig_tfhe_tpu.ops.blind_rotate import _decompose_to_rows as j_rows
     from zig_tfhe_tpu_torch.ops.decomposition import decompose_rows as t_rows
+    from zig_tfhe_tpu_torch.ops.decomposition import digit_planes
 
     jp, tp = JP.PARAMS_BY_NAME[name], TP.PARAMS_BY_NAME[name]
     bgbit, levels = tntt.default_engine_gadget(tp, 2)
@@ -169,7 +170,7 @@ def test_group2_multi_limb_matches_xla_step2(name):
     delta = jntt.ntt_inverse_to_crt(v_j, jplan)
     want = np.asarray(jnp.asarray(acc) + (delta << drop))
 
-    planes = K2.digit_planes(digits_t, n_dl)
+    planes = digit_planes(digits_t, n_dl)
     assert planes.dtype == torch.int8 and tuple(planes.shape) == (B, R * n_dl, N)
     limbs = planes.reshape(B, R, n_dl, N)
     d_hat_t = tntt.ntt_forward_limbs([limbs[:, :, l] for l in range(n_dl)],

@@ -141,7 +141,7 @@ def test_outputs_are_bit_equal_with_recording_on_and_off(tiny):
 
 @pytest.fixture(scope="module")
 def tiny_uint(one_thread):
-    """TEST_TINY_UINT (Bg 2^11: 2-limb digits, the UNFUSED path), 16 lanes
+    """TEST_TINY_UINT (Bg 2^11: 2-limb digits, K1 writing them), 16 lanes
     of Z_16, each with its own test vector (x + c mod 16 on lane c)."""
     P_U, m = params.TEST_TINY_UINT, 16
     g = torch.Generator().manual_seed(12)
@@ -159,8 +159,8 @@ def test_a_lut_call_records_its_spans(tiny_uint):
     """``lut.apply`` once a ``bootstrap_lut``: the call's root alone, and
     inside an outer span (as the benchmark's ``lut.call``) a child of it,
     which the call's id is then the outer span's; the test vectors'
-    rotation before the steps; every step's 2-limb digits made outside
-    K1."""
+    rotation before the steps; step 0's 2-limb digits made outside K1,
+    the others' by K1."""
     ct, tv, ck = tiny_uint
     with profiling.recording(False):
         off = lut.bootstrap_lut(ct, tv, ck)
@@ -191,8 +191,9 @@ def test_a_lut_call_records_its_spans(tiny_uint):
             assert apply.start_ns <= s.start_ns <= s.end_ns <= apply.end_ns
         assert by["blind_rotate.testvec"].end_ns <= by["blind_rotate.steps"].start_ns
         G = ck.bsk_ntt.shape[0]
-        assert by["blind_rotate.steps"].attrs == {"steps": G, "fused_steps": 0,
-                                                  "plain_digit_steps": G}
+        assert by["blind_rotate.steps"].attrs == {"steps": G,
+                                                  "fused_steps": G - 1,
+                                                  "plain_digit_steps": 1}
 
 
 def test_two_calls_have_their_own_call_ids():

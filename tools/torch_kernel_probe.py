@@ -83,8 +83,7 @@ def _digits(P, levels, e, B, g):
     import torch
 
     from zig_tfhe_tpu_torch.ops import ntt
-    from zig_tfhe_tpu_torch.ops.decomposition import decompose_rows
-    from zig_tfhe_tpu_torch.ops.cuda import ntt_step as k2
+    from zig_tfhe_tpu_torch.ops.decomposition import decompose_rows, digit_planes
 
     n_dl = ntt.engine_digit_limbs(e)
     if n_dl == 1:
@@ -93,7 +92,7 @@ def _digits(P, levels, e, B, g):
                              device=g.device, dtype=torch.int32).to(torch.int8)
     acc = torch.randint(0, 1 << 32, (B, 2, P.N), dtype=torch.int64,
                         generator=g, device=g.device).to(torch.int32)
-    return k2.digit_planes(decompose_rows(acc, P, levels, bgbit=e), n_dl)
+    return digit_planes(decompose_rows(acc, P, levels, bgbit=e), n_dl)
 
 
 def _time_calls(label, name, kern, plain, iters, gpu) -> None:

@@ -115,6 +115,36 @@
 // staged 16-byte stores carry over; only the component bit and the digit
 // row differ (`component`, `digit_row`).  The two instances above keep
 // their machine code (SASS compared equal line for line).
+//
+// Multi-limb digits (engine gadgets of 9 to 24 bits: every uint key).  K2
+// reads such digits as int8 limb planes [B, R * n_dl, N], n_dl = ceil(bits
+// / 8), plane r * n_dl + l holding limb l of digit row r = c * levels[0] +
+// i, little-endian: ops/decomposition.py:digit_planes of the rows above,
+// whose limbs are centred remainders (utils/torus.py:i32_to_i8_limbs).  A
+// fourth instance (Digits::kLimbRows) writes them.  With d the digit as
+// above, t = d + sum_{k < n_dl - 1} 128 * 2^(8k) makes every lower limb
+// a plain byte less 128,
+//
+//   limb l = ((t >> 8l) & 255) - 128   (l < n_dl - 1),
+//   limb n_dl - 1 = t >> 8(n_dl - 1)   (arithmetic: the top limb carries
+//                                       the rest),
+//
+// so a limb's byte is ((t >> 8l) ^ 0x80) & 255 below the top and
+// (t >> 8l) & 255 at it.  The limbs sum to d modulo 2^(8 n_dl), and
+// exactly for d < 2^(8 n_dl - 1) - bias: every digit of a gadget whose
+// bits are not a multiple of 8.  At Bg_e 2^16 and 2^24 the digits d >=
+// 2^(bits - 1) - bias wrap (their limbs sum to d - 2^bits), here as in
+// digit_planes and the plain engine's limbs (ops/ntt.py:ntt_forward),
+// which share engine_digit_limbs.  The ring leaves room to stage one plane of a
+// warpgroup's 64 rows, so the planes are staged and stored one limb at a
+// time through the same staging rows: n_dl rounds a level.  At uint4
+// (Bg_e 2^22, (1, 1), 3 limbs) and B = 2048 that is 12.6 MB of planes a
+// step, 3.8 us at 3.35 TB/s, where the decompose and the limb split in
+// plain PyTorch took ~12 launches and ~240 us a step.  Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W (B = 2048, the cell uint4.lut_b2048's
+// trace): 157.2 us a launch with the planes against 155.9 without.  The
+// three instances above keep their machine code (SASS compared equal line
+// for line).
 
 #include "hopper_prims.cuh"
 
@@ -131,9 +161,10 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 __host__ __device__ constexpr int stage_bytes(int bn) { return BM * BK + 2 * bn * BK; }
 __host__ __device__ constexpr int stages(int bn) { return bn == 64 ? 6 : 8; }
 // the digits an instance also writes (see the header): none, the 32-bit
-// engine's rows [B, la + lb, N] (rows (b, c)), or the split ring's
-// half-rows [B, 2 (la + lb), N] (rows (b, c, q))
-enum class Digits { kNone, kRows, kHalfRows };
+// engine's rows [B, la + lb, N] (rows (b, c)), the split ring's half-rows
+// [B, 2 (la + lb), N] (rows (b, c, q)), or the 32-bit engine's limb planes
+// [B, (la + lb) n_dl, N] (rows (b, c))
+enum class Digits { kNone, kRows, kHalfRows, kLimbRows };
 
 // the digit instances' staging rows: one level of a warpgroup's 64 rows
 __host__ __device__ constexpr int stage_row(int bn) { return bn + 16; }
@@ -146,8 +177,10 @@ __host__ __device__ constexpr int smem_bytes(int bn, bool digits = false) {
 struct DigitParams {
   uint32_t offset_a, offset_b;   // per component
   uint32_t mask, half;           // 2^bits - 1, 2^(bits-1)
-  int bits;                      // 1..8: one int8 a digit
+  int bits;                      // 1..8 (one int8 a digit), 9..24 (kLimbRows)
   int la, lb;                    // levels per component
+  int limbs;                     // n_dl = ceil(bits / 8)
+  uint32_t bias;                 // sum_{k < n_dl - 1} 128 * 2^(8k)
 };
 
 struct CrtParams {
@@ -169,14 +202,28 @@ __device__ __forceinline__ int component(int row) {
     return row & 1;
 }
 
-// the digit row of level i of row r, component c (see the header)
+// the digit row of level i of row r, component c, and of its limb l of
+// n_dl on the limb planes (see the header)
 template <Digits D>
 __device__ __forceinline__ size_t digit_row(int r, int c, int i, int la,
-                                            int R) {
+                                            int R, int l, int n_dl) {
   if constexpr (D == Digits::kHalfRows)
     return static_cast<size_t>(r >> 2) * (2 * R) + 2 * (c * la + i) + (r & 1);
+  else if constexpr (D == Digits::kLimbRows)
+    return (static_cast<size_t>(r >> 1) * R + c * la + i) * n_dl + l;
   else
     return static_cast<size_t>(r >> 1) * R + c * la + i;
+}
+
+// the byte a digit instance stores of digit d: d itself (one-limb
+// instances), or limb l of n_dl of t = d + bias (kLimbRows, see the header)
+template <Digits D>
+__device__ __forceinline__ uint32_t digit_byte(uint32_t d, int l,
+                                               const DigitParams& dp) {
+  if constexpr (D == Digits::kLimbRows)
+    return ((d + dp.bias) >> (8 * l)) ^ (l + 1 < dp.limbs ? 0x80u : 0u);
+  else
+    return d;
 }
 
 // round(f32(x) * f32(1/p)) half to even, as jnp.round; r = x - q*p wraps
@@ -191,7 +238,8 @@ __device__ __forceinline__ int barrett(int x, int p, float inv_p) {
 //             transposed so the contraction axis is contiguous, box [BN, 128]
 // acc, out: int32 [rows, N]    (rows = 2B: the (B, 2) axes; 4B on the split
 //                               views: (B, 2, 2))
-// digits:   int8 [B, la + lb, N] (kRows) or [B, 2 (la + lb), N] (kHalfRows)
+// digits:   int8 [B, la + lb, N] (kRows), [B, 2 (la + lb), N] (kHalfRows)
+//           or [B, (la + lb) n_dl, N] (kLimbRows)
 template <int BN, Digits D>
 __global__ void __launch_bounds__(kThreads, 1)
 ntt_inverse_crt_acc_kernel(const __grid_constant__ CUtensorMap map_v,
@@ -342,46 +390,53 @@ ntt_inverse_crt_acc_kernel(const __grid_constant__ CUtensorMap map_v,
         }
 
       if constexpr (D != Digits::kNone) {
-        // The next step's digits, a level at a time.  A thread's rows are
-        // all of one component.  Each thread stages its two columns' digits
-        // of each row as 2 bytes; then the warpgroup stores its 64 rows from
-        // the staging rows as 16-byte chunks, each row's BN bytes contiguous
-        // in the digit plane.
+        // The next step's digits, a level (and on the limb planes a limb)
+        // at a time.  A thread's rows are all of one component.  Each
+        // thread stages its two columns' digits of each row as 2 bytes;
+        // then the warpgroup stores its 64 rows from the staging rows as
+        // 16-byte chunks, each row's BN bytes contiguous in the digit
+        // plane.
         constexpr int SR = stage_row(BN);
         constexpr int CHUNKS = BN / 16;   // 16-byte chunks a row
         unsigned char* st = staging + wg * 64 * SR;
         const int lev = component<D>(g) ? dp.lb : dp.la;
         const int levels = dp.la > dp.lb ? dp.la : dp.lb;
         const int R = dp.la + dp.lb;
+        // one plane a round: the digits' one byte, or each of their limbs
+        const int n_dl = D == Digits::kLimbRows ? dp.limbs : 1;
         for (int i = 0; i < levels; ++i) {
           const int sh = 32 - (i + 1) * dp.bits;
-          if (i < lev) {
+          for (int l = 0; l < n_dl; ++l) {
+            if (i < lev) {
 #pragma unroll
-            for (int nt = 0; nt < BN / 8; ++nt)
+              for (int nt = 0; nt < BN / 8; ++nt)
 #pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const int k = nt * 4 + 2 * h;
-                const uint32_t d0 = ((crt_sum[k] >> sh) & dp.mask) - dp.half;
-                const uint32_t d1 = ((crt_sum[k + 1] >> sh) & dp.mask) - dp.half;
-                *reinterpret_cast<uint16_t*>(
-                    st + (warp * 16 + g + 8 * h) * SR + nt * 8 + t * 2) =
-                    static_cast<uint16_t>((d0 & 0xFFu) | ((d1 & 0xFFu) << 8));
-              }
-          }
-          named_barrier_sync(1 + wg, 128);
-#pragma unroll
-          for (int j = 0; j < 64 * CHUNKS / 128; ++j) {
-            const int k = (tid & 127) + 128 * j;
-            const int rl = k / CHUNKS, part = k % CHUNKS;
-            const int r = row0 + wg * 64 + rl;
-            const int side = component<D>(rl);
-            if (r < rows && i < (side ? dp.lb : dp.la)) {
-              const size_t drow = digit_row<D>(r, side, i, dp.la, R);
-              *reinterpret_cast<int4*>(digits + drow * N + col0 + part * 16) =
-                  *reinterpret_cast<const int4*>(st + rl * SR + part * 16);
+                for (int h = 0; h < 2; ++h) {
+                  const int k = nt * 4 + 2 * h;
+                  const uint32_t d0 = digit_byte<D>(
+                      ((crt_sum[k] >> sh) & dp.mask) - dp.half, l, dp);
+                  const uint32_t d1 = digit_byte<D>(
+                      ((crt_sum[k + 1] >> sh) & dp.mask) - dp.half, l, dp);
+                  *reinterpret_cast<uint16_t*>(
+                      st + (warp * 16 + g + 8 * h) * SR + nt * 8 + t * 2) =
+                      static_cast<uint16_t>((d0 & 0xFFu) | ((d1 & 0xFFu) << 8));
+                }
             }
+            named_barrier_sync(1 + wg, 128);
+#pragma unroll
+            for (int j = 0; j < 64 * CHUNKS / 128; ++j) {
+              const int k = (tid & 127) + 128 * j;
+              const int rl = k / CHUNKS, part = k % CHUNKS;
+              const int r = row0 + wg * 64 + rl;
+              const int side = component<D>(rl);
+              if (r < rows && i < (side ? dp.lb : dp.la)) {
+                const size_t drow = digit_row<D>(r, side, i, dp.la, R, l, n_dl);
+                *reinterpret_cast<int4*>(digits + drow * N + col0 + part * 16) =
+                    *reinterpret_cast<const int4*>(st + rl * SR + part * 16);
+              }
+            }
+            named_barrier_sync(1 + wg, 128);
           }
-          named_barrier_sync(1 + wg, 128);
         }
       }
     }
@@ -475,7 +530,7 @@ int entry(const int8_t* v, const int* acc, int* out, const int8_t* m_lo,
 // the digit entries' gadget: false where the kernel cannot write it
 bool digit_params(DigitParams* dp, int offset_a, int offset_b, int bits,
                   int la, int lb) {
-  if (bits < 1 || bits > 8 || la < 1 || lb < 1 || la * bits > 32 ||
+  if (bits < 1 || bits > 24 || la < 1 || lb < 1 || la * bits > 32 ||
       lb * bits > 32)
     return false;
   dp->offset_a = static_cast<uint32_t>(offset_a);
@@ -485,6 +540,9 @@ bool digit_params(DigitParams* dp, int offset_a, int offset_b, int bits,
   dp->bits = bits;
   dp->la = la;
   dp->lb = lb;
+  dp->limbs = (bits + 7) / 8;
+  dp->bias = 0u;
+  for (int k = 0; k + 1 < dp->limbs; ++k) dp->bias += 128u << (8 * k);
   return true;
 }
 
@@ -506,10 +564,11 @@ extern "C" int ztfhe_ntt_inverse_crt_acc(
                               DigitParams{}, stream);
 }
 
-// The same, and the next step's gadget digits of `out` into `digits`, int8
-// [rows / 2, la + lb, N] (see the header): offsets mod 2^32 of the a and b
-// components, 1 <= bits <= 8, 1 <= la, lb and la * bits, lb * bits <= 32,
-// rows even.
+// The same, and the next step's gadget digits of `out` into `digits` (see
+// the header): at 1 <= bits <= 8 the rows, int8 [rows / 2, la + lb, N]; at
+// 9 <= bits <= 24 their n_dl = ceil(bits / 8) limb planes, int8 [rows / 2,
+// (la + lb) n_dl, N].  Offsets mod 2^32 of the a and b components, 1 <=
+// la, lb and la * bits, lb * bits <= 32, rows even.
 extern "C" int ztfhe_ntt_inverse_crt_acc_digits(
     const int8_t* v, const int* acc, int* out, const int8_t* m_lo,
     const int8_t* m_hi, const int* primes, const int* crt_e,
@@ -519,15 +578,19 @@ extern "C" int ztfhe_ntt_inverse_crt_acc_digits(
   DigitParams dp;
   if (!digit_params(&dp, offset_a, offset_b, bits, la, lb) || rows % 2 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return entry<Digits::kRows>(v, acc, out, m_lo, m_hi, primes, crt_e, inv_p,
-                              theta, p_mod, n_primes, rows, N, drop, digits,
-                              dp, stream);
+  if (bits <= 8)
+    return entry<Digits::kRows>(v, acc, out, m_lo, m_hi, primes, crt_e, inv_p,
+                                theta, p_mod, n_primes, rows, N, drop, digits,
+                                dp, stream);
+  return entry<Digits::kLimbRows>(v, acc, out, m_lo, m_hi, primes, crt_e,
+                                  inv_p, theta, p_mod, n_primes, rows, N, drop,
+                                  digits, dp, stream);
 }
 
 // The same on the split ring's views (rows = 4B: (b, c, q)), and the next
 // step's half-rows of `out` into `digits`, int8 [rows / 4, 2 (la + lb), N]
-// (see the header): the hi words of the a and b components' offsets, the
-// other conditions as above, rows a multiple of 4.
+// (see the header): the hi words of the a and b components' offsets,
+// 1 <= bits <= 8, the other conditions as above, rows a multiple of 4.
 extern "C" int ztfhe_ntt_inverse_crt_acc_half_rows(
     const int8_t* v, const int* acc, int* out, const int8_t* m_lo,
     const int8_t* m_hi, const int* primes, const int* crt_e,
@@ -535,7 +598,8 @@ extern "C" int ztfhe_ntt_inverse_crt_acc_half_rows(
     int rows, int N, int drop, int8_t* digits, int offset_a, int offset_b,
     int bits, int la, int lb, void* stream) {
   DigitParams dp;
-  if (!digit_params(&dp, offset_a, offset_b, bits, la, lb) || rows % 4 != 0)
+  if (!digit_params(&dp, offset_a, offset_b, bits, la, lb) || bits > 8 ||
+      rows % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return entry<Digits::kHalfRows>(v, acc, out, m_lo, m_hi, primes, crt_e,
                                   inv_p, theta, p_mod, n_primes, rows, N, drop,

@@ -21,16 +21,17 @@ core is K2 (ops/cuda/ntt_step.py:ntt_step_fused: forward NTT, pointwise
 products, subset combine) at groups 2 and 3 with one-limb engine digits
 (every boolean key) and at group 2 with 2-3-limb digits (every uint key);
 its residues follow the JAX package's Pallas step at group 2 and its XLA
-``step_multi`` at group 3 (module docstring there).  With one-limb digits
-the loop is fused: step 0 decomposes the set-up's accumulator, and K1 of
-step s writes the digits of the accumulator it makes (the form's gadget,
-as int8) into the one buffer the core of step s read, for step s + 1;
-the last step writes none.  Stream order makes one buffer enough, and a
-step is two launches.  Multi-limb digits are remade every step.  The span
-``blind_rotate.steps`` carries ``fused_steps``: G - 1 on the fused path,
-0 on the others; and ``plain_digit_steps``, the steps whose digits were
-made outside K1 (by ``digit_planes`` or inside the plain step): 1 on the
-fused path, every step on the others.  The test vector's rotation is span
+``step_multi`` at group 3 (module docstring there).  Every kernel path is
+fused: step 0 decomposes the set-up's accumulator, and K1 of step s
+writes the digit planes of the accumulator it makes (the form's gadget's
+``planes``: the int8 digits of a one-limb key, the 2-3 limb planes a row
+of a uint key's) into the one buffer the core of step s read, for step s
++ 1; the last step writes none.  Stream order makes one buffer enough,
+and a step is two launches.  The span ``blind_rotate.steps`` carries
+``fused_steps``: G - 1 on the fused path, 0 on the plain ones; and
+``plain_digit_steps``, the steps whose digits were made outside K1 (by
+the gadget's ``planes`` or inside the plain step): 1 on the fused path,
+every step on the plain ones.  The test vector's rotation is span
 ``blind_rotate.testvec``.  Group 1, groups above 3, group 3 with multi-limb
 digits, split keys K2s does not take and the 64-bit direct engine
 (TEST_TINY64) run the plain ops of the JAX package's XLA step, then K1 on
@@ -63,7 +64,6 @@ class Path(enum.Enum):
     GROUP1 = "group 1 on the plain ops"
     MULTI = "multi-bit on the plain ops"
     FUSED = "step core and K1, K1 writing the next step's digits"
-    UNFUSED = "step core and K1, the multi-limb digits made every step"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,7 +125,7 @@ def key_form(params: SecurityParams, bsk: torch.Tensor, drop_bits: int,
     elif split:
         path = Path.FUSED if _k2s.supports(group, limbs, hi32) else Path.MULTI
     elif params.torus_bits == 32 and _k2.supports(group, limbs):
-        path = Path.FUSED if limbs == 1 else Path.UNFUSED
+        path = Path.FUSED
     else:
         path = Path.MULTI
     return KeyForm(params, plan, e, levels, limbs,
@@ -164,21 +164,19 @@ def scan(acc: torch.Tensor, bsk: torch.Tensor, ts: torch.Tensor,
     with profiling.span("blind_rotate.steps", device=acc.device, steps=steps,
                         fused_steps=fused_steps,
                         plain_digit_steps=steps - fused_steps):
-        if form.path in (Path.GROUP1, Path.MULTI):
+        if not fused:
             finish = (_ntt.finish_int64 if acc.dtype == torch.int64
                       else ntt_inverse_to_crt_acc)
             for s in range(steps):
                 acc = finish(plain_step(acc, bsk[s], ts[s], form), acc, plan,
                              drop)
             return acc
-        digits = None
+        digits = gadget.planes(acc)
         for s in range(steps):
-            if digits is None or not fused:
-                digits = _k2.digit_planes(gadget.rows(acc), form.digit_limbs)
             v = core(digits, bsk[s], ts[s], plan, form.bits)
             acc = ntt_inverse_to_crt_acc(
                 v, acc, plan, drop, gadget=gadget,
-                digits=digits if fused and s < steps - 1 else None)
+                digits=digits if s < steps - 1 else None)
     return acc
 
 

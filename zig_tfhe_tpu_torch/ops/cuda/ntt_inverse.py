@@ -13,13 +13,15 @@ as it stands and half the bytes of int32 residues.  Both functions below
 also take int32 residues [P, B, 2, N] and split them first.
 
 Both also write, where given a ``digits`` buffer and a gadget
-(ops/decomposition.py), the next step's digits of the accumulator they
-return, ``gadget.rows(out).to(torch.int8)``: at a ``RowGadget`` the
-one-limb rows int8 [B, la + lb, N] that K2 reads, at a ``HalfRowGadget``
-on the split ring's views (accumulator [2B, 2, N/2], rows (b, c, q)) the
-hi-plane half-rows int8 [B, 2(la + lb), N/2] that K2s reads.  On the card
-each is an instance of the kernel that computes them in its final
-epilogue from the values it stores (csrc/ntt_inverse.cu).
+(ops/decomposition.py), the next step's digit planes of the accumulator
+they return, ``gadget.planes(out)``: at a ``RowGadget`` the planes int8
+[B, (la + lb) n_dl, N] that K2 reads (n_dl = 1 at Bg_e <= 2^8: the
+rows themselves; 2 or 3 limb planes a row at Bg_e 2^9 to 2^24, the uint
+keys), at a ``HalfRowGadget`` on the split ring's views (accumulator [2B,
+2, N/2], rows (b, c, q)) the hi-plane half-rows int8 [B, 2(la + lb), N/2]
+that K2s reads.  On the card each is an instance of the kernel that
+computes them in its final epilogue from the values it stores
+(csrc/ntt_inverse.cu).
 
 ``ntt_inverse_to_crt_acc`` launches the kernel for CUDA tensors (or
 raises) and runs the plain PyTorch version,
@@ -37,11 +39,13 @@ import torch
 
 from zig_tfhe_tpu_torch.ops.cuda import _build
 from zig_tfhe_tpu_torch.ops.decomposition import HalfRowGadget, RowGadget
-from zig_tfhe_tpu_torch.ops.ntt import NTTPlan, ntt_inverse_to_crt
+from zig_tfhe_tpu_torch.ops.ntt import (NTTPlan, engine_digit_limbs,
+                                        ntt_inverse_to_crt)
 
 SOURCE = _build.CSRC / "ntt_inverse.cu"
 _MAX_PRIMES = 8     # kMaxPrimes in the source
 _COL_TILE = 64      # N must be a multiple of the kernel's widest tile
+_MAX_LIMBS = 3      # kLimbRows's digits: Bg_e <= 2^24
 
 
 def split_limbs(v: torch.Tensor) -> torch.Tensor:
@@ -65,9 +69,9 @@ def ntt_inverse_to_crt_acc_reference(v_stack: torch.Tensor, acc: torch.Tensor,
     """Plain PyTorch version: acc + (ntt_inverse_to_crt(v) << drop), the
     JAX package's XLA formulation of the same step (blind_rotate_ntt.py
     finish).  v_stack: int8 limb planes [P, B, 2, 2, N] or int32 residues
-    [P, B, 2, N].  With ``digits`` also writes the output's gadget digits
-    there, ``gadget.rows(out)``: int8 [B, la + lb, N] at a ``RowGadget``,
-    [B / 2, 2(la + lb), N] at a ``HalfRowGadget``."""
+    [P, B, 2, N].  With ``digits`` also writes the output's gadget digit
+    planes there, ``gadget.planes(out)``: int8 [B, (la + lb) n_dl, N] at a
+    ``RowGadget``, [B / 2, 2(la + lb), N] at a ``HalfRowGadget``."""
     if v_stack.dtype == torch.int8:
         v_stack = join_limbs(v_stack)
     delta = ntt_inverse_to_crt(list(v_stack), plan)
@@ -75,7 +79,7 @@ def ntt_inverse_to_crt_acc_reference(v_stack: torch.Tensor, acc: torch.Tensor,
         delta = delta << drop
     out = acc + delta
     if digits is not None:
-        digits.copy_(gadget.rows(out))
+        digits.copy_(gadget.planes(out))
     return out
 
 
@@ -141,15 +145,16 @@ def _require_digits(digits: torch.Tensor,
         raise ValueError("digits need the RowGadget or HalfRowGadget they "
                          "are written at")
     width = 64 if half else 32
-    if gadget.bits > 8 or gadget.params.torus_bits != width:
+    n_dl = engine_digit_limbs(gadget.bits)
+    if n_dl > (1 if half else _MAX_LIMBS) or gadget.params.torus_bits != width:
         raise NotImplementedError(
-            f"the kernel writes one-limb digits (Bg_e <= 2^8) of the 32-bit "
-            f"torus, or of the 64-bit torus's hi planes, not Bg_e = "
-            f"2^{gadget.bits} at width {gadget.params.torus_bits} "
-            f"({type(gadget).__name__})")
+            f"the kernel writes one-limb digits (Bg_e <= 2^8) of the 64-bit "
+            f"torus's hi planes, or 1-{_MAX_LIMBS} limbs (Bg_e <= 2^24) of "
+            f"the 32-bit torus, not Bg_e = 2^{gadget.bits} at width "
+            f"{gadget.params.torus_bits} ({type(gadget).__name__})")
     rows, N = acc.shape[0], acc.shape[-1]
     shape = ((rows // 2, 2 * sum(gadget.levels), N) if half
-             else (rows, sum(gadget.levels), N))
+             else (rows, sum(gadget.levels) * n_dl, N))
     if (digits.dtype != torch.int8 or tuple(digits.shape) != shape
             or (half and rows % 2) or not digits.is_contiguous()
             or digits.device != acc.device):
@@ -168,9 +173,9 @@ def ntt_inverse_to_crt_acc(v_stack: torch.Tensor, acc: torch.Tensor,
     v_stack: the per-prime residues (|.| <= 0.55p), as int8 limb planes
     [P, B, 2, 2, N] (K2's output) or as int32 [P, B, 2, N], which is split
     here; acc: int32 [B, 2, N].  Any B.  With ``digits``, a contiguous
-    int8 buffer, and the gadget of one-limb digits (Bg_e <= 2^8), also
-    writes the digits the module docstring gives there.  CUDA tensors
-    launch the kernel (and count the launch in
+    int8 buffer, and its gadget (Bg_e <= 2^24 on the 32-bit torus, <= 2^8
+    on the hi planes), also writes the planes the module docstring gives
+    there.  CUDA tensors launch the kernel (and count the launch in
     ``ntt_inverse_to_crt_acc.launches``, and one that wrote digits also in
     ``.digit_launches``); CPU tensors run the plain version."""
     if (v_stack.dtype not in (torch.int32, torch.int8)

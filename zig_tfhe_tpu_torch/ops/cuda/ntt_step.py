@@ -28,8 +28,9 @@ they (and not only the accumulator) are bit-equal to the JAX package's:
     then ``rotate_combine_multi(u_wide=True)``.
 
 Multi-limb digits (group 2 only) enter as int8 limb planes [B, R * n_dl,
-N], plane r * n_dl + l holding limb l (little-endian, ``digit_planes`` of
-``decompose_rows``).  Their forward NTT is ops/ntt.py:ntt_forward's
+N], plane r * n_dl + l holding limb l (little-endian,
+ops/decomposition.py:``digit_planes`` of ``decompose_rows``, which K1
+writes for the next step).  Their forward NTT is ops/ntt.py:ntt_forward's
 limb loop (each limb's ``_limb_pair_combine``, then Horner from the top
 limb down), followed by the group-2 arithmetic above.  The JAX package
 runs these keys on its XLA ``step2`` (``pointwise_extprod`` +
@@ -72,7 +73,6 @@ import torch
 from zig_tfhe_tpu_torch.ops import ntt as _ntt
 from zig_tfhe_tpu_torch.ops.cuda import _build
 from zig_tfhe_tpu_torch.ops.cuda.ntt_inverse import split_limbs
-from zig_tfhe_tpu_torch.utils.torus import i32_to_i8_limbs
 
 SOURCE = _build.CSRC / "ntt_step.cu"
 GROUPS = (2, 3)
@@ -129,17 +129,6 @@ def row_groups(plan: _ntt.NTTPlan, group: int) -> tuple:
     prime's own ``row_group`` at group 3 (``pointwise_extprod``)."""
     groups = tuple(plan.row_group(p) for p in plan.primes)
     return (min(groups),) * len(groups) if group == 2 else groups
-
-
-def digit_planes(rows: torch.Tensor, digit_limbs: int) -> torch.Tensor:
-    """Gadget digit rows int32 [B, R, N] (``decompose_rows``) -> the
-    kernel's int8 limb planes [B, R * n_dl, N], plane r * n_dl + l holding
-    limb l of row r (utils/torus.py:i32_to_i8_limbs, little-endian)."""
-    if digit_limbs == 1:
-        return rows.to(torch.int8)
-    B, R, N = rows.shape
-    limbs = i32_to_i8_limbs(rows, digit_limbs)            # [B, R, N, n_dl]
-    return limbs.movedim(-1, -2).reshape(B, R * digit_limbs, N).contiguous()
 
 
 def _pointwise_combine2(d_hat, bsk_step: torch.Tensor, ts: torch.Tensor,

@@ -13,9 +13,12 @@ either width.
 The blind rotation's formats (the JAX package's ops/blind_rotate.py and
 ops/split_ring.py hold them): ``modswitch``; an accumulator's digit rows
 (``decompose_rows``, a ``RowGadget``) and the split ring's hi-plane
-half-rows (``rows_hi32``, a ``HalfRowGadget``).  A gadget holds the
-numbers a kernel that writes its digits takes (ops/cuda/ntt_inverse.py);
-its ``rows`` method gives the same digits in plain PyTorch.
+half-rows (``rows_hi32``, a ``HalfRowGadget``), and the int8 planes the
+step kernels read of either (``digit_planes``: one plane a row of
+one-limb digits, a plane a limb of wider ones).  A gadget holds the
+numbers a kernel that writes its planes takes (ops/cuda/ntt_inverse.py);
+its ``rows`` and ``planes`` methods give the same digits in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -25,10 +28,11 @@ from typing import NamedTuple
 
 import torch
 
-from zig_tfhe_tpu_torch.ops.ntt import norm_levels
+from zig_tfhe_tpu_torch.ops.ntt import engine_digit_limbs, norm_levels
 from zig_tfhe_tpu_torch.params import SecurityParams
-from zig_tfhe_tpu_torch.utils.torus import (require_width, shift_right_logical,
-                                            to_carrier, to_i32)
+from zig_tfhe_tpu_torch.utils.torus import (i32_to_i8_limbs, require_width,
+                                            shift_right_logical, to_carrier,
+                                            to_i32)
 
 
 def gadget_offset(bgbit: int, n_terms: int, width: int = 32) -> int:
@@ -126,11 +130,27 @@ def decompose_rows(ct: torch.Tensor, params: SecurityParams, levels=None,
     return torch.cat([da, db], dim=-2)
 
 
+def digit_planes(rows: torch.Tensor, digit_limbs: int) -> torch.Tensor:
+    """Gadget digit rows int32 [B, R, N] (``decompose_rows``) -> the step
+    kernels' int8 limb planes [B, R * n_dl, N], plane r * n_dl + l holding
+    limb l of row r (utils/torus.py:i32_to_i8_limbs, little-endian)."""
+    if digit_limbs == 1:
+        return rows.to(torch.int8)
+    B, R, N = rows.shape
+    limbs = i32_to_i8_limbs(rows, digit_limbs)            # [B, R, N, n_dl]
+    return limbs.movedim(-1, -2).reshape(B, R * digit_limbs, N).contiguous()
+
+
 class _Gadget(NamedTuple):
     params: SecurityParams
     bits: int
     levels: tuple
     offsets: tuple
+
+    def planes(self, acc: torch.Tensor) -> torch.Tensor:
+        """The int8 planes a step kernel reads of ``rows(acc)``: int8
+        [B, R * n_dl, N], n_dl = ``engine_digit_limbs(bits)``."""
+        return digit_planes(self.rows(acc), engine_digit_limbs(self.bits))
 
 
 class RowGadget(_Gadget):
