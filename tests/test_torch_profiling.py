@@ -196,6 +196,67 @@ def test_a_lut_call_records_its_spans(tiny_uint):
                                                   "plain_digit_steps": 1}
 
 
+def _tiny_split(device):
+    """TEST_TINY_SPLIT at its default key (group 2, Bg_e 2^8, drop 32: the
+    hi-plane scan), 4 lanes of Z_16, each with its own int64 test vector
+    (x + c mod 16 on lane c), and ``blind_rotate_split``'s key arguments."""
+    P_S, m, lanes = params.TEST_TINY_SPLIT, 16, 4
+    g = torch.Generator(device=device).manual_seed(13)
+    sk = key.SecretKey.generate(g, P_S)
+    ck = key.CloudKey.generate(g, sk, P_S, packing_key=False)
+    ct = lut.encrypt_message(g, torch.arange(lanes, device=device) % m, m,
+                             P_S.tlwe_lv0.alpha, sk.key_lv0, width=64)
+    gen = lut.Generator.new(m, P_S)
+    tv = torch.stack([torch.from_numpy(gen.generate_lookup_table(
+        lambda x, c=c: (x + c) % m).poly) for c in range(lanes)])
+    args = (ck.bsk_ntt, P_S, ck.bsk_ntt_drop)
+    kw = dict(group=ck.bsk_group, levels=ck.bsk_levels, bgbit=ck.bsk_bgbit)
+    return ct, tv.to(device), args, kw
+
+
+@pytest.fixture(scope="module")
+def tiny_split(one_thread):
+    return _tiny_split(torch.device("cpu"))
+
+
+def test_a_split_ring_rotation_records_its_test_vector_span(tiny_split):
+    """One ``blind_rotate_split`` call records one ``blind_rotate.testvec``
+    span (the gather by -b, the even/odd split and the low word's split
+    from the hi planes), closed before ``blind_rotate.steps`` opens; the
+    output is bit-equal with recording on and off."""
+    from zig_tfhe_tpu_torch.ops import split_ring
+
+    ct, tv, args, kw = tiny_split
+    with profiling.recording(False):
+        off = split_ring.blind_rotate_split(ct, tv, *args, **kw)
+    with profiling.recording():
+        on = split_ring.blind_rotate_split(ct, tv, *args, **kw)
+    assert torch.equal(on, off)
+    found = profiling.spans()
+    assert [s.name for s in found] == ["blind_rotate.testvec",
+                                       "blind_rotate.steps"]
+    testvec, steps = found
+    assert testvec.end_ns <= steps.start_ns
+    # no event pair and no sync count on the CPU
+    assert all(s.device_ms is None and s.syncs is None for s in found)
+
+
+@pytest.mark.cuda
+def test_the_split_ring_test_vector_span_adds_no_sync(dev):
+    """On the card the span, a call's root here, counts the synchronising
+    operations of its body: none, after a warm call."""
+    from zig_tfhe_tpu_torch.ops import split_ring
+
+    ct, tv, args, kw = _tiny_split(dev)
+    split_ring.blind_rotate_split(ct, tv, *args, **kw)
+    torch.cuda.synchronize()
+    with profiling.recording():
+        split_ring.blind_rotate_split(ct, tv, *args, **kw)
+    by = {s.name: s for s in profiling.spans()}
+    assert by["blind_rotate.testvec"].syncs == 0
+    assert by["blind_rotate.testvec"].device_ms > 0
+
+
 def test_two_calls_have_their_own_call_ids():
     with profiling.recording():
         for _ in range(2):

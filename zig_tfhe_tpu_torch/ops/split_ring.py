@@ -61,6 +61,7 @@ from zig_tfhe_tpu_torch.ops.cuda import split_step as _k2s
 from zig_tfhe_tpu_torch.ops.decomposition import modswitch, row_gadget
 from zig_tfhe_tpu_torch.ops.poly import matmul_i8, negacyclic_rotate
 from zig_tfhe_tpu_torch.params import SecurityParams
+from zig_tfhe_tpu_torch.utils import profiling
 
 
 def split(x: torch.Tensor) -> torch.Tensor:
@@ -329,23 +330,26 @@ def blind_rotate_split(tlwe_batch: torch.Tensor, testvec: torch.Tensor,
     The initial X^(-b) rotation is a coefficient-domain gather on the int64
     testvec (a full-torus NTT rotation would need |conv| <= 2^75, past the
     plan pool); the hi-plane scan then carries its int32 hi planes and
-    re-attaches the scan-invariant low word at the end.  The steps are
-    ops/blind_rotate_ntt.py:scan's."""
+    re-attaches the scan-invariant low word at the end.  The gather, the
+    split into even and odd views and the hi-plane split are span
+    ``blind_rotate.testvec``, as the direct ring's NTT rotation is.  The
+    steps are ops/blind_rotate_ntt.py:scan's."""
     form = _brn.key_form(params, bsk_split, drop_bits, group, levels, bgbit)
     N, B = params.N, tlwe_batch.shape[0]
     b_tilda = 2 * N - modswitch(tlwe_batch[:, params.n0], params)  # in [1, 2N]
-    acc = split(negacyclic_rotate(testvec.expand(B, 2, N), b_tilda))
-    if form.hi32:
-        # the low word is scan-invariant (every delta is a multiple of
-        # 2^32): carry the int32 hi planes only, with each component's
-        # offset below bit 32 added first (none on the set's own gadget)
-        low = [off % (1 << 32)
-               for off in row_gadget(params, form.levels, form.bits).offsets]
-        for c in (0, 1):
-            if low[c]:
-                acc[:, c] += low[c]
-        acc_lo = acc & 0xFFFFFFFF
-        acc = (acc >> 32).to(torch.int32)
+    with profiling.span("blind_rotate.testvec", device=tlwe_batch.device):
+        acc = split(negacyclic_rotate(testvec.expand(B, 2, N), b_tilda))
+        if form.hi32:
+            # the low word is scan-invariant (every delta is a multiple of
+            # 2^32): carry the int32 hi planes only, with each component's
+            # offset below bit 32 added first (none on the set's own gadget)
+            low = [off % (1 << 32) for off in
+                   row_gadget(params, form.levels, form.bits).offsets]
+            for c in (0, 1):
+                if low[c]:
+                    acc[:, c] += low[c]
+            acc_lo = acc & 0xFFFFFFFF
+            acc = (acc >> 32).to(torch.int32)
     ts = _brn.rotations(tlwe_batch, params, group, bsk_split.shape[0])
     acc = _brn.scan(acc.reshape(2 * B, 2, N // 2), bsk_split, ts, form,
                     _k2s_step, _plain_step).reshape(B, 2, 2, N // 2)

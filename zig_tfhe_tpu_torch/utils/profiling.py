@@ -47,9 +47,12 @@ gate and LUT paths record:
   warnings are counted, not shown;
 - span ``lut.apply`` (``models/lut.py:bootstrap_lut``, its whole body):
   a programmable bootstrap, as ``gates.apply`` is a gate call;
-- span ``blind_rotate.testvec`` (``ops/blind_rotate_ntt.py:
-  blind_rotate_ntt``): the test vector's rotation by -b through the NTT,
-  one vector or one a lane, and its expansion over the batch;
+- span ``blind_rotate.testvec``: the test vector's rotation by -b, one
+  vector or one a lane: on the direct ring (``ops/blind_rotate_ntt.py:
+  blind_rotate_ntt``) through the NTT, with its expansion over the batch;
+  on the split ring (``ops/split_ring.py:blind_rotate_split``) the
+  coefficient gather, the split into even and odd views and, on the
+  hi-plane scan, the split of the low word from the hi planes;
 - span ``blind_rotate.steps`` (the step loop: ``ops/blind_rotate_ntt.py:
   scan`` on both NTT rings, the Toeplitz scan of ``ops/blind_rotate.py``;
   attributes ``steps``; ``fused_steps``, the steps whose K1 also wrote
