@@ -59,7 +59,9 @@ K2's function at the split shape) then K1.  Phases:
   5. per path, B = 2048 heterogeneous gates with every launch count set to
      0 just before and read just after: accuracy must be 1.0, each kernel
      of the path must have been launched once per step and the others not
-     at all, and the first 16 lanes must be bit-equal to the port's CPU
+     at all (K2's ``shape_launches`` on every g3 step, its
+     ``uint_shape_launches`` on none), and the first 16 lanes must be
+     bit-equal to the port's CPU
      path (the plain PyTorch versions, which the repository's tests hold
      bit-equal to the JAX package);
   6. timings with CUDA events, per path: gates/s at B = 2048, B = 1
@@ -109,7 +111,9 @@ K2's function at the split shape) then K1.  Phases:
      512 (a multi-value rotation of 512 lanes, then a per-family select of
      2 x 512); bootstrap_lut_bivariate, xy + 1 mod 16, on uint4 at B = 256.
      uint4's bootstrap_lut must have had K1 write the planes on 409 of
-     its 410 steps (``digit_launches``).  Every lane of the uint4 runs must
+     its 410 steps (``digit_launches``) and run every K2 step on the
+     instance compiled at the uint keys' shape (``uint_shape_launches``
+     410, ``shape_launches`` 0).  Every lane of the uint4 runs must
      decrypt to what the test vector
      holds at its modswitched input phase (computed here with the secret
      key from the rounded mask and body, as the rotation rounds them: an
@@ -1047,6 +1051,8 @@ def _lut_phase(g, uint_keys, counters, gpu) -> dict:
     msgs = torch.arange(LUT_LANES, device=dev) % m
     ct = lut.encrypt_message(g, msgs, m, P4.tlwe_lv0.alpha, s4)
     digit_launches = k1.ntt_inverse_to_crt_acc.digit_launches
+    shapes = (k2.ntt_step_fused.shape_launches,
+              k2.ntt_step_fused.uint_shape_launches)
     out, launches["uint4"], first = _counted_run(
         counters, "uint4 bootstrap_lut", lambda: lut.bootstrap_lut(ct, table, ck4),
         expect(1, steps4))
@@ -1054,6 +1060,11 @@ def _lut_phase(g, uint_keys, counters, gpu) -> dict:
     _check(digit_launches == steps4 - 1, f"uint4 bootstrap_lut: "
            f"{digit_launches} K1 launches wrote the next limb planes, "
            f"expected {steps4 - 1}")
+    # every step on K2's instance compiled at the uint keys' shape
+    shapes = (k2.ntt_step_fused.shape_launches - shapes[0],
+              k2.ntt_step_fused.uint_shape_launches - shapes[1])
+    _check(shapes == (0, steps4), f"uint4 bootstrap_lut: K2 shape_launches, "
+           f"uint_shape_launches {shapes}, expected (0, {steps4})")
     _check(out.dtype == torch.int32 and tuple(out.shape) == (LUT_LANES, P4.n0 + 1),
            f"bootstrap_lut output {out.dtype} {tuple(out.shape)}")
     k = _ms_phase(ct, s4, P4)
@@ -1073,7 +1084,9 @@ def _lut_phase(g, uint_keys, counters, gpu) -> dict:
           f"every lane decrypts to f of its modswitched phase's bin; accuracy "
           f"against the messages {accuracy} ({off_bin} inputs modswitched out "
           f"of their bin); launches {launches['uint4']}, {digit_launches} "
-          f"K1 launches writing the next limb planes; first call "
+          f"K1 launches writing the next limb planes, "
+          f"ntt_step_fused.shape_launches {shapes[0]}, "
+          f"ntt_step_fused.uint_shape_launches {shapes[1]}; first call "
           f"{first:.2f} s; first {CPU_LUT_LANES} lanes bit-equal to the CPU "
           f"path ({time.perf_counter() - t0:.1f} s on the host)")
 
@@ -2648,6 +2661,7 @@ def main() -> int:
             fn.launches = 0
         k1.ntt_inverse_to_crt_acc.digit_launches = 0
         k2.ntt_step_fused.shape_launches = 0
+        k2.ntt_step_fused.uint_shape_launches = 0
         t0 = time.perf_counter()
         res = gates.apply_gates(ids, a, b, ck)
         torch.cuda.synchronize()
@@ -2659,11 +2673,13 @@ def main() -> int:
         # g3's steps (group 3, R = 4, row groups 4 and 2, 2048 lanes on
         # wide tiles) take K2's instance compiled at that shape
         shape = k2.ntt_step_fused.shape_launches
-        _check(shape == (expect["k2"] if name == "g3" else 0),
-               f"{name}: {shape} of {expect['k2']} K2 launches took the "
-               "shape instance")
+        uint_shape = k2.ntt_step_fused.uint_shape_launches
+        _check(shape == (expect["k2"] if name == "g3" else 0) and uint_shape == 0,
+               f"{name}: {shape} and {uint_shape} of {expect['k2']} K2 "
+               "launches took g3's and the uint keys' shape instances")
         print(f"{name}: K2 launches {launches[name]['k2']}, of them "
-              f"ntt_step_fused.shape_launches {shape}")
+              f"ntt_step_fused.shape_launches {shape}, "
+              f"ntt_step_fused.uint_shape_launches {uint_shape}")
         # one-limb keys: every K1 but the last writes the next digits
         digit_launches = k1.ntt_inverse_to_crt_acc.digit_launches
         _check(digit_launches == max(expect["k1"] - 1, 0),

@@ -229,13 +229,13 @@ def _step_inputs(dev, case, B, seed):
 @pytest.mark.parametrize("B", [1, 33, 64, 200, 2048, 2049])
 def test_step_kernel_matches_plain(dev, case, B):
     plan, bgbit, digits, bsk, ts = _step_inputs(dev, case, B, B)
-    before = (K2.ntt_step_fused.launches, K2.ntt_step_fused.shape_launches)
+    fn = K2.ntt_step_fused
+    before = (fn.launches, fn.shape_launches, fn.uint_shape_launches)
     out = K2.ntt_step_fused(digits, bsk, ts, plan, bgbit)
     torch.cuda.synchronize()
     shape = int(case == "128bit_g3" and B >= 200)
-    assert (K2.ntt_step_fused.launches,
-            K2.ntt_step_fused.shape_launches) == (before[0] + 1,
-                                                  before[1] + shape)
+    assert (fn.launches, fn.shape_launches, fn.uint_shape_launches) == (
+        before[0] + 1, before[1] + shape, before[2])
     assert out.dtype == torch.int8
     assert tuple(out.shape) == (plan.n_primes, B, 2, 2, plan.N)
     assert torch.equal(out, K2.ntt_step_fused_reference(digits, bsk, ts, plan,
@@ -284,15 +284,20 @@ def _limb_step_inputs(dev, name, B, seed):
 
 
 # B = 10 fills one uint4 tile, 11 spills one lane into a second, 1 and 10
-# take the narrow column tile
+# take the narrow column tile; at 200, 2048 and 2049 (a last tile of 9
+# lanes) uint4 takes the instance compiled at the uint keys' shape, uint1
+# (R = 4 rows of 2 limbs) the general one
 @pytest.mark.parametrize("name", ["uint1", "uint4"])
-@pytest.mark.parametrize("B", [1, 10, 11, 200, 2049])
+@pytest.mark.parametrize("B", [1, 10, 11, 200, 2048, 2049])
 def test_step_kernel_multi_limb_matches_plain(dev, name, B):
     plan, bgbit, drop, digits, bsk, ts, acc = _limb_step_inputs(dev, name, B, B)
-    before = K2.ntt_step_fused.launches
+    fn = K2.ntt_step_fused
+    before = (fn.launches, fn.shape_launches, fn.uint_shape_launches)
     out = K2.ntt_step_fused(digits, bsk, ts, plan, bgbit)
     torch.cuda.synchronize()
-    assert K2.ntt_step_fused.launches == before + 1
+    uint = int(name == "uint4" and B >= 200)
+    assert (fn.launches, fn.shape_launches, fn.uint_shape_launches) == (
+        before[0] + 1, before[1], before[2] + uint)
     assert tuple(out.shape) == (plan.n_primes, B, 2, 2, plan.N)
     assert torch.equal(out, K2.ntt_step_fused_reference(digits, bsk, ts, plan,
                                                          bgbit))
@@ -394,6 +399,18 @@ def test_uint4_bootstrap_lut_takes_the_limb_planes(dev, monkeypatch):
     assert torch.equal(out, want)
     assert torch.equal(lut.decrypt_message(out, 16, sk.key_lv0).long(),
                        (5 * msgs + 2) % 16)
+    # at 2048 lanes every step takes K2's instance compiled at the uint
+    # keys' shape
+    msgs = torch.arange(2048, device=dev) % 16
+    ct = lut.encrypt_message(g, msgs, 16, P.tlwe_lv0.alpha, sk.key_lv0)
+    fn = K2.ntt_step_fused
+    before = (fn.launches, fn.shape_launches, fn.uint_shape_launches)
+    out = lut.bootstrap_lut(ct, tab, ck)
+    torch.cuda.synchronize()
+    assert (fn.launches - before[0], fn.shape_launches - before[1],
+            fn.uint_shape_launches - before[2]) == (steps, 0, steps)
+    assert torch.equal(lut.decrypt_message(out, 16, sk.key_lv0).long(),
+                       (5 * msgs + 2) % 16)
 
 
 @pytest.mark.parametrize("knobs, steps", [({}, 234),
@@ -411,16 +428,18 @@ def test_128bit_launches_per_bootstrap(dev, knobs, steps):
     b = tlwe.encrypt_bool(g, y.to(dev), P.ksk_alpha, sk.key_lv0)
     before = (K2.ntt_step_fused.launches, K.ntt_inverse_to_crt_acc.launches,
               K.ntt_inverse_to_crt_acc.digit_launches,
-              K2.ntt_step_fused.shape_launches)
+              K2.ntt_step_fused.shape_launches,
+              K2.ntt_step_fused.uint_shape_launches)
     out = gates.apply_gates(ids.to(dev), a, b, ck)
     torch.cuda.synchronize()
     # one-limb digits: every K1 but the last writes the next step's digits;
-    # 20 lanes take narrow tiles, so no step takes K2's shape instance
+    # 20 lanes take narrow tiles, so no step takes a K2 shape instance
     assert (K2.ntt_step_fused.launches - before[0],
             K.ntt_inverse_to_crt_acc.launches - before[1],
             K.ntt_inverse_to_crt_acc.digit_launches - before[2],
-            K2.ntt_step_fused.shape_launches - before[3]) == (
-                steps, steps, steps - 1, 0)
+            K2.ntt_step_fused.shape_launches - before[3],
+            K2.ntt_step_fused.uint_shape_launches - before[4]) == (
+                steps, steps, steps - 1, 0, 0)
     assert np.array_equal(tlwe.decrypt_bool(out, sk.key_lv0).cpu().numpy(), want)
 
 
@@ -902,15 +921,18 @@ def test_split_barrett_exhaustive_on_card(dev, p):
         K2S.barrett_mismatches(p, "cpu", 0, 16)
 
 
-@pytest.mark.parametrize("p", (40961, 59393, 61441))
+@pytest.mark.parametrize("p", (12289, 18433, 40961, 59393, 61441))
 def test_step_barrett_exhaustive_on_card(dev, p):
-    """K2's shape instance's Barrett (the rounding by an f32 add) equals
+    """K2's shape instances' Barrett (the rounding by an f32 add) equals
     the general instance's __float2int_rn form on all 2^32 int32, for each
-    prime of g3's plan, run by the kernel's own device functions; the
-    check refuses a prime below ``MIN_PRIME`` and a CPU device."""
+    prime of g3's and uint4's plans, run by the kernel's own device
+    functions; the check refuses a prime below ``MIN_PRIME`` and a CPU
+    device."""
     plan = ntt.plan_for_params(params.SECURITY_128_BIT, 5, 3, (2, 2), bgbit=7,
                                pseudorandom_key=True)
-    assert p in plan.primes
+    uplan = ntt.plan_for_params(params.SECURITY_UINT4, 0, 2, (1, 1), bgbit=22,
+                                pseudorandom_key=True)
+    assert p in plan.primes + uplan.primes
     assert K2.barrett_mismatches(p, dev) == 0
     with pytest.raises(ValueError, match="not exact"):
         K2.barrett_mismatches(K2.MIN_PRIME - 1, dev, 0, 16)

@@ -222,14 +222,26 @@ def test_step_kernel_source_matches_plain(emu, case):
 # limbs (8 planes, 8 lanes a tile), 4 primes, N = 256; uint4: Bg_e 2^22, (1,
 # 1) levels, 3 limbs (6 planes, 10 lanes a tile), 5 primes, N = 1024, where
 # the lower limbs take the reduce-then-combine branch at the three large
-# primes and the single add at the two small ones.  B = 11 at uint4 ends one lane into
-# the second row tile; one SM walks every tile of the tiny set.
+# primes and the single add at the two small ones.  uint4's launches on wide
+# tiles that give every SM one take the instance compiled at the uint keys'
+# shape (``shape_instance``; _K2_UINT_SHAPE_CASES: two threads of 5 lanes a
+# column): B = 11 ends one lane into the second row tile, B = 17 seven
+# lanes in (a thread with 2 live lanes and 3 dead), and one SM walks all 80
+# tiles of B = 13 (many rounds of the ring and of the two d_hat buffers).
+# At 81 SMs the 80 wide tiles of B = 11 do not give every SM one: the
+# general instance, on narrow tiles.  One SM walks every tile of the tiny
+# set.
 _K2_LIMB_CASES = {
     "tiny_uint_B5": ("tiny_uint", 5, 4),
     "tiny_uint_B17_one_block": ("tiny_uint", 17, 1),
     "uint4_B3": ("uint4", 3, 4),
     "uint4_B11_ragged": ("uint4", 11, 8),
+    "uint4_B17_ragged": ("uint4", 17, 4),
+    "uint4_B13_one_block": ("uint4", 13, 1),
+    "uint4_B11_general": ("uint4", 11, 81),
 }
+_K2_UINT_SHAPE_CASES = {"uint4_B3", "uint4_B11_ragged", "uint4_B17_ragged",
+                        "uint4_B13_one_block"}
 
 
 @pytest.mark.parametrize("case", sorted(_K2_LIMB_CASES))
@@ -257,13 +269,16 @@ def test_step_kernel_source_multi_limb_matches_plain(emu, case):
     assert single.shape == (plan.n_primes, n_dl)
     if name == "uint4":     # lower limbs: single add at the two small primes only
         assert single[:, -1].all() and single[:, :-1].sum() == 4
+    shape = K2.shape_instance(plan, 2, R, n_dl, B, sms)
+    assert shape == (K2.UINT_SHAPE if case in _K2_UINT_SHAPE_CASES
+                     else K2.GENERAL)
     v = torch.full((plan.n_primes, B, 2, 2, N), 7, dtype=torch.int8)
     emu["ntt_step"].emu_set_sm_count(sms)
     err = emu["ntt_step"].ztfhe_ntt_step_fused(
         digits.data_ptr(), bsk.data_ptr(), ts.data_ptr(),
         tabs.fwd_lo_t.data_ptr(), tabs.fwd_hi_t.data_ptr(), tabs.rot.data_ptr(),
         v.data_ptr(), _ptr(primes), _ptr(inv_p), _ptr(groups), _ptr(single),
-        plan.n_primes, 2, B, R, n_dl, N, 0, None)
+        plan.n_primes, 2, B, R, n_dl, N, shape, None)
     assert err == 0
     assert torch.equal(v, K2.ntt_step_fused_reference(digits, bsk, ts, plan,
                                                       bgbit))
@@ -393,19 +408,22 @@ def test_split_barrett_matches_conversion_form(emu, split_keys):
 
 
 def test_step_barrett_matches_conversion_form(emu):
-    """K2's shape instance's Barrett (the rounding as an f32 add of 1.5 *
+    """K2's shape instances' Barrett (the rounding as an f32 add of 1.5 *
     2^23) equals the general instance's conversion form on the edge
-    values, the ties and 10^6 seeded int32, at each prime of g3's plan;
-    the kernel's own mismatch counter finds none over the 2^21 int32
-    around 0; both entries refuse a prime below 2^11, and the step entry
-    refuses the shape instance where the launch lacks its shape."""
+    values, the ties and 10^6 seeded int32, at each prime of g3's and
+    uint4's plans; the kernel's own mismatch counter finds none over the
+    2^21 int32 around 0; both entries refuse a prime below 2^11, and the
+    step entry refuses a shape instance where the launch lacks its shape."""
     plan = ntt.plan_for_params(TP.SECURITY_128_BIT, 5, 3, (2, 2), bgbit=7,
                                pseudorandom_key=True)
     assert plan.primes == (40961, 59393, 61441)
+    uplan = ntt.plan_for_params(TP.SECURITY_UINT4, 0, 2, (1, 1), bgbit=22,
+                                pseudorandom_key=True)
+    assert uplan.primes == (12289, 18433, 40961, 59393, 61441)
     rng = np.random.default_rng(2**21)
     lib = emu["ntt_step"]
     lib.emu_set_sm_count(4)
-    for p in plan.primes:
+    for p in sorted(set(plan.primes) | set(uplan.primes)):
         edges = _barrett_edges(p)
         inv = np.float32(1.0 / p)
         f = edges.astype(np.float32) * inv
@@ -433,6 +451,24 @@ def test_step_barrett_matches_conversion_form(emu):
                         (16, 4, 1024, np.array([3, 2, 2], np.int32))):
         args[9] = _ptr(rg)
         assert lib.ztfhe_ntt_step_fused(*args, B, R, 1, N, 1, None) != 0
+    # the uint keys' instance: refused at group 3, at other rows, limbs or
+    # row groups, at N % 128 != 0, below 2^11 and above the primes whose
+    # Barretts fit int16 halves; no fourth instance
+    primes, inv_p, groups, single = K2._host_scalars(uplan, 2, 22)
+    args = [None] * 7 + [_ptr(primes), _ptr(inv_p), _ptr(groups), _ptr(single),
+                         uplan.n_primes]
+    small = np.array([2039, *uplan.primes[1:]], np.int32)
+    large = np.array([*uplan.primes[:-1], 64901], np.int32)
+    for group, R, n_dl, N, rg, ps in (
+            (3, 2, 1, 1024, groups, primes), (2, 3, 3, 1024, groups, primes),
+            (2, 2, 2, 1024, groups, primes), (2, 2, 3, 64, groups, primes),
+            (2, 2, 3, 1024, np.full(5, 4, np.int32), primes),
+            (2, 2, 3, 1024, groups, small), (2, 2, 3, 1024, groups, large)):
+        args[9], args[7] = _ptr(rg), _ptr(ps)
+        assert lib.ztfhe_ntt_step_fused(*args, group, 16, R, n_dl, N, 2,
+                                        None) != 0
+    args[9], args[7] = _ptr(groups), _ptr(primes)
+    assert lib.ztfhe_ntt_step_fused(*args, 2, 16, 2, 3, 1024, 3, None) != 0
 
 
 # (B, N, bits, drop, emulated SM count): the entry point takes 64-wide column

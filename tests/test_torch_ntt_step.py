@@ -308,12 +308,17 @@ def test_wrapper_runs_plain_version_on_cpu(case):
 # whose instance the wrapper picks on a card of 132 SMs.  Only g3's key
 # shape at 2048 lanes (group 3, R = 4 one-limb rows, row groups 4, 2, 2,
 # wide tiles) takes the instance compiled at that shape.
+# name -> (params, drop, group, levels, engine bgbit, B, the instance taken
+# on a card of 132 SMs).  uint4's wide tiles give every SM one from B = 31
+# (4 row tiles of 10 lanes, 160 tiles); 30 lanes make 120.
 _ROUTES = {
-    "g3_b2048": ("128bit", 5, 3, (2, 2), 7, 2048),
-    "g2_b2048": ("128bit", 7, 2, (3, 2), 6, 2048),
-    "uint4_b2048": ("uint4", 0, 2, (1, 1), 22, 2048),
-    "tiny_g3_b2048": ("tiny", 0, 3, (2, 2), 6, 2048),
-    "g3_b1": ("128bit", 5, 3, (2, 2), 7, 1),
+    "g3_b2048": ("128bit", 5, 3, (2, 2), 7, 2048, K2.G3_SHAPE),
+    "g2_b2048": ("128bit", 7, 2, (3, 2), 6, 2048, K2.GENERAL),
+    "uint4_b2048": ("uint4", 0, 2, (1, 1), 22, 2048, K2.UINT_SHAPE),
+    "uint4_b31": ("uint4", 0, 2, (1, 1), 22, 31, K2.UINT_SHAPE),
+    "uint4_b30": ("uint4", 0, 2, (1, 1), 22, 30, K2.GENERAL),
+    "tiny_g3_b2048": ("tiny", 0, 3, (2, 2), 6, 2048, K2.GENERAL),
+    "g3_b1": ("128bit", 5, 3, (2, 2), 7, 1, K2.GENERAL),
 }
 
 
@@ -331,30 +336,32 @@ class _RecordingLibrary:
 
 @pytest.mark.parametrize("case", sorted(_ROUTES))
 def test_wrapper_routes_the_shape_instance(case):
-    """The launch path picks the shape instance for g3's key shape at B =
-    2048 alone (g2, uint4's 3-limb digits, TEST_TINY's group 3 at N = 64
-    and B = 1 take the general one), and counts it in
-    ``ntt_step_fused.shape_launches`` beside ``launches``."""
-    name, drop, group, levels, bgbit, B = _ROUTES[case]
+    """The launch path picks g3's shape instance for g3's key shape at B =
+    2048, the uint keys' for uint4's 3-limb digits where its wide tiles
+    give every SM one, and the general one elsewhere (g2, uint4 at 30
+    lanes, TEST_TINY's group 3 at N = 64, B = 1); it counts each launch in
+    ``ntt_step_fused.launches`` and a shape instance's also in
+    ``shape_launches`` (g3's) or ``uint_shape_launches`` (the uint keys')."""
+    name, drop, group, levels, bgbit, B, want = _ROUTES[case]
     P = TP.PARAMS_BY_NAME[name]
     plan = tntt.plan_for_params(P, drop, group, levels, bgbit=bgbit,
                                 pseudorandom_key=True)
     n_dl, R = tntt.engine_digit_limbs(bgbit), sum(levels)
     assert (n_dl == 3) == (name == "uint4")
-    want = case == "g3_b2048"
     assert K2.shape_instance(plan, group, R, n_dl, B, 132) == want
     digits = torch.empty((B, R * n_dl, plan.N), dtype=torch.int8)
     bsk = torch.empty(((1 << group) - 1, plan.n_primes, R, 2, plan.N),
                       dtype=torch.int16)
     ts = torch.empty((group, B), dtype=torch.int32)
     lib = _RecordingLibrary()
-    before = (K2.ntt_step_fused.launches, K2.ntt_step_fused.shape_launches)
+    fn = K2.ntt_step_fused
+    before = (fn.launches, fn.shape_launches, fn.uint_shape_launches)
     v = K2._launch(lib, digits, bsk, ts, plan, bgbit, 132, None)
     assert tuple(v.shape) == (plan.n_primes, B, 2, 2, plan.N)
-    assert lib.shapes == [int(want)]
-    assert (K2.ntt_step_fused.launches,
-            K2.ntt_step_fused.shape_launches) == (before[0] + 1,
-                                                  before[1] + int(want))
+    assert lib.shapes == [want]
+    assert (fn.launches, fn.shape_launches, fn.uint_shape_launches) == (
+        before[0] + 1, before[1] + (want == K2.G3_SHAPE),
+        before[2] + (want == K2.UINT_SHAPE))
 
 
 def test_wrapper_refuses_what_it_cannot_take():

@@ -126,7 +126,7 @@
 // the product warpgroup keeps its 128 sums in registers through setmaxnreg
 // (168 or 232 registers against 96 or 128 for the others).
 //
-// The shape instance (template argument RC = 4).  g3's steps -- group 3,
+// g3's shape instance (template argument RC = 4).  g3's steps -- group 3,
 // R = 4 one-limb rows, row groups 4 at p = 40,961 and 2 at 59,393 and
 // 61,441, 64 x 128 tiles -- run an instance of their own whose pointwise
 // stage is K2s's design (csrc/split_step.cu) at K2's arithmetic.  Measured
@@ -152,19 +152,68 @@
 // 176.7; every Barrett as a shift 162.6.  The stages now overlap only in
 // part, and the product stage alone (its ~1 GB of L2 -> SM traffic a
 // call) is the next floor: the cluster multicast above.  Every other
-// launch (group 2, multi-limb digits, group 3 at another R or row group,
-// the narrow tiles) runs the general instance (RC = 0), whose code is
-// unchanged.  Tried and slower on the same card (CUDA graphs, g3, B =
+// launch (group 2 outside the uint keys' instance below, group 3 at
+// another R or row group, the narrow tiles) runs the general instance (RC
+// = 0), whose code is unchanged.  Tried and slower on the same card (CUDA graphs, g3, B =
 // 2048): the forward combine's Barretts by the f32 add (196 against 183
 // us); the next tile's psi values fetched into registers during this
 // tile's (198 against 181), also with its key tile by cp.async into the
 // other buffer, untransposed (196 against 183).
 //
+// The uint keys' instance (template argument RC = kUintRows = 2 at G = 2).
+// The steps of uint2 to uint8 -- group 2, R = 2 rows of 3-limb digits (Bg_e
+// 2^18 to 2^23 at (1, 1) levels), row group 2 at every prime, 64 x 128
+// tiles of 10 lanes -- run an instance of their own.  Measured before it
+// (tools/torch_kernel_probe.py --split, uint4, B = 2048, NVIDIA H100 80GB
+// HBM3 at 700 W), the general instance took 465.2 us, 362.6 without its
+// pointwise stage, 354.5 without its product stage; without the sums and
+// the Horner join 399.7, the combine 445.0, the gather 440.3, the stores
+// 462.9; every Barrett as a shift 411.1.  Its thread walked the tile's 10
+// lanes 3 at a time (4 rounds, 2 of the last round's 3 lanes idle), each
+// lane reading its 12 key residues from shared memory one at a time, with
+// R, n_dl and the row group at run time.  So this instance's pointwise
+// threads run kUintLanes = 5 lanes of a column (a tile's 10 lanes in its
+// two threads, no idle round), the column's 12 key residues and the
+// lanes' psi values loaded into registers straight from device memory
+// before d_hat is waited for (no key tile, no barrier), R, n_dl, the row
+// group and the Horner compile-time, every Barrett by the f32 add; the
+// product warpgroup has 168 registers, the pointwise threads 160 (ptxas:
+// 128 at launch, no spills).  With that alone the pointwise stage alone
+// fell to 143.8 us, but the whole only to 429.6: the product stage alone
+// read 348.2 and every Barrett as a shift 281.5, so the product
+// warpgroup's forward combine -- 1 or 3 conversion Barretts a value, its
+// limb branches divergent in every warp, serial with the warpgroup's
+// wgmmas -- held the kernel.  So this instance's product warpgroup leaves
+// each plane's last Barrett to the pointwise threads: it stores lo + (hi
+// << 8) where the single add holds, else barrett(lo) and barrett(hi) as
+// int16 halves, f32-add Barretts picked by a select (none at a prime whose
+// limbs all take the single add), and keeps d_hat's 60 plane rows alone,
+// which with no key tile leaves room for a fourth stage.  Measured the
+// same way, it takes 342.9 us: 261.7 without its pointwise stage, 155.9
+// without its product stage; without the sums 314.2, the combine 335.0,
+// the gather 338.1, the stores 342.6; every Barrett as a shift 308.4; the
+// parent's general instance 460-477 us and this one 335-340 in turns
+// from CUDA graphs.  The product stage alone (~2.7 GB of L2 -> SM
+// traffic a launch, 10 TB/s) is the next floor: the cluster multicast
+// above.  Tried and slower or no better (the same card, in turns): the
+// general epilogue with f32-add Barretts (398-407 us) or with selects
+// for its branches (conversion 387-390, f32 add 375-384), the latter
+// with d_hat as int16 and four stages (361-376) or with three d_hat
+// buffers (363-380), the Horner's or the planes' Barretts by conversion
+// (379-381, 362-363), the packed planes in all 64 rows and three stages
+// (355-366) or behind a divergent branch (418-422), one pointwise
+// warpgroup of 10 lanes a thread (427-504); and, timed in a K2 + K1 step
+// loop, the next tile's psi values and keys fetched during this tile's,
+// or a psi table of N rows (psi^{(t + N)(2k + 1)} = -psi^{t(2k + 1)}).
+// In that loop, as in the cell, the instance reads ~375-383 us against
+// ~340 alone (the general instance ~10 us more than alone); why is open.
+//
 // Exactness.  Barrett is round(f32(x) * f32(1/p)) half to even
 // (__float2int_rn(__fmul_rn(__int2float_rn(x), inv_p))), like jnp.round;
-// the shape instance's pointwise stage computes the same function with the
-// rounding as an f32 add (barrett_add, exact for p >= 2^11; the check
-// kernels hold the two equal on every int32); every wrapping sum and
+// the shape instances' pointwise stages (and the uint keys' forward
+// combine) compute the same function with the rounding as an f32 add
+// (barrett_add, exact for p >= 2^11; the check kernels hold the two equal
+// on every int32); every wrapping sum and
 // product is uint32 (signed overflow is undefined in C++); the build passes
 // -fmad=false.  Since every Barrett sees the same int32 as in the plain
 // version, the two are compared for equality.
@@ -186,11 +235,13 @@ constexpr int BM = 64;          // wgmma rows per tile: TB = BM / (R n_dl)
 // the group-3 stage does not (measured on an H100 at B = 2048: group 2 245
 // us with three against 281 us with two; group 3 387 us with three, with
 // spills, against 339 us with two at 128 registers).
-__host__ __device__ constexpr int pointwise_groups(int group) {
-  return group == 2 ? 3 : 2;
+// The two shape instances (RC != 0) run two pointwise warpgroups at either
+// group.
+__host__ __device__ constexpr int pointwise_groups(int group, int rc = 0) {
+  return group == 2 && rc == 0 ? 3 : 2;
 }
-__host__ __device__ constexpr int threads(int group) {
-  return 128 * (pointwise_groups(group) + 2);
+__host__ __device__ constexpr int threads(int group, int rc = 0) {
+  return 128 * (pointwise_groups(group, rc) + 2);
 }
 // registers a thread: the launch gives every thread base_regs; the producer
 // keeps 24 and the product warpgroup takes what that frees
@@ -212,6 +263,18 @@ constexpr int kShapePointwiseRegs =
     base_regs(3) + ((base_regs(3) - 24) - (kShapeProductRegs - base_regs(3))) *
                        128 / (128 * pointwise_groups(3)) / 8 * 8;
 static_assert(kShapePointwiseRegs == 160, "registers");
+// The instance compiled at the uint keys' shape (group 2, R = kUintRows
+// digit rows of kUintLimbs int8 limbs, row group 2 at every prime, 64 x 128
+// tiles of 10 lanes, whose 60 limb planes are the only d_hat rows it keeps):
+// the block, registers included, is the g3 instance's, and each pointwise
+// thread runs kUintLanes lanes of its column.
+constexpr int kUintRows = 2;
+constexpr int kUintLimbs = 3;
+constexpr int kUintLanes = 5;
+constexpr int kUintPlaneRows = 60;   // (64 / (R n_dl)) lanes x R n_dl planes
+// its planes carry Barretts as int16 halves: |barrett| <= p/2 + 320 < 2^15
+constexpr int kMaxPackedPrime = 2 * (32767 - 320);
+static_assert(threads(2, kUintRows) == threads(3, kShapeRows), "registers");
 constexpr int kMinPrime = 2048;   // barrett_add's rounding is exact for p >= 2^11
 constexpr int kBuffers = 2;     // d_hat buffers between product and pointwise
 constexpr int kMaxStages = 8;
@@ -468,6 +531,80 @@ __device__ __forceinline__ void shape_lanes(const int* d_col, const int16_t* k_c
                            : static_cast<int>(sum[l][c]);
 }
 
+// The uint instance's group-2 step for kUintLanes lanes (b, k), (b + 1, k),
+// ... of one column, from what its product warpgroup left of each limb
+// plane (a word w: the single add lo + (hi << 8) where single[q] holds for
+// the plane's limb q, else barrett(lo) and barrett(hi) as its low and high
+// int16 halves): the plane's last Barrett y_q = barrett(w) or
+// barrett(lo' + 256 hi'), each digit row joined by Horner (limb_horner),
+// its pointwise sums against the column's key residues (held in registers
+// for all the lanes: key[s][r][c]), then the combine
+// barrett(barrett(d1 u1 + d2 u2) + barrett(d12 u12)): the general
+// instance's arithmetic at R = kUintRows, n_dl = kUintLimbs and row group
+// 2, Barrett for Barrett, each rounded by the f32 add.  d_col: the lanes'
+// plane words, lane l row r limb q at d_col[((l * R + r) * L + q) * LDD];
+// raw: the lanes' psi values rot[t_j(b)][k].
+template <int BN>
+__device__ __forceinline__ void uint_lanes(const int* d_col,
+                                           const bool (&single)[kUintLimbs],
+                                           const int (&key)[3][kUintRows][2],
+                                           const int (&raw)[kUintLanes][2], int p,
+                                           float inv_p, int (&out)[kUintLanes][2]) {
+  constexpr int R = kUintRows, L = kUintLimbs, LDD = BN + 8;
+#pragma unroll
+  for (int l = 0; l < kUintLanes; ++l) {
+    uint32_t d[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int* row = d_col + (l * R + r) * L * LDD;
+      auto y = [&](int q) {
+        const int w = row[q * LDD];
+        return barrett_add(single[q] ? u32(w)
+                                     : u32(static_cast<int16_t>(w & 0xFFFF)) +
+                                           u32(w >> 16) * 256u,
+                           p, inv_p);
+      };
+      int x = row[(L - 1) * LDD];
+      if constexpr (kSums) {
+        x = y(L - 1);
+#pragma unroll
+        for (int q = L - 2; q >= 0; --q)
+          x = barrett_add(u32(x) * 256u + u32(y(q)), p, inv_p);
+      }
+      d[r] = u32(x);
+    }
+    int u[3][2];
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if constexpr (!kSums) {
+          u[s][c] = static_cast<int>(d[(s + c) % R] ^ u32(2 * s + c));
+        } else {
+          // one row group: u = barrett of the group's Barrett (pointwise())
+          const uint32_t part = d[0] * u32(key[s][0][c]) + d[1] * u32(key[s][1][c]);
+          u[s][c] = barrett_add(u32(barrett_add(part, p, inv_p)), p, inv_p);
+        }
+      }
+    if constexpr (!kCombine) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        out[l][c] = static_cast<int>(u32(raw[l][1]) + u32(u[0][c]) + u32(u[1][c]) +
+                                     u32(u[2][c]));
+    } else {
+      const int d1 = raw[l][0] - 1, d2 = raw[l][1] - 1;
+      const int d12 = barrett_add(u32(d1) * u32(d2), p, inv_p);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int r1 =
+            barrett_add(u32(d1) * u32(u[0][c]) + u32(d2) * u32(u[1][c]), p, inv_p);
+        const int r2 = barrett_add(u32(d12) * u32(u[2][c]), p, inv_p);
+        out[l][c] = barrett_add(u32(r1) + u32(r2), p, inv_p);
+      }
+    }
+  }
+}
+
 // shared memory of one block: the ring, then two buffers of d_hat [BM][BN +
 // 8] int32, the key tile [S * R * 2][BN] int16 and the tile's rotation
 // amounts [G][TB] int32, then the barriers
@@ -477,12 +614,17 @@ __host__ __device__ constexpr int stage_bytes(int bn, int bk) {
 __host__ __device__ constexpr int key_tile_bytes(int group, int R, int bn) {
   return ((1 << group) - 1) * R * 2 * bn * 2;
 }
-__host__ __device__ constexpr int buffer_bytes(int group, int R, int bn) {
-  return BM * (bn + 8) * 4 + key_tile_bytes(group, R, bn) + BM * group * 4;
+// (the uint keys' instance: d_hat's 60 plane rows alone, which leaves room
+// for a fourth stage)
+__host__ __device__ constexpr int buffer_bytes(int group, int R, int bn, int rc = 0) {
+  return group == 2 && rc
+             ? kUintPlaneRows * (bn + 8) * 4
+             : BM * (bn + 8) * 4 + key_tile_bytes(group, R, bn) + BM * group * 4;
 }
 // stages that fit beside the two buffers (at most kMaxStages)
-__host__ __device__ constexpr int stages_that_fit(int group, int R, int bn, int bk) {
-  const int left = kSmemCap - 1024 - kBuffers * buffer_bytes(group, R, bn) -
+__host__ __device__ constexpr int stages_that_fit(int group, int R, int bn, int bk,
+                                                  int rc = 0) {
+  const int left = kSmemCap - 1024 - kBuffers * buffer_bytes(group, R, bn, rc) -
                    kBarrierBytes;
   const int n = left / stage_bytes(bn, bk);
   return n > kMaxStages ? kMaxStages : n;
@@ -497,10 +639,12 @@ __host__ __device__ constexpr int stages_that_fit(int group, int R, int bn, int 
 // rot:    int16 [P, 2N, N]      centered psi^{t(2k+1)}
 // v:      int8 [P, B, 2, 2, N]  limb planes (lo, hi) of the residues
 // RC: 0 for the general instance (R and n_dl at run time), kShapeRows for
-// the shape instance (group 3, R = RC one-limb rows, BN = 128, every row
-// group 4 or 2, every prime >= kMinPrime; the entry point checks them)
+// g3's shape instance (group 3, R = RC one-limb rows, BN = 128, every row
+// group 4 or 2, every prime >= kMinPrime), kUintRows for the uint keys'
+// (group 2, R = RC rows of kUintLimbs limbs, BN = 128, every row group 2,
+// every prime >= kMinPrime); the entry point checks them
 template <int G, int BN, int BK, int RC>
-__global__ void __launch_bounds__(threads(G), 1)
+__global__ void __launch_bounds__(threads(G, RC), 1)
 ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
                       const __grid_constant__ CUtensorMap map_lo,
                       const __grid_constant__ CUtensorMap map_hi,
@@ -509,11 +653,13 @@ ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
                       const int16_t* __restrict__ rot, int8_t* __restrict__ v,
                       StepParams sp, int n_primes, int B, int R_arg,
                       int n_dl_arg, int N, int n_stages) {
-  static_assert(RC == 0 || (G == 3 && RC == kShapeRows && BN == 128), "shape");
+  static_assert(RC == 0 || (G == 3 && RC == kShapeRows && BN == 128) ||
+                    (G == 2 && RC == kUintRows && BN == 128),
+                "shape");
   const int R = RC ? RC : R_arg;
-  const int n_dl = RC ? 1 : n_dl_arg;
+  const int n_dl = RC == 0 ? n_dl_arg : G == 2 ? kUintLimbs : 1;
   constexpr int S = (1 << G) - 1;
-  constexpr int kPointwiseGroups = pointwise_groups(G);
+  constexpr int kPointwiseGroups = pointwise_groups(G, RC);
   constexpr int kPointwiseThreads = 128 * kPointwiseGroups;
   constexpr int REGS = BN / 2;     // sums per thread of a 64 x BN tile
   constexpr int LDD = BN + 8;      // d_hat row stride (words): the int2 stores
@@ -522,7 +668,7 @@ ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
   unsigned char* tiles = align_1024(smem);
   unsigned char* bufs = tiles + n_stages * stage_bytes(BN, BK);
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      bufs + kBuffers * buffer_bytes(G, R, BN));
+      bufs + kBuffers * buffer_bytes(G, R, BN, RC));
   uint64_t* empty = full + kMaxStages;
   uint64_t* d_full = empty + kMaxStages;    // d_hat of a buffer is written
   uint64_t* d_empty = d_full + kBuffers;    // ... and has been read
@@ -626,30 +772,134 @@ ntt_step_fused_kernel(const __grid_constant__ CUtensorMap map_d,
       // limb combine + Barrett -> d_hat, in the buffer the pointwise
       // warpgroups have finished with (its first use is free)
       const int buf = j % kBuffers;
-      int* d_s = reinterpret_cast<int*>(bufs + buf * buffer_bytes(G, R, BN));
+      int* d_s = reinterpret_cast<int*>(bufs + buf * buffer_bytes(G, R, BN, RC));
       mbar_wait(d_empty + buf, ((j / kBuffers) & 1) ^ 1);
       // a thread's two rows warp * 16 + g (+ 8) are limb planes l = row % n_dl
       const int* single_p = sp.single_add + pi * kMaxLimbs;
       const bool single0 = single_p[(warp * 16 + g) % n_dl] != 0;
       const bool single1 = single_p[(warp * 16 + g + 8) % n_dl] != 0;
+      if constexpr (G == 2 && RC != 0) {
+        // the uint keys' instance leaves each plane's last Barrett to the
+        // pointwise threads (uint_lanes): it stores the single add lo + (hi
+        // << 8) where that holds, else barrett(lo) and barrett(hi) packed
+        // as int16 halves (|barrett| <= p/2 + 320 < 2^15: every prime <=
+        // kMaxPackedPrime; a plan's are <= 63,000), picked by a select, so
+        // that the warp, whose rows hold all three limbs, does not diverge;
+        // at a prime where every limb takes the single add, no Barrett.
+        // Only the 60 plane rows are kept.
+        const bool all_single = single_p[0] && single_p[1] && single_p[2];
 #pragma unroll
-      for (int i = 0; i < REGS; i += 2) {
-        const bool single = (i / 2) % 2 ? single1 : single0;
-        int y[2];
+        for (int i = 0; i < REGS; i += 2) {
+          const bool single = (i / 2) % 2 ? single1 : single0;
+          int w[2];
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int lo = zlo[i + jj], hi = zhi[i + jj];
-          y[jj] = single
-                      ? barrett(u32(lo) + (u32(hi) << 8), p, inv_p)
-                      : barrett(u32(barrett(u32(lo), p, inv_p)) +
-                                    u32(barrett(u32(hi), p, inv_p)) * 256u,
-                                p, inv_p);
+          for (int jj = 0; jj < 2; ++jj) {
+            const int lo = zlo[i + jj], hi = zhi[i + jj];
+            const uint32_t sum = u32(lo) + (u32(hi) << 8);
+            uint32_t packed = sum;
+            if (!all_single)
+              packed = (u32(barrett_add(u32(lo), p, inv_p)) & 0xFFFFu) |
+                       (u32(barrett_add(u32(hi), p, inv_p)) << 16);
+            w[jj] = static_cast<int>(single ? sum : packed);
+          }
+          const int r = warp * 16 + g + 8 * ((i / 2) % 2);
+          const int c = 8 * (i / 4) + t * 2;
+          if (r < kUintPlaneRows)
+            *reinterpret_cast<int2*>(d_s + r * LDD + c) = make_int2(w[0], w[1]);
         }
-        const int r = warp * 16 + g + 8 * ((i / 2) % 2);
-        const int c = 8 * (i / 4) + t * 2;
-        *reinterpret_cast<int2*>(d_s + r * LDD + c) = make_int2(y[0], y[1]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < REGS; i += 2) {
+          const bool single = (i / 2) % 2 ? single1 : single0;
+          int y[2];
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int lo = zlo[i + jj], hi = zhi[i + jj];
+            y[jj] = single
+                        ? barrett(u32(lo) + (u32(hi) << 8), p, inv_p)
+                        : barrett(u32(barrett(u32(lo), p, inv_p)) +
+                                      u32(barrett(u32(hi), p, inv_p)) * 256u,
+                                  p, inv_p);
+          }
+          const int r = warp * 16 + g + 8 * ((i / 2) % 2);
+          const int c = 8 * (i / 4) + t * 2;
+          *reinterpret_cast<int2*>(d_s + r * LDD + c) = make_int2(y[0], y[1]);
+        }
       }
       mbar_arrive(d_full + buf);   // all 128 threads: their stores are out
+    }
+  } else if constexpr (G == 2 && RC != 0) {
+    // -- pointwise warpgroups at the uint keys' shape: thread = column k and
+    // the kUintLanes lanes l0 .. l0 + kUintLanes - 1 of the tile; the
+    // column's 12 key residues and the lanes' psi values are loaded into
+    // registers straight from device memory, in flight while d_hat is
+    // finished ---------------------------------------------------------------
+    reg_inc<kShapePointwiseRegs>();
+    const int pt = tid;
+    const int k = pt % BN;
+    const int l0 = pt / BN * kUintLanes;
+    static_assert(kPointwiseThreads / BN * kUintLanes == BM / (RC * kUintLimbs),
+                  "lanes");
+    int j = 0;
+    for (int id = blockIdx.x; id < n_tiles; id += gridDim.x, ++j) {
+      const int rt = id % nrt, ct = (id / nrt) % nct, pi = id / (nrt * nct);
+      const int b0 = rt * tb;
+      const int nb = min(tb, B - b0);        // live batch elements of the tile
+      const int col0 = ct * BN;
+      const int p = sp.p[pi];
+      const float inv_p = sp.inv_p[pi];
+      const int buf = j % kBuffers;
+      const int* d_s =
+          reinterpret_cast<const int*>(bufs + buf * buffer_bytes(G, R, BN, RC));
+      const int16_t* rot_k = rot + static_cast<size_t>(pi) * 2 * N * N + col0 + k;
+      // (lanes past nb read lane 0's psi values)
+      int raw[kUintLanes][2];
+#pragma unroll
+      for (int l = 0; l < kUintLanes; ++l) {
+        const int b = l0 + l < nb ? l0 + l : 0;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int t = ts[jj * B + b0 + b] & (2 * N - 1);
+          raw[l][jj] = kGather ? rot_k[static_cast<size_t>(t) * N] : t;
+        }
+      }
+      // key[s][r][c] = bsk[s, pi, r, c, col0 + k]
+      int key[S][RC][2];
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+#pragma unroll
+        for (int r = 0; r < RC; ++r)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            key[s][r][c] = bsk[(static_cast<size_t>(s * n_primes + pi) * 2 * RC +
+                                r * 2 + c) * N + col0 + k];
+      mbar_wait(d_full + buf, (j / kBuffers) & 1);
+
+      if (kPointwise && l0 < nb) {
+        int out[kUintLanes][2];
+        const bool single[kUintLimbs] = {sp.single_add[pi * kMaxLimbs] != 0,
+                                         sp.single_add[pi * kMaxLimbs + 1] != 0,
+                                         sp.single_add[pi * kMaxLimbs + 2] != 0};
+        uint_lanes<BN>(d_s + l0 * RC * kUintLimbs * LDD + k, single, key, raw, p,
+                       inv_p, out);
+        // v == lo + 256 hi with lo in [-128, 128): K1's int8 limb planes
+#pragma unroll
+        for (int l = 0; l < kUintLanes; ++l) {
+          if (l0 + l >= nb) break;
+          const int gb = b0 + l0 + l;
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int lo = ((out[l][c] + 128) & 255) - 128;
+            int8_t* dst = v + ((static_cast<size_t>(pi) * B + gb) * 2 + c) * 2 * N +
+                          col0 + k;
+            if (kStores || out[l][c] == kNever) {
+              dst[0] = static_cast<int8_t>(lo);
+              dst[N] = static_cast<int8_t>((out[l][c] - lo) >> 8);
+            }
+          }
+        }
+      }
+      mbar_arrive(d_empty + buf);   // all threads: the buffer's d_hat is read
     }
   } else if constexpr (RC != 0) {
     // -- pointwise warpgroups at g3's shape: thread = column k and the
@@ -903,9 +1153,9 @@ int launch(const int8_t* digits, const int16_t* bsk, const int* ts,
     const int e = make_tensor_map(&map_d, digits, 2, dims, strides, box);
     if (e) return e;
   }
-  const int n_stages = stages_that_fit(G, R, BN, BK);
+  const int n_stages = stages_that_fit(G, R, BN, BK, RC);
   const int bytes = 1024 + n_stages * stage_bytes(BN, BK) +
-                    kBuffers * buffer_bytes(G, R, BN) + kBarrierBytes;
+                    kBuffers * buffer_bytes(G, R, BN, RC) + kBarrierBytes;
   // above 48 KB, dynamic shared memory needs the cap raised (per device)
   // (set once per device and size: the call costs host time on a host-bound path)
   thread_local int cap_device = -1, cap_bytes = 0;
@@ -922,7 +1172,7 @@ int launch(const int8_t* digits, const int16_t* bsk, const int* ts,
   const int tb = BM / (R * n_dl);
   const int n_tiles = n_primes * (N / BN) * ((B + tb - 1) / tb);
   const dim3 grid(n_tiles < sm_count() ? n_tiles : sm_count());
-  ntt_step_fused_kernel<G, BN, BK, RC><<<grid, threads(G), bytes, stream>>>(
+  ntt_step_fused_kernel<G, BN, BK, RC><<<grid, threads(G, RC), bytes, stream>>>(
       map_d, m.map_lo, m.map_hi, bsk, ts, rot, v, sp, n_primes, B, R, n_dl,
       N, n_stages);
   return static_cast<int>(cudaGetLastError());
@@ -949,7 +1199,7 @@ int dispatch(const int8_t* digits, const int16_t* bsk, const int* ts,
                               B, R, n_dl, N, stream);
 }
 
-// r[i] = barrett_add(x[i]) for i < n: the shape instance's Barrett on
+// r[i] = barrett_add(x[i]) for i < n: the shape instances' Barrett on
 // chosen inputs
 __global__ void barrett_kernel(const int* __restrict__ x, int* __restrict__ r,
                                int n, int p, float inv_p) {
@@ -982,10 +1232,13 @@ __global__ void barrett_check_kernel(uint32_t start, unsigned long long count,
 // 16-byte aligned; N % 64 == 0; 1 <= n_primes <= 8; digits of 1 <= n_dl <= 3
 // limbs (more than one only at group 2) and 1 <= R * n_dl <= 10 limb planes
 // a batch element; single_add holds n_primes * n_dl flags, (prime, limb).
-// `shape` != 0 launches the instance compiled at g3's shape on 64 x 128
-// tiles, and is refused unless the launch has that shape: group 3, R =
-// kShapeRows one-limb rows, N % 128 == 0, every row group 4 or 2 and every
-// prime >= 2^11 (where its Barrett is exact).
+// `shape` picks the instance: 0 the general one; 1 the one compiled at g3's
+// shape, on 64 x 128 tiles, refused unless the launch has that shape: group
+// 3, R = kShapeRows one-limb rows, N % 128 == 0, every row group 4 or 2
+// and every prime >= 2^11 (where its Barrett is exact); 2 the one compiled
+// at the uint keys' shape, on 64 x 128 tiles, refused unless group 2, R =
+// kUintRows rows of kUintLimbs limbs, N % 128 == 0, every row group 2 and
+// every prime in [2^11, kMaxPackedPrime].
 extern "C" int ztfhe_ntt_step_fused(
     const int8_t* digits, const int16_t* bsk, const int* ts,
     const int8_t* f_lo, const int8_t* f_hi, const int16_t* rot, int8_t* v,
@@ -997,7 +1250,10 @@ extern "C" int ztfhe_ntt_step_fused(
       (group != 2 && n_dl != 1) || R * n_dl > kMaxRows || N < 64 ||
       N % 64 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (shape && (group != 3 || R != kShapeRows || N % 128 != 0))
+  if (shape < 0 || shape > 2 ||
+      (shape == 1 && (group != 3 || R != kShapeRows || N % 128 != 0)) ||
+      (shape == 2 && (group != 2 || R != kUintRows || n_dl != kUintLimbs ||
+                      N % 128 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   StepParams sp;
   for (int i = 0; i < kMaxPrimes; ++i) {
@@ -1010,15 +1266,21 @@ extern "C" int ztfhe_ntt_step_fused(
           live && l < n_dl ? single_add[i * n_dl + l] : 1;
     if (sp.row_group[i] < 1)
       return static_cast<int>(cudaErrorInvalidValue);
-    if (shape && live && ((row_group[i] != 4 && row_group[i] != 2) ||
-                          primes[i] < kMinPrime))
+    if (shape && live &&
+        ((shape == 1 ? row_group[i] != 4 && row_group[i] != 2 : row_group[i] != 2) ||
+         primes[i] < kMinPrime || (shape == 2 && primes[i] > kMaxPackedPrime)))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (shape) {
+  if (shape == 1) {
     static_assert(stages_that_fit(3, kShapeRows, 128, 128) >= 3, "stages");
     return launch<3, 128, 128, kShapeRows>(digits, bsk, ts, f_lo, f_hi, rot, v,
                                            sp, n_primes, B, R, n_dl, N, s);
+  }
+  if (shape == 2) {
+    static_assert(stages_that_fit(2, kUintRows, 128, 128) >= 3, "stages");
+    return launch<2, 128, 128, kUintRows>(digits, bsk, ts, f_lo, f_hi, rot, v,
+                                          sp, n_primes, B, R, n_dl, N, s);
   }
   return group == 2 ? dispatch<2>(digits, bsk, ts, f_lo, f_hi, rot, v, sp,
                                   n_primes, B, R, n_dl, N, s)
@@ -1026,7 +1288,7 @@ extern "C" int ztfhe_ntt_step_fused(
                                   n_primes, B, R, n_dl, N, s);
 }
 
-// r[i] = the shape instance's Barrett of x[i] modulo p, i < n (device
+// r[i] = the shape instances' Barrett of x[i] modulo p, i < n (device
 // pointers).
 extern "C" int ztfhe_ntt_step_barrett(const int* x, int* r, int n, int p,
                                       float inv_p, void* stream) {
@@ -1038,7 +1300,7 @@ extern "C" int ztfhe_ntt_step_barrett(const int* x, int* r, int n, int p,
 }
 
 // Adds to *n_diff (device) the count of x = start + i (mod 2^32), 0 <= i <
-// count, where the shape instance's Barrett differs from the general
+// count, where the shape instances' Barrett differs from the general
 // instance's (__float2int_rn(__fmul_rn(__int2float_rn(x), inv_p))).
 extern "C" int ztfhe_ntt_step_barrett_mismatches(int start, long long count,
                                                  int p, float inv_p,

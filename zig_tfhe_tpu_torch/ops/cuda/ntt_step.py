@@ -43,15 +43,18 @@ bound: the single add where N * bound * (128 + 256 (p // 512 + 1)) <
 bounded by ``top_limb_bound``), reduce-then-combine otherwise (Bg_e = 2^8;
 every lower limb, bounded by 128).
 
-The kernel has two instances.  g3's steps (group 3, R = 4 one-limb digit
+The kernel has three instances.  g3's steps (group 3, R = 4 one-limb digit
 rows, every prime's row group 4 or 2, on the wide tiles of a large batch)
-take the one compiled at that shape, whose pointwise stage runs several
-lanes a thread against each key load, unrolled rows and a Barrett that
-rounds by an f32 add (exact for primes of at least ``MIN_PRIME``;
-``barrett_mismatches`` holds it to the conversion form on the card);
-``shape_instance`` is the choice, made from the launch's shape alone, and
-``ntt_step_fused.shape_launches`` counts it.  Every other launch takes the
-general instance.
+take the one compiled at that shape, and the uint keys' steps (group 2, R
+= 2 rows of 3-limb digits, row group 2 at every prime, on the wide tiles of
+a large batch: uint2 to uint8) the one compiled at theirs.  Their pointwise
+stages run several lanes a thread against each key load, unrolled rows
+(and limbs) and a Barrett that rounds by an f32 add (exact for primes of
+at least ``MIN_PRIME``; ``barrett_mismatches`` holds it to the conversion
+form on the card).  ``shape_instance`` is the choice, made from the
+launch's shape alone; ``ntt_step_fused.shape_launches`` counts g3's
+instance and ``ntt_step_fused.uint_shape_launches`` the uint keys'.  Every
+other launch takes the general instance.
 
 ``ntt_step_fused`` launches the kernel for CUDA tensors (or raises) and
 runs the plain PyTorch version, ``ntt_step_fused_reference``, for CPU
@@ -83,7 +86,12 @@ _COL_TILE = 64      # N must be a multiple of the kernel's narrowest stage
 _ROW_TILE = 64      # BM in the source: wgmma rows a tile, R * n_dl per lane
 _SHAPE_ROWS = 4     # kShapeRows: digit rows of the instance compiled at g3's shape
 _SHAPE_ROW_GROUPS = (2, 4)
-MIN_PRIME = 1 << 11  # kMinPrime: that instance's Barrett rounds exactly above it
+_UINT_ROWS = 2      # kUintRows: digit rows of the instance compiled at the uint
+_UINT_LIMBS = 3     # keys' shape, kUintLimbs: their limbs, and its row group
+_UINT_ROW_GROUP = 2
+MIN_PRIME = 1 << 11  # kMinPrime: the shape instances' Barrett rounds exactly above it
+# the instances, as the C entry point's `shape` names them
+GENERAL, G3_SHAPE, UINT_SHAPE = 0, 1, 2
 
 
 def supports(group: int, digit_limbs: int) -> bool:
@@ -194,18 +202,26 @@ def ntt_step_fused_reference(digits: torch.Tensor, bsk_step: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def shape_instance(plan: _ntt.NTTPlan, group: int, R: int, n_dl: int,
-                   B: int, sm_count: int) -> bool:
-    """Whether a launch takes the kernel's instance compiled at g3's shape:
-    group 3, R = 4 one-limb digit rows, every prime's row group 4 or 2 and
-    every prime >= ``MIN_PRIME``, on the 64 x 128 tiles that the entry
-    point takes when N % 128 == 0 and they give each of the card's
-    ``sm_count`` SMs one.  Every other launch runs the general instance."""
+                   B: int, sm_count: int) -> int:
+    """The kernel's instance that a launch takes, from its shape alone.
+    ``G3_SHAPE``: group 3, R = 4 one-limb digit rows, every prime's row
+    group 4 or 2; ``UINT_SHAPE``: group 2, R = 2 rows of 3-limb digits,
+    row group 2 at every prime; both with every prime >= ``MIN_PRIME``, on
+    the 64 x 128 tiles that the entry point takes when N % 128 == 0 and
+    they give each of the card's ``sm_count`` SMs one.  Every other launch
+    runs the ``GENERAL`` instance."""
     row_tiles = -(-B // (_ROW_TILE // (R * n_dl)))
-    return (group == 3 and R == _SHAPE_ROWS and n_dl == 1
-            and plan.N % 128 == 0
-            and plan.n_primes * (plan.N // 128) * row_tiles >= sm_count
-            and set(row_groups(plan, group)) <= set(_SHAPE_ROW_GROUPS)
-            and min(plan.primes) >= MIN_PRIME)
+    if (plan.N % 128 or min(plan.primes) < MIN_PRIME
+            or plan.n_primes * (plan.N // 128) * row_tiles < sm_count):
+        return GENERAL
+    groups = set(row_groups(plan, group))
+    if (group == 3 and R == _SHAPE_ROWS and n_dl == 1
+            and groups <= set(_SHAPE_ROW_GROUPS)):
+        return G3_SHAPE
+    if (group == 2 and R == _UINT_ROWS and n_dl == _UINT_LIMBS
+            and groups == {_UINT_ROW_GROUP}):
+        return UINT_SHAPE
+    return GENERAL
 
 
 @functools.lru_cache(maxsize=None)
@@ -284,8 +300,8 @@ def ntt_step_fused(digits: torch.Tensor, bsk_step: torch.Tensor,
     ``ntt_step_fused_reference``).  Any
     B.  CUDA tensors launch the kernel (and count the launch in
     ``ntt_step_fused.launches``, and in ``ntt_step_fused.shape_launches``
-    when it takes the instance of ``shape_instance``); CPU tensors run the
-    plain version."""
+    or ``ntt_step_fused.uint_shape_launches`` when ``shape_instance`` picks
+    g3's or the uint keys' instance); CPU tensors run the plain version."""
     _require_supported(digits, bsk_step, ts, plan, bgbit)
     tensors = (digits, bsk_step, ts)
     if all(t.device.type == "cpu" for t in tensors):
@@ -325,21 +341,23 @@ def _launch(lib, digits: torch.Tensor, bsk_step: torch.Tensor,
         tabs.fwd_lo_t.data_ptr(), tabs.fwd_hi_t.data_ptr(),
         tabs.rot.data_ptr(), v.data_ptr(),
         *host_scalar_ptrs(plan, group, bgbit), P, group, B, R, n_dl, N,
-        int(shape), stream)
+        shape, stream)
     _build.check(lib, err, "ntt_step_fused")
     ntt_step_fused.launches += 1
-    ntt_step_fused.shape_launches += int(shape)
+    ntt_step_fused.shape_launches += int(shape == G3_SHAPE)
+    ntt_step_fused.uint_shape_launches += int(shape == UINT_SHAPE)
     return v
 
 
 ntt_step_fused.launches = 0
 ntt_step_fused.shape_launches = 0
+ntt_step_fused.uint_shape_launches = 0
 
 
 def barrett_mismatches(p: int, device, start: int = -(1 << 31),
                        count: int = 1 << 32) -> int:
     """How many int32 x = start + i (mod 2^32), 0 <= i < count, the shape
-    instance's Barrett (its rounding by an f32 add of 1.5 * 2^23) reduces
+    instances' Barrett (its rounding by an f32 add of 1.5 * 2^23) reduces
     otherwise than the general instance's conversion form modulo p,
     counted on the CUDA ``device`` by the kernel's own device functions
     (all 2^32 inputs take a few ms)."""
